@@ -1,0 +1,24 @@
+"""repro_torch — the PyTorch/CUDA port of `repro` for NVIDIA Hopper.
+
+The package mirrors `repro`'s module layout and public names, so each
+counterpart sits where a reader of the JAX package expects it:
+
+  * `topology`  — graphs, mixing weights, structure extraction and the
+                  `MixingOp` gossip executor,
+  * `kernels`   — hand-written CUDA kernels for the gossip mat-vecs
+                  (`kernels/csrc/`), their plain PyTorch versions
+                  (`kernels.ref`) and the wrappers that dispatch between
+                  them,
+  * `comm`      — the identity gossip wire and its byte ledger,
+  * `core`      — the bilevel problem zoo, penalty/DIHGP/DAGM algebra,
+  * `solve`     — the `solve(problem, network, spec)` front-end
+                  (method="dagm", tier="reference"),
+  * `interop`   — builds port objects from `repro`'s numpy arrays.
+
+The port imports `torch` only.  Entry points run on the CUDA device
+unless the caller passes ``device="cpu"``; without a card they raise
+instead of falling back (`repro_torch.resolve_device`).
+"""
+from ._device import resolve_device
+
+__all__ = ["resolve_device"]

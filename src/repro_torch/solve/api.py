@@ -1,0 +1,105 @@
+"""`solve(problem, network, spec)` — the solver front-end of the port.
+
+This slice runs ``method="dagm"`` on ``tier="reference"``: one
+`dagm_run_chunk` of K rounds on the problem's device, every gossip
+through a `MixingOp` (the CUDA kernels on ring/circulant and
+Erdős–Rényi graphs).  The other methods and tiers raise
+NotImplementedError naming the ROADMAP queue item that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from .spec import SolverSpec, mixing_kwargs, validate_spec
+
+_QUEUED_METHODS = "ROADMAP queue 1 item 6 (baselines)"
+_QUEUED_TIERS = {"serve": "ROADMAP queue 1 item 9 (serve)",
+                 "sharded": "ROADMAP queue 1 item 11 (sharded tier)"}
+
+
+@dataclasses.dataclass
+class SolveResult:
+    """Outcome of a `solve` call."""
+    x: torch.Tensor              # final stacked outer iterates (n, d1)
+    y: torch.Tensor              # final stacked inner iterates (n, d2)
+    metrics: dict[str, torch.Tensor]   # per-outer-round traces, (K,)
+    ledger: Any = None           # repro_torch.comm.CommLedger (measured)
+    channels: Any = None         # final gossip ChannelStates
+    method: str = "dagm"
+    tier: str = "reference"
+    extras: dict = dataclasses.field(default_factory=dict)
+
+
+def _as_state(a, shape, device) -> torch.Tensor | None:
+    """numpy array or tensor -> float32 tensor of `shape` on `device`."""
+    if a is None:
+        return None
+    t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor)
+                        else a, dtype=torch.float32, device=device)
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"initial iterate has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    return t.contiguous()
+
+
+def solve(problem, network, spec: SolverSpec, *, x0=None, y0=None,
+          seed: int = 0, metrics_fn: Callable | None = None,
+          device=None, recorder=None) -> SolveResult:
+    """Run `spec` on (problem, network) and return a `SolveResult`.
+
+    problem:  a `repro_torch.core.problems.BilevelProblem` whose data
+              lies on `device`.
+    network:  a `repro_torch.topology.Network`.
+    x0/y0:    optional initial stacked iterates, numpy arrays or tensors.
+    seed:     the y0 draw (`torch.Generator(device).manual_seed(seed)`).
+    device:   where the run happens — CUDA unless the caller names
+              another; raises without a card.
+    """
+    validate_spec(spec)
+    dev = resolve_device(device)
+    if problem.device != dev:
+        raise ValueError(f"the problem's data lies on {problem.device} but "
+                         f"solve runs on {dev}; build the problem with "
+                         f"device={str(dev)!r}")
+    if spec.tier != "reference":
+        raise NotImplementedError(
+            f"tier={spec.tier!r} is {_QUEUED_TIERS[spec.tier]}")
+    if spec.method != "dagm":
+        raise NotImplementedError(
+            f"method={spec.method!r} is {_QUEUED_METHODS}")
+    if spec.faults is not None:
+        raise NotImplementedError(
+            "SolverSpec.faults is ROADMAP queue 1 item 7 (faults)")
+    if recorder is not None:
+        raise NotImplementedError(
+            "the flight recorder is ROADMAP queue 1 item 10 (obs)")
+    return _solve_dagm_reference(
+        problem, network, spec, device=dev, seed=seed,
+        metrics_fn=metrics_fn,
+        x0=_as_state(x0, (problem.n, problem.d1), dev),
+        y0=_as_state(y0, (problem.n, problem.d2), dev))
+
+
+def _schedule_hp(spec: SolverSpec):
+    from ..core.dagm import RoundHP
+    sched = spec.schedule.materialize(spec.K)
+    return RoundHP(alpha=sched.alpha, beta=sched.beta, gamma=sched.gamma)
+
+
+def _solve_dagm_reference(prob, net, spec: SolverSpec, *, device, x0, y0,
+                          seed, metrics_fn) -> SolveResult:
+    from ..core.dagm import dagm_init_carry, dagm_run_chunk
+    from ..topology.ops import make_mixing_op
+    W = make_mixing_op(net, device=device, **mixing_kwargs(spec))
+    carry0 = dagm_init_carry(prob, W, spec, x0, y0, seed)
+    ((x, y), cs), metrics = dagm_run_chunk(prob, W, spec, carry0, spec.K,
+                                           metrics_fn,
+                                           hp=_schedule_hp(spec))
+    W.ledger.charge_states(cs.values())
+    return SolveResult(x=x, y=y, metrics=metrics, ledger=W.ledger,
+                       channels=cs, method="dagm", tier="reference")
