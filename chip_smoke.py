@@ -55,8 +55,7 @@ E2E_RTOL, E2E_ATOL = 1e-3, 1e-4
 
 def cuda_ms(torch, fn, pool, iters=200, warmup=10) -> float:
     """Mean ms per call of fn(operands) over `iters` launches (CUDA
-    events), cycling through `pool` so large operands come from HBM and
-    not from L2, as they do on the main path."""
+    events), cycling through `pool` (see `operand_pool`)."""
     for i in range(warmup):
         fn(pool[i % len(pool)])
     torch.cuda.synchronize()
@@ -92,8 +91,11 @@ def device_ms(torch, fn, pool, symbol: str, iters=50) -> float:
 
 
 def operand_pool(torch, make, nbytes: int):
-    """Enough copies of the operands to exceed 3× the L2 cache (at most
-    64)."""
+    """Copies of the operands to cycle through: enough to exceed 3× the
+    L2 cache, so operands come from HBM, but at most 64.  The cap binds
+    for operands under ~2.4 MB (the (16, 2010) rows: 64 copies are
+    ~4-33 MB and stay in L2, as the main path's freshly written d2
+    operands do); those times are launch-latency readings."""
     copies = max(1, min(64, math.ceil(3 * L2_BYTES / max(nbytes, 1))))
     return [make() for _ in range(copies)]
 
@@ -126,12 +128,11 @@ def kernel_phase(torch, results: dict) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
-    ring = circulant_structure(make_network("ring", N_AGENTS).W)
 
     def ring_case(n):
-        if n == N_AGENTS:
-            return ring
-        return circulant_structure(make_network("ring", n).W)
+        s = circulant_structure(make_network("ring", n).W)
+        off, w = mm.circulant_tables(n, s.offsets, s.weights, dev)
+        return s, dict(w_self=s.w_self, offsets=off, weights=w)
 
     def er_case(n):
         net = make_network("erdos_renyi", n, r=0.5, seed=0)
@@ -150,7 +151,7 @@ def kernel_phase(torch, results: dict) -> None:
     # -- circulant_mix_matvec ------------------------------------------
     print("kernel circulant_mix_matvec (ring W·Y and (I−W)·Y)")
     for n, d in shapes + [(128, D1)]:
-        s = ring_case(n)
+        s, tabs = ring_case(n)
         I_minus = torch.eye(n, device=dev) - torch.as_tensor(
             make_network("ring", n).W, dtype=torch.float32, device=dev)
         W_dense = torch.as_tensor(make_network("ring", n).W,
@@ -160,8 +161,7 @@ def kernel_phase(torch, results: dict) -> None:
             pool = operand_pool(torch, lambda: torch.randn(
                 (n, d), generator=gen, device=dev).to(dt), n * d * item)
             for lap in (False, True):
-                kw = dict(w_self=s.w_self, offsets=s.offsets,
-                          weights=s.weights, laplacian=lap)
+                kw = dict(tabs, laplacian=lap)
                 y = pool[0]
                 got = mm.circulant_mix_matvec(y, **kw)
                 want = ref.circulant_mix_ref(
@@ -183,8 +183,10 @@ def kernel_phase(torch, results: dict) -> None:
                     Wl = I_minus if lap else W_dense
                     lib = cuda_ms(torch, lambda t: torch.matmul(Wl, t),
                                   pool)
+                # one read of Y, one write of the output, the k-entry
+                # offset and weight tables
                 k = len(s.offsets)
-                b_ms, b_by = bound(2 * n * d * item,
+                b_ms, b_by = bound(2 * n * d * item + 8 * k,
                                    (2 * (k + 1) + lap) * n * d)
                 print(f"    ms={ms:.5f} device_ms={dev_ms:.5f} "
                       f"plain_ms={plain:.5f} "
@@ -245,7 +247,7 @@ def kernel_phase(torch, results: dict) -> None:
 
     # -- circulant_neumann_step ----------------------------------------
     print("kernel circulant_neumann_step (ring, Eq. 14)")
-    s = ring
+    s, tabs = ring_case(N_AGENTS)
     beta = 0.1
     for n, d in shapes:
         def make():
@@ -255,20 +257,22 @@ def kernel_phase(torch, results: dict) -> None:
                                          device=dev)
             return h, hvp, p, dsc
         pool = operand_pool(torch, make, 4 * n * d * 4)
-        kw = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights,
-                  beta=beta)
+        kw = dict(tabs, beta=beta)
+        ref_kw = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights,
+                      beta=beta)
         got = mm.circulant_neumann_step(*pool[0], **kw)
-        want = ref.neumann_step_ref(*pool[0], **kw)
+        want = ref.neumann_step_ref(*pool[0], **ref_kw)
         torch.cuda.synchronize()
         err = check(f"({n}, {d}) float32", got, want, "float32")
         def launch(t):
             return mm.circulant_neumann_step(*t, **kw)
         ms = cuda_ms(torch, launch, pool)
         dev_ms = device_ms(torch, launch, pool, "circulant_neumann_kernel")
-        plain = cuda_ms(torch, lambda t: ref.neumann_step_ref(*t, **kw),
+        plain = cuda_ms(torch, lambda t: ref.neumann_step_ref(*t, **ref_kw),
                         pool, iters=50)
         k = len(s.offsets)
-        b_ms, b_by = bound(4 * n * d * 4 + n * 4, (2 * (k + 1) + 6) * n * d)
+        b_ms, b_by = bound(4 * n * d * 4 + n * 4 + 8 * k,
+                           (2 * (k + 1) + 6) * n * d)
         print(f"    ms={ms:.5f} device_ms={dev_ms:.5f} "
               f"plain_ms={plain:.5f} library_ms=n/a "
               f"bound_ms={b_ms:.5f} ({b_by})")
@@ -412,10 +416,9 @@ def main() -> int:
     # the CPU reference runs on the cores this process may use, not on
     # every core the host reports
     torch.set_num_threads(max(1, min(8, len(os.sched_getaffinity(0)))))
-    t0 = time.perf_counter()
-    took = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"({', '.join(f'{k} {v:.2f} s' for k, v in took.items()) or 'cached'})")
+    took = _build.build("mixing_matvec")
+    print(f"build: mixing_matvec "
+          f"{'cached' if took is None else f'{took:.2f} s'}")
     for log in sorted(_build.BUILD_DIR.glob(f"*-{_build.source_hash()}.log")):
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:

@@ -1,11 +1,10 @@
 """Build the CUDA sources in `csrc/` with nvcc and load them with ctypes.
 
-Each `csrc/<name>.cu` becomes one shared library with a plain C
-interface, `build/kernels/<name>-<hash>.so` under the repository root,
-keyed by a hash of every source in `csrc/` and the compiler flags, so an
-edit rebuilds and an unchanged tree reuses what is there.  All sources
-compile in parallel, one nvcc each.  Nothing builds at import: the
-first wrapper that launches a kernel calls `load`.
+`csrc/<name>.cu` becomes one shared library with a plain C interface,
+`build/kernels/<name>-<hash>.so` under the repository root, keyed by a
+hash of every source in `csrc/` and the compiler flags, so an edit
+rebuilds and an unchanged tree reuses what is there.  Nothing builds at
+import: the first wrapper that launches a kernel calls `load`.
 """
 from __future__ import annotations
 
@@ -60,39 +59,29 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{source_hash()}.so"
 
 
-def build_all() -> dict[str, float]:
-    """Compile every csrc/*.cu that has no current library, all at once.
+def build(name: str) -> float | None:
+    """Compile csrc/<name>.cu unless its current library exists.
 
-    Returns {name: seconds} for the sources it compiled (empty when all
-    were current).  The compiler's report (-Xptxas -v: registers, spills)
-    is kept beside each library as <name>-<hash>.log."""
+    Returns the seconds nvcc took, or None when the library was current.
+    The compiler's report (-Xptxas -v: registers, spills) is kept beside
+    the library as <name>-<hash>.log."""
+    lib = library_path(name)
+    if lib.exists():
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [src for src in sorted(CSRC.glob("*.cu"))
-            if not library_path(src.stem).exists()]
-    if not todo:
-        return {}
-    nvcc = find_nvcc()
-    procs = []
-    for src in todo:
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
-        procs.append((src, tmp, time.perf_counter(), subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    took, failed = {}, []
-    for src, tmp, t0, proc in procs:
-        log, _ = proc.communicate()
-        took[src.stem] = time.perf_counter() - t0
-        lib = library_path(src.stem)
-        lib.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{src.name} (exit {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, lib)      # atomic: concurrent builds agree
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    took = time.perf_counter() - t0
+    lib.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, lib)          # atomic: concurrent builds agree
     return took
 
 
@@ -101,9 +90,7 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            path = library_path(name)
-            if not path.exists():
-                build_all()
-            lib = ctypes.CDLL(str(path))
+            build(name)
+            lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib

@@ -18,17 +18,19 @@
 
 namespace {
 
-constexpr int kMaxOffsets = 16;
 constexpr int kThreads = 256;
 constexpr int kMaxGridRows = 65535;
 
-// Circulant row of W: W[i, i] = w_self, W[i, (i + off[t]) mod n] = w[t].
-// Passed by value, so it lives in the kernel's parameter space.
-struct CircParams {
-  int k;
-  int off[kMaxOffsets];
-  float w[kMaxOffsets];
+// Circulant row of W: W[i, i] = w_self, W[i, (i + off[t]) mod n] = w[t]
+// for t < k, with off/w device tables of any length k and every offset
+// in [0, n).  All threads of a warp read the same entry at once (one
+// broadcast load through the read-only cache), so the tables cost
+// nothing next to the k neighbor rows.
+struct Circ {
   float w_self;
+  int k;
+  const int* off;
+  const float* w;
 };
 
 __device__ __forceinline__ float load_f32(const float* p, size_t i) {
@@ -59,17 +61,17 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, size_t i,
 template <typename T>
 __global__ void circulant_mix_kernel(const T* __restrict__ y,
                                      T* __restrict__ out, int n, int d,
-                                     CircParams prm, int laplacian) {
+                                     Circ c, int laplacian) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= d) return;
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
     const size_t at = (size_t)i * d + j;
     const float yi = load_f32(y, at);
-    float acc = prm.w_self * yi;
-    for (int t = 0; t < prm.k; ++t) {
-      int src = i + prm.off[t];
+    float acc = c.w_self * yi;
+    for (int t = 0; t < c.k; ++t) {
+      int src = i + __ldg(c.off + t);
       if (src >= n) src -= n;
-      acc = acc + prm.w[t] * load_f32(y, (size_t)src * d + j);
+      acc = acc + __ldg(c.w + t) * load_f32(y, (size_t)src * d + j);
     }
     if (laplacian) acc = yi - acc;
     store_f32(out, at, acc);
@@ -120,17 +122,17 @@ __global__ void circulant_neumann_kernel(const T* __restrict__ h,
                                          const T* __restrict__ p,
                                          const float* __restrict__ dsc,
                                          T* __restrict__ out, int n, int d,
-                                         CircParams prm, float beta) {
+                                         Circ c, float beta) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= d) return;
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
     const size_t at = (size_t)i * d + j;
     const float hi = load_f32(h, at);
-    float mix = prm.w_self * hi;
-    for (int t = 0; t < prm.k; ++t) {
-      int src = i + prm.off[t];
+    float mix = c.w_self * hi;
+    for (int t = 0; t < c.k; ++t) {
+      int src = i + __ldg(c.off + t);
       if (src >= n) src -= n;
-      mix = mix + prm.w[t] * load_f32(h, (size_t)src * d + j);
+      mix = mix + __ldg(c.w + t) * load_f32(h, (size_t)src * d + j);
     }
     const float di = dsc[i];
     const float num =
@@ -143,35 +145,22 @@ dim3 grid_for(int n, int d) {
   return dim3((d + kThreads - 1) / kThreads, n < kMaxGridRows ? n : kMaxGridRows);
 }
 
-bool make_params(CircParams* prm, float w_self, int k, const int* offsets,
-                 const float* weights) {
-  if (k < 0 || k > kMaxOffsets) return false;
-  prm->k = k;
-  prm->w_self = w_self;
-  for (int t = 0; t < k; ++t) {
-    prm->off[t] = offsets[t];
-    prm->w[t] = weights[t];
-  }
-  return true;
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Offsets must lie in [0, n).
+// dtype: 0 = float32, 1 = bfloat16.  offsets (k,) int32 and weights (k,)
+// f32 are device pointers; every offset must lie in [0, n).
 extern "C" int circulant_mix(const void* y, void* out, int n, int d,
                              int dtype, float w_self, int k,
                              const int* offsets, const float* weights,
                              int laplacian, void* stream) {
-  CircParams prm;
-  if (!make_params(&prm, w_self, k, offsets, weights))
-    return (int)cudaErrorInvalidValue;
+  const Circ c{w_self, k, offsets, weights};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     circulant_mix_kernel<float><<<grid_for(n, d), kThreads, 0, s>>>(
-        (const float*)y, (float*)out, n, d, prm, laplacian);
+        (const float*)y, (float*)out, n, d, c, laplacian);
   } else if (dtype == 1) {
     circulant_mix_kernel<__nv_bfloat16><<<grid_for(n, d), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)y, (__nv_bfloat16*)out, n, d, prm, laplacian);
+        (const __nv_bfloat16*)y, (__nv_bfloat16*)out, n, d, c, laplacian);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -201,19 +190,17 @@ extern "C" int circulant_neumann(const void* h, const void* hvp,
                                  int n, int d, int dtype, float w_self, int k,
                                  const int* offsets, const float* weights,
                                  float beta, void* stream) {
-  CircParams prm;
-  if (!make_params(&prm, w_self, k, offsets, weights))
-    return (int)cudaErrorInvalidValue;
+  const Circ c{w_self, k, offsets, weights};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     circulant_neumann_kernel<float><<<grid_for(n, d), kThreads, 0, s>>>(
         (const float*)h, (const float*)hvp, (const float*)p, dsc,
-        (float*)out, n, d, prm, beta);
+        (float*)out, n, d, c, beta);
   } else if (dtype == 1) {
     circulant_neumann_kernel<__nv_bfloat16>
         <<<grid_for(n, d), kThreads, 0, s>>>(
             (const __nv_bfloat16*)h, (const __nv_bfloat16*)hvp,
-            (const __nv_bfloat16*)p, dsc, (__nv_bfloat16*)out, n, d, prm,
+            (const __nv_bfloat16*)p, dsc, (__nv_bfloat16*)out, n, d, c,
             beta);
   } else {
     return (int)cudaErrorInvalidValue;

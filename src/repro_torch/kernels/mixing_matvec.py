@@ -16,7 +16,10 @@ the kernel on PyTorch's current stream or raises.  Outputs have the
 input's dtype and are allocated here with `torch.empty`.
 
 The kernels take any n ≥ 1 and any d (the ragged edge is masked), f32
-or bf16.  No autograd: like `repro`'s Pallas tiers they register no
+or bf16.  The circulant offsets and weights are device tables of any
+length, as the sparse kernel's are (`circulant_tables` builds them).
+Like the gather indices they are not range-checked here: that would
+synchronize every launch.  No autograd: like `repro`'s Pallas tiers they register no
 backward, so an operand that requires grad is refused.
 
 Each wrapper counts its kernel launches in a plain integer attribute
@@ -32,17 +35,15 @@ import torch
 from . import _build
 from .ref import circulant_mix_ref, neumann_step_ref, sparse_mix_padded_ref
 
-MAX_OFFSETS = 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_IP, _FP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
-    "circulant_mix": (_P, _P, _I, _I, _I, _F, _I, _IP, _FP, _I, _P),
+    "circulant_mix": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _P),
     "sparse_mix": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "circulant_neumann": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _IP,
-                          _FP, _F, _P),
+    "circulant_neumann": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P,
+                          _F, _P),
 }
 
 
@@ -114,39 +115,45 @@ def _check_common(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} is on {t.device}; expected cpu or cuda")
 
 
-def _circulant_table(n: int, offsets, weights):
-    """Offsets reduced into [0, n) and C arrays of offsets/weights."""
-    offsets = tuple(int(o) % n for o in offsets)
-    weights = tuple(float(c) for c in weights)
+def circulant_tables(n: int, offsets, weights, device):
+    """The circulant kernels' (k,) int32 offset and (k,) f32 weight
+    tables on `device`, offsets reduced into [0, n)."""
+    offsets = [int(o) % n for o in offsets]
+    weights = [float(c) for c in weights]
     if len(offsets) != len(weights):
         raise ValueError(f"{len(offsets)} offsets but {len(weights)} "
                          f"weights")
-    if len(offsets) > MAX_OFFSETS:
-        raise ValueError(f"{len(offsets)} circulant offsets exceed the "
-                         f"kernel's limit of {MAX_OFFSETS}; use the "
-                         f"sparse or dense backend")
-    c_off = (ctypes.c_int * max(len(offsets), 1))(*offsets)
-    c_w = (ctypes.c_float * max(len(weights), 1))(*weights)
-    return offsets, weights, c_off, c_w
+    return (torch.tensor(offsets, dtype=torch.int32, device=device),
+            torch.tensor(weights, dtype=torch.float32, device=device))
 
 
-def circulant_mix_matvec(y: torch.Tensor, *, w_self: float, offsets,
-                         weights, laplacian: bool = False) -> torch.Tensor:
+def _check_circulant(offsets, weights, device) -> int:
+    k = offsets.shape[0] if isinstance(offsets, torch.Tensor) \
+        and offsets.dim() == 1 else -1
+    _check_table("offsets", offsets, (k,), torch.int32, device)
+    _check_table("weights", weights, (k,), torch.float32, device)
+    return k
+
+
+def circulant_mix_matvec(y: torch.Tensor, *, w_self: float,
+                         offsets: torch.Tensor, weights: torch.Tensor,
+                         laplacian: bool = False) -> torch.Tensor:
     """W·Y (or (I−W)·Y) for circulant W; y: (n, d) f32 or bf16.
 
-    W[i, (i+o) mod n] = c_o for o, c_o in zip(offsets, weights) (at most
-    16 offsets), W[i, i] = w_self.  f32 accumulation, output in y's
+    W[i, (i+o) mod n] = c_o for o, c_o in zip(offsets, weights),
+    W[i, i] = w_self; offsets (k,) int32 in [0, n) and weights (k,) f32
+    on y's device (`circulant_tables`).  f32 accumulation, output in y's
     dtype."""
     _check_state("y", y)
     n, d = y.shape
-    offsets, weights, c_off, c_w = _circulant_table(n, offsets, weights)
+    k = _check_circulant(offsets, weights, y.device)
     if y.device.type == "cpu":
-        return circulant_mix_ref(y.float(), float(w_self), offsets,
-                                 weights, laplacian).to(y.dtype)
+        return circulant_mix_ref(y.float(), float(w_self), offsets.tolist(),
+                                 weights.tolist(), laplacian).to(y.dtype)
     out = torch.empty_like(y)
     _launch("circulant_mix", y.device, y.data_ptr(), out.data_ptr(), n, d,
-            _DTYPE_CODE[y.dtype], float(w_self), len(offsets), c_off, c_w,
-            int(bool(laplacian)))
+            _DTYPE_CODE[y.dtype], float(w_self), k, offsets.data_ptr(),
+            weights.data_ptr(), int(bool(laplacian)))
     circulant_mix_matvec.launches += 1
     return out
 
@@ -180,31 +187,34 @@ def sparse_mix_matvec(y: torch.Tensor, w_self: torch.Tensor,
 
 def circulant_neumann_step(h: torch.Tensor, hvp_h: torch.Tensor,
                            p: torch.Tensor, d_scalar: torch.Tensor, *,
-                           w_self: float, offsets, weights,
+                           w_self: float, offsets: torch.Tensor,
+                           weights: torch.Tensor,
                            beta: float) -> torch.Tensor:
     """One fused DIHGP Neumann iteration (Eq. 14) for circulant W:
 
         h⁺ = (D̃h − (I−W)h − β·hvp_h − p) / D̃
 
     h, hvp_h, p: (n, d), one dtype (f32; bf16 is accepted and
-    accumulated in f32); d_scalar: (n, 1) f32 per-agent D̃; β a Python
-    number (a runtime kernel argument)."""
+    accumulated in f32); d_scalar: (n, 1) f32 per-agent D̃; the
+    circulant W as in `circulant_mix_matvec`; β a Python number (a
+    runtime kernel argument)."""
     _check_state("h", h)
     _check_state("hvp_h", hvp_h, h.shape, like=h)
     _check_state("p", p, h.shape, like=h)
     n, d = h.shape
     _check_table("d_scalar", d_scalar, (n, 1), torch.float32, h.device)
-    offsets, weights, c_off, c_w = _circulant_table(n, offsets, weights)
+    k = _check_circulant(offsets, weights, h.device)
     if h.device.type == "cpu":
         return neumann_step_ref(h.float(), hvp_h.float(), p.float(),
                                 d_scalar, w_self=float(w_self),
-                                offsets=offsets, weights=weights,
+                                offsets=offsets.tolist(),
+                                weights=weights.tolist(),
                                 beta=float(beta)).to(h.dtype)
     out = torch.empty_like(h)
     _launch("circulant_neumann", h.device, h.data_ptr(), hvp_h.data_ptr(),
             p.data_ptr(), d_scalar.data_ptr(), out.data_ptr(), n, d,
-            _DTYPE_CODE[h.dtype], float(w_self), len(offsets), c_off, c_w,
-            float(beta))
+            _DTYPE_CODE[h.dtype], float(w_self), k, offsets.data_ptr(),
+            weights.data_ptr(), float(beta))
     circulant_neumann_step.launches += 1
     return out
 

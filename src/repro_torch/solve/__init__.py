@@ -6,11 +6,11 @@
 """
 from .api import SolveResult, solve
 from .spec import (METHODS, TIERS, CommSpec, MixingSpec, RoundSchedules,
-                   ScheduleSpec, ShardedSpec, SolverSpec, dagm_spec,
+                   ScheduleSpec, SolverSpec, dagm_spec,
                    mixing_kwargs, validate_spec)
 
 __all__ = [
     "CommSpec", "METHODS", "MixingSpec", "RoundSchedules", "ScheduleSpec",
-    "ShardedSpec", "SolveResult", "SolverSpec", "TIERS", "dagm_spec",
+    "SolveResult", "SolverSpec", "TIERS", "dagm_spec",
     "mixing_kwargs", "solve", "validate_spec",
 ]

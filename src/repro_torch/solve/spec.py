@@ -10,8 +10,11 @@
   arrays.  γ defaults to float32(1)/float32(α), the paper's coupling.
 * `MixingSpec` — the gossip execution backend (`repro_torch.topology`).
 * `CommSpec`   — the gossip wire (identity in this slice of the port).
-* `ShardedSpec`— mesh wiring of the sharded tier (ROADMAP queue 1
-  item 11; kept so specs carry the same fields as `repro`'s).
+
+`repro`'s options of the methods and tiers that are not ported yet
+(`ShardedSpec`, `CommSpec.persist_ef`, the baselines' `momentum`, `b`
+and `N`) arrive with the ROADMAP items that port the code reading them;
+`solve` refuses those methods and tiers until then.
 """
 from __future__ import annotations
 
@@ -105,15 +108,6 @@ class MixingSpec:
 class CommSpec:
     """Gossip wire policy — see repro_torch.comm.parse_comm_spec."""
     spec: str = "identity"
-    persist_ef: bool = False    # sharded tier only
-
-
-@dataclasses.dataclass(frozen=True)
-class ShardedSpec:
-    """Mesh wiring of the sharded tier (not ported yet)."""
-    axis: Any = "data"
-    mix_every: int = 1
-    unroll_loops: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,12 +121,8 @@ class SolverSpec:
     schedule: ScheduleSpec = ScheduleSpec()
     mixing: MixingSpec = MixingSpec()
     comm: CommSpec = CommSpec()
-    sharded: ShardedSpec = ShardedSpec()
     dihgp: str = "dense"        # "dense" | "matrix_free" | "exact"
     curvature: float | None = None   # λmax bound for matrix_free
-    momentum: float = 0.9       # ma_dbo tracker momentum
-    b: int = 3                  # dgbo Hessian gossip rounds
-    N: int = 5                  # dgtbo JHIP iterations
     faults: Any = None          # fault injection (not ported yet)
 
     def comm_channels(self, d1: int, d2: int) -> list[tuple]:
@@ -161,8 +151,7 @@ def validate_spec(spec: SolverSpec) -> None:
     if spec.tier not in TIERS:
         raise ValueError(
             f"unknown tier {spec.tier!r}; expected one of {TIERS}")
-    for name, val in (("K", spec.K), ("M", spec.M), ("b", spec.b),
-                      ("N", spec.N)):
+    for name, val in (("K", spec.K), ("M", spec.M)):
         if int(val) <= 0:
             raise ValueError(
                 f"SolverSpec.{name} must be a positive iteration count "
@@ -176,10 +165,6 @@ def validate_spec(spec: SolverSpec) -> None:
     spec.schedule.materialize(spec.K)
     if spec.dihgp not in ("dense", "matrix_free", "exact"):
         raise ValueError(f"unknown dihgp backend {spec.dihgp!r}")
-    if spec.comm.persist_ef and spec.tier != "sharded":
-        raise ValueError(
-            f"CommSpec.persist_ef=True is a sharded-tier knob; got "
-            f"tier={spec.tier!r}")
 
 
 def mixing_kwargs(spec: SolverSpec) -> dict:

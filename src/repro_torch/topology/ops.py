@@ -50,7 +50,7 @@ import torch
 from .._device import resolve_device
 from ..kernels.mixing_matvec import (circulant_mix_matvec,
                                      circulant_neumann_step,
-                                     sparse_mix_matvec)
+                                     circulant_tables, sparse_mix_matvec)
 from ..kernels.ref import neumann_update as _neumann_update
 from ..kernels.ref import sparse_mix_ref
 from .graphs import (circulant_graph, complete_graph, erdos_renyi_graph,
@@ -193,6 +193,10 @@ class MixingOp:
                 f"with n >= 2")
         else:
             self.backend = base
+        if self.backend == "circulant":
+            s = self.structure
+            self._circ_off, self._circ_w = circulant_tables(
+                s.n, s.offsets, s.weights, self.device)
         if self.backend == "sparse_gather":
             sp = self.sparse
             dev = self.device
@@ -243,9 +247,10 @@ class MixingOp:
             # accumulates the rounded values in f32
             flat = flat.to(self.storage_dtype)
         if self.backend == "circulant":
-            s = self.structure
-            out = circulant_mix_matvec(flat.contiguous(), w_self=s.w_self,
-                                       offsets=s.offsets, weights=s.weights,
+            out = circulant_mix_matvec(flat.contiguous(),
+                                       w_self=self.structure.w_self,
+                                       offsets=self._circ_off,
+                                       weights=self._circ_w,
                                        laplacian=laplacian)
         elif self.backend == "sparse_gather" and self._sp_use_padded:
             out = sparse_mix_matvec(flat.contiguous(), self._sp_wself,
@@ -276,13 +281,12 @@ class MixingOp:
         (n,) + (1,)*…; beta: a Python number."""
         if self.backend == "circulant" and self.storage_dtype is None:
             flat = h.reshape(h.shape[0], -1).contiguous()
-            s = self.structure
             out = circulant_neumann_step(
                 flat, hvp_h.reshape(flat.shape).contiguous(),
                 p.reshape(flat.shape).contiguous(),
                 d_scalar.reshape(h.shape[0], 1).float().contiguous(),
-                w_self=s.w_self, offsets=s.offsets, weights=s.weights,
-                beta=float(beta))
+                w_self=self.structure.w_self, offsets=self._circ_off,
+                weights=self._circ_w, beta=float(beta))
             return out.reshape(h.shape)
         # sparse / dense / bf16-storage tiers compose the same algebra
         # from the backend mix (only the W·h term is storage-quantized)

@@ -46,6 +46,11 @@ def _close(got, want):
     assert err <= tol, (err, tol)
 
 
+def _tables(s, dev):
+    off, w = mm.circulant_tables(s.n, s.offsets, s.weights, dev)
+    return dict(w_self=s.w_self, offsets=off, weights=w)
+
+
 def _randn(shape, dtype, dev, seed=0):
     rng = np.random.default_rng(seed)
     return torch.as_tensor(rng.standard_normal(shape),
@@ -62,8 +67,7 @@ def test_circulant_mix_kernel(cuda, shape, dtype, laplacian, kind, offsets):
     s = circulant_structure(make_network(kind, n, offsets=offsets).W)
     y = _randn(shape, dtype, cuda)
     before = mm.circulant_mix_matvec.launches
-    got = mm.circulant_mix_matvec(y, w_self=s.w_self, offsets=s.offsets,
-                                  weights=s.weights, laplacian=laplacian)
+    got = mm.circulant_mix_matvec(y, laplacian=laplacian, **_tables(s, cuda))
     torch.cuda.synchronize()
     assert mm.circulant_mix_matvec.launches == before + 1
     assert got.dtype == dtype and got.shape == y.shape
@@ -98,20 +102,45 @@ def test_circulant_neumann_kernel(cuda, shape, dtype):
     h, hvp, p = (_randn(shape, dtype, cuda, seed=i) for i in range(3))
     dsc = torch.as_tensor(np.random.default_rng(3).uniform(
         1.5, 3.0, (n, 1)), dtype=torch.float32).to(cuda)
-    kw = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights,
-              beta=0.1)
     before = mm.circulant_neumann_step.launches
-    got = mm.circulant_neumann_step(h, hvp, p, dsc, **kw)
+    got = mm.circulant_neumann_step(h, hvp, p, dsc, beta=0.1,
+                                    **_tables(s, cuda))
     torch.cuda.synchronize()
     assert mm.circulant_neumann_step.launches == before + 1
     want = ref.neumann_step_ref(h.float(), hvp.float(), p.float(), dsc,
-                                **kw).to(dtype)
+                                w_self=s.w_self, offsets=s.offsets,
+                                weights=s.weights, beta=0.1).to(dtype)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("d", [1, 129, 2010])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_many_offsets_circulant_kernels(cuda, d, dtype):
+    """18 neighbors per agent (offsets ±1..±9 at n = 64): the auto rule
+    takes the circulant tier, and both circulant kernels launch."""
+    net = make_network("circulant", 64, offsets=tuple(range(1, 10)))
+    s = circulant_structure(net.W)
+    assert len(s.offsets) == 18
+    assert make_mixing_op(net, device=cuda).backend == "circulant"
+    y, hvp, p = (_randn((64, d), dtype, cuda, seed=i) for i in range(3))
+    dsc = torch.as_tensor(np.random.default_rng(3).uniform(
+        1.5, 3.0, (64, 1)), dtype=torch.float32).to(cuda)
+    for lap in (False, True):
+        got = mm.circulant_mix_matvec(y, laplacian=lap, **_tables(s, cuda))
+        want = ref.circulant_mix_ref(y.float(), s.w_self, s.offsets,
+                                     s.weights, lap).to(dtype)
+        _close(got, want)
+    got = mm.circulant_neumann_step(y, hvp, p, dsc, beta=0.1,
+                                    **_tables(s, cuda))
+    want = ref.neumann_step_ref(y.float(), hvp.float(), p.float(), dsc,
+                                w_self=s.w_self, offsets=s.offsets,
+                                weights=s.weights, beta=0.1).to(dtype)
     _close(got, want)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     s = circulant_structure(make_network("ring", 8).W)
-    kw = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights)
+    kw = _tables(s, cuda)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         mm.circulant_mix_matvec(torch.zeros(8, 4, dtype=torch.float64,
                                             device=cuda), **kw)
@@ -120,6 +149,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="requires grad"):
         mm.circulant_mix_matvec(torch.zeros(8, 4, device=cuda,
                                             requires_grad=True), **kw)
+    with pytest.raises(ValueError, match="on cuda"):
+        mm.circulant_mix_matvec(torch.zeros(8, 4, device=cuda),
+                                **_tables(s, "cpu"))
     sp = sparse_structure(make_network("ring", 8).W)
     with pytest.raises(ValueError, match="on cuda"):
         mm.sparse_mix_matvec(torch.zeros(8, 4, device=cuda),

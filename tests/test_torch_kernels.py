@@ -48,19 +48,26 @@ def _pair(y: np.ndarray, dtype: str):
     return j, t
 
 
+def _tables(s):
+    """The port's circulant offset/weight tables of structure `s`."""
+    off, w = tmm.circulant_tables(s.n, s.offsets, s.weights, "cpu")
+    return dict(w_self=s.w_self, offsets=off, weights=w)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("laplacian", [False, True])
-@pytest.mark.parametrize("kind,offsets", [("ring", (1,)),
-                                          ("circulant", (1, 2))])
-def test_circulant_mix_matches_pallas(dtype, laplacian, kind, offsets):
-    n, d = 16, 256
+@pytest.mark.parametrize("kind,n,offsets", [
+    ("ring", 16, (1,)), ("circulant", 16, (1, 2)),
+    ("circulant", 64, tuple(range(1, 10)))])     # k = 18 neighbors
+def test_circulant_mix_matches_pallas(dtype, laplacian, kind, n, offsets):
+    d = 256
     s = circulant_structure(j_make_network(kind, n, offsets=offsets).W)
+    assert len(s.offsets) == 2 * len(offsets) or kind == "ring"
     jy, ty = _pair(_data((n, d)), dtype)
     want = jmm.circulant_mix_matvec(jy, w_self=s.w_self, offsets=s.offsets,
                                     weights=s.weights, laplacian=laplacian,
                                     interpret=True)
-    got = tmm.circulant_mix_matvec(ty, w_self=s.w_self, offsets=s.offsets,
-                                   weights=s.weights, laplacian=laplacian)
+    got = tmm.circulant_mix_matvec(ty, laplacian=laplacian, **_tables(s))
     assert got.dtype == ty.dtype
     _assert_close(got, want, dtype)
 
@@ -112,7 +119,8 @@ def test_neumann_step_matches_pallas(beta):
                                         (h, hvp, p, dsc)), interpret=True,
                                       **kw)
     got = tmm.circulant_neumann_step(*(torch.as_tensor(a) for a in
-                                       (h, hvp, p, dsc)), **kw)
+                                       (h, hvp, p, dsc)), beta=beta,
+                                     **_tables(s))
     _assert_close(got, want, "float32")
 
 
@@ -120,8 +128,7 @@ def test_cpu_wrappers_run_the_plain_versions_without_launching():
     tmm.reset_launch_counts()
     s = circulant_structure(j_make_network("ring", 5).W)
     y = torch.as_tensor(_data((5, 7)))
-    out = tmm.circulant_mix_matvec(y, w_self=s.w_self, offsets=s.offsets,
-                                   weights=s.weights)
+    out = tmm.circulant_mix_matvec(y, **_tables(s))
     want = tref.circulant_mix_ref(y, s.w_self, s.offsets, s.weights)
     assert torch.equal(out, want)
     assert tmm.launch_counts() == {"circulant_mix_matvec": 0,
@@ -131,7 +138,7 @@ def test_cpu_wrappers_run_the_plain_versions_without_launching():
 
 def test_wrappers_refuse_bad_operands():
     s = circulant_structure(j_make_network("ring", 8).W)
-    kw = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights)
+    kw = _tables(s)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tmm.circulant_mix_matvec(torch.zeros(8, 4, dtype=torch.float64),
                                  **kw)
@@ -142,10 +149,17 @@ def test_wrappers_refuse_bad_operands():
                                  **kw)
     with pytest.raises(ValueError, match=r"\(n, d\)"):
         tmm.circulant_mix_matvec(torch.zeros(8), **kw)
-    with pytest.raises(ValueError, match="limit of 16"):
-        tmm.circulant_mix_matvec(torch.zeros(40, 4), w_self=0.5,
-                                 offsets=tuple(range(1, 18)),
-                                 weights=(0.01,) * 17)
+    with pytest.raises(ValueError, match="offsets must be torch.int32"):
+        tmm.circulant_mix_matvec(torch.zeros(8, 4), w_self=s.w_self,
+                                 offsets=kw["offsets"].long(),
+                                 weights=kw["weights"])
+    with pytest.raises(ValueError, match=r"weights must be .* shape \(2,\)"):
+        tmm.circulant_mix_matvec(torch.zeros(8, 4), w_self=s.w_self,
+                                 offsets=kw["offsets"],
+                                 weights=kw["weights"][:1])
+    with pytest.raises(TypeError, match="offsets must be a torch.Tensor"):
+        tmm.circulant_mix_matvec(torch.zeros(8, 4), w_self=s.w_self,
+                                 offsets=s.offsets, weights=kw["weights"])
     sp = sparse_structure(j_make_network("ring", 8).W)
     with pytest.raises(ValueError, match="int32"):
         tmm.sparse_mix_matvec(torch.zeros(8, 4), torch.as_tensor(sp.w_self),

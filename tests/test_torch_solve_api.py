@@ -6,6 +6,7 @@ test_torch_solve.py.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -22,7 +23,7 @@ from repro.solve import solve as jsolve
 from repro.topology import make_network as j_make_network
 
 from repro_torch.core import problems as tp
-from repro_torch.solve import ScheduleSpec, SolverSpec, solve
+from repro_torch.solve import CommSpec, ScheduleSpec, SolverSpec, solve
 from repro_torch.topology import make_network
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -81,6 +82,19 @@ def test_queued_paths_raise_naming_their_roadmap_item():
             solve(tprob, net, spec, device="cpu", **kw)
     with pytest.raises(ValueError, match="positive iteration count"):
         solve(tprob, net, SolverSpec(K=0), device="cpu")
+
+
+def test_spec_carries_only_what_the_port_reads():
+    """The port's SolverSpec is a subset of repro's: the options of the
+    baselines and the sharded tier come with the code that reads them, so
+    a caller cannot set one that would be silently ignored."""
+    names = {f.name for f in dataclasses.fields(SolverSpec)}
+    assert names <= {f.name for f in dataclasses.fields(JSpec)}
+    assert not names & {"sharded", "momentum", "b", "N"}
+    with pytest.raises(TypeError):
+        SolverSpec(momentum=0.5)
+    with pytest.raises(TypeError):
+        CommSpec(persist_ef=True)
 
 
 def test_schedules_materialize_like_repro():

@@ -23,6 +23,8 @@ from repro_torch.topology import structure as tstructure
 
 GRAPHS = [("ring", {}), ("circulant", {"offsets": (1, 2)}),
           ("erdos_renyi", {"r": 0.5, "seed": 0}), ("star", {})]
+# 18 neighbors per agent: the circulant tier at n = 64 (2(k+1) ≤ n)
+MANY_OFFSETS = {"offsets": tuple(range(1, 10))}
 
 
 @pytest.mark.parametrize("kind,kw", GRAPHS + [("complete", {}),
@@ -83,6 +85,31 @@ def test_neumann_step_matches_repro(kind, kw):
                                rtol=0)
 
 
+@pytest.mark.parametrize("laplacian", [False, True])
+def test_many_offsets_circulant_matches_repro(laplacian):
+    """A circulant graph with 18 neighbors per agent takes the circulant
+    tier on both sides, for the mix and the fused Neumann step."""
+    n, d = 64, 40
+    jop = j_make_mixing_op(j_make_network("circulant", n, **MANY_OFFSETS))
+    top = make_mixing_op(make_network("circulant", n, **MANY_OFFSETS),
+                         device="cpu")
+    assert jop.backend.startswith("circulant") and top.backend == "circulant"
+    rng = np.random.default_rng(2)
+    h, hvp, p = (rng.standard_normal((n, d)).astype(np.float32)
+                 for _ in range(3))
+    dsc = rng.uniform(1.5, 3.0, (n, 1)).astype(np.float32)
+    np.testing.assert_allclose(
+        top._apply(torch.as_tensor(h), laplacian).numpy(),
+        np.asarray(jop._apply(jnp.asarray(h), laplacian)), atol=1e-6,
+        rtol=0)
+    np.testing.assert_allclose(
+        top.neumann_step(*(torch.as_tensor(a) for a in (h, hvp, p, dsc)),
+                         0.3).numpy(),
+        np.asarray(jop.neumann_step(*(jnp.asarray(a)
+                                      for a in (h, hvp, p, dsc)), 0.3)),
+        atol=1e-6, rtol=0)
+
+
 def test_auto_rules_and_pallas_aliases():
     """circulant when 2(k+1) ≤ n; padded gather when n·k ≤ 2·nnz, CSR
     otherwise (star); dense when nnz + n = n²; `*_pallas` names alias
@@ -98,6 +125,9 @@ def test_auto_rules_and_pallas_aliases():
     assert star.backend == "sparse_gather" and not star._sp_use_padded
     assert make_mixing_op(make_network("complete", 6),
                           device="cpu").backend == "dense"
+    wide = make_mixing_op(make_network("circulant", 64, **MANY_OFFSETS),
+                          device="cpu")
+    assert wide.backend == "circulant" and wide._circ_off.shape == (18,)
     assert make_mixing_op(ring, "circulant_pallas",
                           device="cpu").backend == "circulant"
     assert make_mixing_op(ring, "sparse_gather_pallas",
