@@ -1,16 +1,26 @@
-"""repro_torch.comm — the gossip wire (identity) and its byte ledger.
+"""repro_torch.comm — gossip compressors, error feedback and the byte
+ledger.
 
-Counterpart of `repro.comm` for the identity wire: `parse_comm_spec`,
-`ChannelState` with its send counter, and the byte-accurate
-`CommLedger`.  Lossy compressors are ROADMAP queue 1 item 5.
+Counterpart of `repro.comm`: `parse_comm_spec` (identity, bf16, int8,
+int4, top-k, rand-k, each optionally with error feedback),
+`row_quant_params` (bitwise the reference's wire metadata), the
+`ChannelState` threaded through the round loops, and the byte-accurate
+`CommLedger`.
 """
-from .compressors import (F32_BYTES, CommPolicy, Compressor,
-                          make_compressor, parse_comm_spec)
-from .feedback import ChannelState, channel_init, open_channels
+from .compressors import (BF16_BYTES, F32_BYTES, QUANT_META_BYTES,
+                          Bf16Compressor, CommPolicy, Compressor,
+                          RandKCompressor, StochasticQuantCompressor,
+                          TopKCompressor, make_compressor,
+                          parse_comm_spec, row_quant_params)
+from .feedback import (ChannelState, channel_init, channel_seeds,
+                       compressed_payload, open_channels, send_seed)
 from .ledger import Channel, CommLedger, static_ledger
 
 __all__ = [
-    "Channel", "ChannelState", "CommLedger", "CommPolicy", "Compressor",
-    "F32_BYTES", "channel_init", "make_compressor", "open_channels",
-    "parse_comm_spec", "static_ledger",
+    "BF16_BYTES", "Bf16Compressor", "Channel", "ChannelState",
+    "CommLedger", "CommPolicy", "Compressor", "F32_BYTES",
+    "QUANT_META_BYTES", "RandKCompressor", "StochasticQuantCompressor",
+    "TopKCompressor", "channel_init", "channel_seeds",
+    "compressed_payload", "make_compressor", "open_channels",
+    "parse_comm_spec", "row_quant_params", "send_seed", "static_ledger",
 ]

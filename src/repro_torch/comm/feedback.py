@@ -1,13 +1,25 @@
-"""Gossip channel state — the identity-wire part of `repro.comm.feedback`.
+"""CHOCO-style error feedback and the gossip channel state — a torch
+copy of `repro.comm.feedback`.
+
+Every agent keeps `hat`, the replica of its own state that its
+neighbors hold.  Each exchange transmits only the compressed innovation
+
+    q   = C(x − hat)          (what crosses the wire)
+    hat ← hat + q             (every endpoint applies the same update)
+
+and the mixing consumes `hat`, so compression error does not compound.
+Without EF the payload is simply C(x) and `hat` stays None.
 
 `ChannelState` is threaded through the round loops of
 `repro_torch.core.dagm`, one per gossip channel.  Its `sends` counter is
 a host integer, bumped once per exchange, which `CommLedger
-.charge_states` reads back after the run, so byte accounting reflects
-the exchanges that actually ran.  The error-feedback replica `hat`
-exists for the lossy compressors of ROADMAP queue 1 item 5 (which also
-bring the per-channel random streams); on the identity wire it stays
-None.
+.charge_states` reads back after the run.  Its random stream is a host
+integer too: the channel's `seed`, from which `send_seed(seed, sends)`
+derives the int32 seed of each send — no generator state and no device
+synchronization, and the same sequence on the CPU and the card.
+`repro` splits a `jax.random` key per send instead; the two streams
+differ, so the parity tests hand the port `repro`'s per-send seeds
+through `MixingOp._next_seed`.
 """
 from __future__ import annotations
 
@@ -18,6 +30,38 @@ import torch
 
 from .compressors import CommPolicy
 
+_M32 = 0xFFFFFFFF
+_INT32_MAX = 2 ** 31 - 1
+# the channel streams' own fold constant, disjoint from y0's draw (as
+# repro's `channel_keys` folds 0xC033 into the run's key)
+_CHANNEL_FOLD = 0xC033
+
+
+def _fmix32(x: int) -> int:
+    """murmur3's 32-bit finalizer on a Python int."""
+    x &= _M32
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & _M32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & _M32
+    x ^= x >> 16
+    return x
+
+
+def channel_seeds(seed: int, names) -> dict:
+    """{name: channel seed} for the run seed `seed`, one stream per
+    channel (counterpart of `repro.comm.feedback.channel_keys`)."""
+    run = _fmix32(_fmix32(seed) ^ _CHANNEL_FOLD)
+    return {name: _fmix32(run + (i + 1) * 0x9E3779B9)
+            for i, name in enumerate(names)}
+
+
+def send_seed(channel_seed: int, send: int) -> int:
+    """The kernel seed of the channel's `send`-th exchange, in
+    [0, 2³¹ − 1) as `repro`'s `randint(0, int32 max)` draws it."""
+    h = _fmix32(_fmix32(channel_seed ^ ((send * 0x85EBCA6B) & _M32)))
+    return h % _INT32_MAX
+
 
 @dataclasses.dataclass
 class ChannelState:
@@ -26,10 +70,12 @@ class ChannelState:
     hat:   EF replica of the gossiped variable (None without EF).
     sends: gossip exchanges so far.
     name:  channel label (ledger key).
+    seed:  the channel's random stream (`send_seed`).
     """
     hat: Any
     sends: int
     name: str = "channel"
+    seed: int = 0
 
     def bump(self) -> "ChannelState":
         return dataclasses.replace(self, sends=self.sends + 1)
@@ -37,18 +83,40 @@ class ChannelState:
     def reset_hat(self) -> "ChannelState":
         """Reopen the channel for a fresh variable (the DIHGP h vector,
         re-initialized every outer round): neighbors' replicas restart
-        at zero, the send counter continues."""
+        at zero, the send counter and the stream continue."""
         hat = None if self.hat is None else torch.zeros_like(self.hat)
         return dataclasses.replace(self, hat=hat)
 
 
-def channel_init(policy: CommPolicy, name: str, x) -> ChannelState:
+def channel_init(policy: CommPolicy, name: str, x, seed: int = 0
+                 ) -> ChannelState:
     """Open a gossip channel for the stacked (n, ...) template `x`."""
     hat = torch.zeros_like(x) if policy.ef else None
-    return ChannelState(hat=hat, sends=0, name=name)
+    return ChannelState(hat=hat, sends=0, name=name, seed=int(seed))
 
 
-def open_channels(op, templates: dict) -> dict:
+def open_channels(op, templates: dict, seed: int = 0) -> dict:
     """One ledger-registered channel per {name: template} on a
-    MixingOp."""
-    return {name: op.comm_channel(name, x) for name, x in templates.items()}
+    MixingOp, seeded by `channel_seeds(seed, ...)`."""
+    seeds = channel_seeds(seed, list(templates))
+    return {name: op.comm_channel(name, x, seeds[name])
+            for name, x in templates.items()}
+
+
+def compressed_payload(policy: CommPolicy, x, st: ChannelState,
+                       seed: int | None = None):
+    """Decoded message the neighbors receive for stacked x (n, ...),
+    plus the advanced channel state.  `seed` is this send's seed
+    (default `send_seed(st.seed, st.sends)`).  Identity short-circuits
+    to the exact payload (the counter still bumps)."""
+    if policy.is_identity:
+        return x, st.bump()
+    if seed is None:
+        seed = send_seed(st.seed, st.sends)
+    if policy.ef:
+        payload = st.hat + policy.compressor.roundtrip(x - st.hat, seed)
+        hat = payload
+    else:
+        payload = policy.compressor.roundtrip(x, seed)
+        hat = st.hat
+    return payload, dataclasses.replace(st, hat=hat, sends=st.sends + 1)

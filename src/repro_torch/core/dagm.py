@@ -123,7 +123,8 @@ def dagm_init_carry(prob: BilevelProblem, W, cfg,
 
     x0 = 0 (the paper's analysis assumption) and y0 = 0.01·N(0, I) drawn
     from `torch.Generator(device).manual_seed(seed)` unless given; the
-    gossip channels open on W's ledger.  The flight recorder
+    gossip channels open on W's ledger, their random streams derived
+    from `seed` (`repro_torch.comm.channel_seeds`).  The flight recorder
     (`recorder=`) is ROADMAP queue 1 item 10 and raises."""
     if recorder is not None:
         raise NotImplementedError(
@@ -136,7 +137,8 @@ def dagm_init_carry(prob: BilevelProblem, W, cfg,
         y0 = 0.01 * torch.randn((prob.n, prob.d2), generator=gen,
                                 dtype=torch.float32, device=dev)
     from ..comm import open_channels
-    cs0 = open_channels(W, {"inner_y": y0, "dihgp_h": y0, "outer_x": x0})
+    cs0 = open_channels(W, {"inner_y": y0, "dihgp_h": y0, "outer_x": x0},
+                        seed)
     return ((x0, y0), cs0)
 
 

@@ -6,7 +6,8 @@ the plain PyTorch versions of `ref` on CPU tensors).
 """
 from .mixing_matvec import (circulant_mix_matvec, circulant_neumann_step,
                             launch_counts, reset_launch_counts,
-                            sparse_mix_matvec)
+                            ring_laplacian_matvec, sparse_mix_matvec)
 
 __all__ = ["circulant_mix_matvec", "circulant_neumann_step",
-           "launch_counts", "reset_launch_counts", "sparse_mix_matvec"]
+           "launch_counts", "reset_launch_counts", "ring_laplacian_matvec",
+           "sparse_mix_matvec"]

@@ -5,6 +5,12 @@
 //   sparse_mix         W.Y or (I-W).Y for any W from padded (n, k) tables
 //   circulant_neumann  one DIHGP Neumann iteration (Eq. 14) fused with W.h
 //
+// and their comm-fused twins, which gossip an int8/int4 stochastically
+// quantized payload instead of Y (compressed gossip, comm="int8|int4[+ef]"):
+//
+//   circulant_mix_comm, sparse_mix_comm   (+ EF: also write the payload)
+//   circulant_neumann_comm                (no EF)
+//
 // Plain C entry points (bottom of the file), loaded with ctypes by
 // repro_torch/kernels/mixing_matvec.py.  Each launches on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -141,6 +147,160 @@ __global__ void circulant_neumann_kernel(const T* __restrict__ h,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Comm-fused kernels: the int8/int4 stochastic quantizer inside the mix
+// ---------------------------------------------------------------------------
+//
+// Wire protocol (repro/comm): agent r broadcasts its row once, quantized
+// with its own per-row metadata (zp[r], scale[r], from row_quant_params):
+//   q = clip(floor((x - zp)/scale + u), 0, levels),  decode = zp + scale*q,
+// with x = y[r, j], or x = y[r, j] - hat[r, j] and decode + hat[r, j] under
+// error feedback (EF).  The uniform u is a pure function of (seed, r, j)
+// (murmur3 counter hash, repro/kernels/mixing_matvec.py:_hash_uniform), so a
+// thread can recompute any neighbor's decoded value from that neighbor's
+// inputs: the payload is never materialized, and every consumer of row r
+// sees the same decoded values.  The quantizer uses the _rn intrinsics (no
+// FMA contraction) and IEEE division, so payloads are bitwise equal to the
+// plain PyTorch versions' (repro_torch/kernels/ref.py); only the
+// accumulation of the mixed output may contract into FMAs.
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// U[0, 1) keyed on (seed, global row, global column); smix is
+// seed * 0xC2B2AE3D.  24 bits per draw, exact in f32.
+__device__ __forceinline__ float hash_uniform(uint32_t smix, int row,
+                                              int col) {
+  const uint32_t base = (uint32_t)row * 0x9E3779B9u + (uint32_t)col;
+  const uint32_t h = fmix32(fmix32(base ^ smix));
+  return __fmul_rn((float)(h >> 8), 5.9604644775390625e-8f);  // 2^-24
+}
+
+// One wire: the per-row metadata, the EF replica (nullptr without EF),
+// the seed and the number of levels (2^bits - 1).
+struct Wire {
+  const float* zp;
+  const float* scale;
+  const float* hat;
+  uint32_t smix;
+  float levels;
+};
+
+// The decoded broadcast of element (r, j) of y (n x d, f32).
+__device__ __forceinline__ float decoded(const float* __restrict__ y,
+                                         const Wire& w, int r, int j,
+                                         int d) {
+  const size_t at = (size_t)r * d + j;
+  const float u = hash_uniform(w.smix, r, j);
+  const float zp = w.zp[r];
+  const float sc = w.scale[r];
+  const float h = w.hat ? w.hat[at] : 0.0f;
+  const float x = w.hat ? __fsub_rn(y[at], h) : y[at];
+  const float z = __fadd_rn(__fdiv_rn(__fsub_rn(x, zp), sc), u);
+  const float q = fminf(fmaxf(floorf(z), 0.0f), w.levels);
+  const float dec = __fadd_rn(zp, __fmul_rn(sc, q));
+  return w.hat ? __fadd_rn(h, dec) : dec;
+}
+
+// Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec with comm=
+// (_mix_fused_body).
+// Bound: bytes, by about 2x.  The work is one read of y (and hat), one
+// write of out (and, with EF, the payload), plus per payload element one
+// hash (two murmur3 finalizers and the row/column/seed mix, ~20 integer
+// ops) and ~10 f32 ops (divide, floor, clamp, decode): against 8-16 bytes
+// per element, the int32 lanes need about half the HBM time.
+// Design: circulant_mix_kernel's layout, one thread per output element.
+// Each thread recomputes its k neighbors' decoded values (k hashes) rather
+// than reading a materialized payload: recomputing costs integer work
+// that overlaps the loads, a materialized payload would cost a second
+// pass over HBM.  With EF the thread also writes its own row's payload.
+__global__ void circulant_mix_comm_kernel(const float* __restrict__ y,
+                                          float* __restrict__ out,
+                                          float* __restrict__ pay, int n,
+                                          int d, Circ c, Wire w,
+                                          int laplacian) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= d) return;
+  for (int i = blockIdx.y; i < n; i += gridDim.y) {
+    const size_t at = (size_t)i * d + j;
+    const float yi = y[at];
+    float acc = c.w_self * yi;
+    for (int t = 0; t < c.k; ++t) {
+      int src = i + __ldg(c.off + t);
+      if (src >= n) src -= n;
+      acc = acc + __ldg(c.w + t) * decoded(y, w, src, j, d);
+    }
+    if (laplacian) acc = yi - acc;
+    out[at] = acc;
+    if (pay) pay[at] = decoded(y, w, i, j, d);
+  }
+}
+
+// Replaces repro/kernels/mixing_matvec.py:sparse_mix_matvec with comm=
+// (_sparse_fused_body).
+// Bound: as circulant_mix_comm_kernel.  Each gathered row is decoded with
+// its own source row's zp/scale, as the wire carries it.
+// Design: sparse_mix_kernel's layout; as in the circulant kernel each
+// thread recomputes its k neighbors' decoded values, so the kernel does k
+// hashes per element where the work needs one: at ER's k = 13 that
+// integer work, not the bytes, sets its time.
+__global__ void sparse_mix_comm_kernel(const float* __restrict__ y,
+                                       float* __restrict__ out,
+                                       float* __restrict__ pay,
+                                       const float* __restrict__ w_self,
+                                       const int* __restrict__ nbr,
+                                       const float* __restrict__ wts, int n,
+                                       int d, int k, Wire w, int laplacian) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= d) return;
+  for (int i = blockIdx.y; i < n; i += gridDim.y) {
+    const size_t at = (size_t)i * d + j;
+    const float yi = y[at];
+    float acc = w_self[i] * yi;
+    const int* ni = nbr + (size_t)i * k;
+    const float* wi = wts + (size_t)i * k;
+    for (int t = 0; t < k; ++t) {
+      acc = acc + wi[t] * decoded(y, w, ni[t], j, d);
+    }
+    if (laplacian) acc = yi - acc;
+    out[at] = acc;
+    if (pay) pay[at] = decoded(y, w, i, j, d);
+  }
+}
+
+// Replaces repro/kernels/mixing_matvec.py:circulant_neumann_step with comm=
+// (_neumann_fused_body; no EF, as repro).
+// Bound: bytes (reads h, hvp_h and p, writes h+) with the quantizer's
+// ~30 operations per element on top of the plain step's.
+// Design: circulant_neumann_kernel with the neighbor terms of W.h decoded
+// from the quantized wire; the self, D, HVP and p terms stay exact.
+__global__ void circulant_neumann_comm_kernel(
+    const float* __restrict__ h, const float* __restrict__ hvp,
+    const float* __restrict__ p, const float* __restrict__ dsc,
+    float* __restrict__ out, int n, int d, Circ c, Wire w, float beta) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= d) return;
+  for (int i = blockIdx.y; i < n; i += gridDim.y) {
+    const size_t at = (size_t)i * d + j;
+    const float hi = h[at];
+    float mix = c.w_self * hi;
+    for (int t = 0; t < c.k; ++t) {
+      int src = i + __ldg(c.off + t);
+      if (src >= n) src -= n;
+      mix = mix + __ldg(c.w + t) * decoded(h, w, src, j, d);
+    }
+    const float di = dsc[i];
+    const float num = di * hi - (hi - mix) - beta * hvp[at] - p[at];
+    out[at] = num / di;
+  }
+}
+
 dim3 grid_for(int n, int d) {
   return dim3((d + kThreads - 1) / kThreads, n < kMaxGridRows ? n : kMaxGridRows);
 }
@@ -205,6 +365,61 @@ extern "C" int circulant_neumann(const void* h, const void* hvp,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// Comm-fused entry points, f32 only.  zp/scale: (n,) per-row metadata;
+// hat/pay: the EF replica and the payload output, both nullptr without EF;
+// seed: the send's seed, as an unsigned 32-bit value; levels = 2^bits - 1.
+static Wire make_wire(const float* zp, const float* scale, const float* hat,
+                      unsigned int seed, float levels) {
+  return Wire{zp, scale, hat, seed * 0xC2B2AE3Du, levels};
+}
+
+extern "C" int circulant_mix_comm(const float* y, float* out, float* pay,
+                                  const float* hat, const float* zp,
+                                  const float* scale, unsigned int seed,
+                                  float levels, int n, int d, float w_self,
+                                  int k, const int* offsets,
+                                  const float* weights, int laplacian,
+                                  void* stream) {
+  if ((hat == nullptr) != (pay == nullptr)) return (int)cudaErrorInvalidValue;
+  const Circ c{w_self, k, offsets, weights};
+  circulant_mix_comm_kernel<<<grid_for(n, d), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+      y, out, pay, n, d, c, make_wire(zp, scale, hat, seed, levels),
+      laplacian);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sparse_mix_comm(const float* y, float* out, float* pay,
+                               const float* hat, const float* zp,
+                               const float* scale, unsigned int seed,
+                               float levels, const float* w_self,
+                               const int* nbr, const float* wts, int n,
+                               int d, int k, int laplacian, void* stream) {
+  if ((hat == nullptr) != (pay == nullptr)) return (int)cudaErrorInvalidValue;
+  sparse_mix_comm_kernel<<<grid_for(n, d), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      y, out, pay, w_self, nbr, wts, n, d, k,
+      make_wire(zp, scale, hat, seed, levels), laplacian);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int circulant_neumann_comm(const float* h, const float* hvp,
+                                      const float* p, const float* dsc,
+                                      float* out, const float* zp,
+                                      const float* scale, unsigned int seed,
+                                      float levels, int n, int d,
+                                      float w_self, int k,
+                                      const int* offsets,
+                                      const float* weights, float beta,
+                                      void* stream) {
+  const Circ c{w_self, k, offsets, weights};
+  circulant_neumann_comm_kernel<<<grid_for(n, d), kThreads, 0,
+                                  (cudaStream_t)stream>>>(
+      h, hvp, p, dsc, out, n, d, c,
+      make_wire(zp, scale, nullptr, seed, levels), beta);
   return (int)cudaGetLastError();
 }
 

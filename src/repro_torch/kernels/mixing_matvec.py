@@ -1,13 +1,24 @@
 """Wrappers for the gossip CUDA kernels in `csrc/mixing_matvec.cu`.
 
-Counterparts of the plain (uncompressed, full-stripe) paths of
-`repro.kernels.mixing_matvec`:
+Counterparts of the full-stripe paths of `repro.kernels.mixing_matvec`:
 
   * `circulant_mix_matvec`   — W·Y or (I−W)·Y for circulant W,
   * `sparse_mix_matvec`      — the same for any W from padded (n, k)
                                neighbor/weight tables,
   * `circulant_neumann_step` — one fused DIHGP Neumann iteration
-                               h⁺ = (D̃h − (I−W)h − β·hvp_h − p)/D̃.
+                               h⁺ = (D̃h − (I−W)h − β·hvp_h − p)/D̃,
+  * `ring_laplacian_matvec`  — (I−W)·Y for a ring, over the circulant
+                               kernel.
+
+With ``comm="int8" | "int4"`` (and ``"+ef"`` for the two mixes) the
+first three take `repro`'s extra operands — the per-row wire metadata
+zp and scale ((n, 1) f32 from `repro_torch.comm.row_quant_params`), the
+send's seed (a Python int) and, under error feedback, the replica `hat`
+— and launch their comm-fused twin: the neighbor rows are replaced by
+their stochastically quantized broadcast, the self term stays exact,
+and ``+ef`` returns (out, payload) with payload = hat + C(y − hat).
+The fused operand is f32 only.  ``comm=None`` or ``"identity"`` is the
+plain kernel.
 
 Dispatch is by the operand's device and nothing else: a CPU tensor runs
 the plain PyTorch version (`repro_torch.kernels.ref`, in f32 — the
@@ -19,12 +30,13 @@ The kernels take any n ≥ 1 and any d (the ragged edge is masked), f32
 or bf16.  The circulant offsets and weights are device tables of any
 length, as the sparse kernel's are (`circulant_tables` builds them).
 Like the gather indices they are not range-checked here: that would
-synchronize every launch.  No autograd: like `repro`'s Pallas tiers they register no
-backward, so an operand that requires grad is refused.
+synchronize every launch.  No autograd: like `repro`'s Pallas tiers they
+register no backward, so an operand that requires grad is refused.
 
-Each wrapper counts its kernel launches in a plain integer attribute
-(`circulant_mix_matvec.launches`, ...), bumped only where it launches;
-`launch_counts` / `reset_launch_counts` read and zero all three.
+Each kernel's launches are counted in `launch_counts()`, bumped only
+where a wrapper launches it; the comm-fused kernels count apart from the
+plain ones (`*_comm`), and `ring_laplacian_matvec` apart from
+`circulant_mix_matvec`.  `reset_launch_counts` zeroes them all.
 """
 from __future__ import annotations
 
@@ -33,18 +45,46 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import circulant_mix_ref, neumann_step_ref, sparse_mix_padded_ref
+from .ref import (circulant_mix_fused_ref, circulant_mix_ref,
+                  neumann_step_fused_ref, neumann_step_ref,
+                  sparse_mix_fused_ref, sparse_mix_padded_ref)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
+KERNEL_COMMS = ("int8", "int4", "int8+ef", "int4+ef")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_uint32
+# wire operands of the comm-fused kernels: zp, scale, seed, levels
+_WIRE = (_P, _P, _U, _F)
 _SIGNATURES = {
     "circulant_mix": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _P),
     "sparse_mix": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "circulant_neumann": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P,
                           _F, _P),
+    "circulant_mix_comm": (_P, _P, _P, _P, *_WIRE, _I, _I, _F, _I, _P, _P,
+                           _I, _P),
+    "sparse_mix_comm": (_P, _P, _P, _P, *_WIRE, _P, _P, _P, _I, _I, _I, _I,
+                        _P),
+    "circulant_neumann_comm": (_P, _P, _P, _P, _P, *_WIRE, _I, _I, _F, _I,
+                               _P, _P, _F, _P),
 }
+
+# launches per kernel, under the names of chip_smoke's kernel list
+_LAUNCHES = dict.fromkeys((
+    "circulant_mix_matvec", "sparse_mix_matvec", "circulant_neumann_step",
+    "circulant_mix_matvec_comm", "sparse_mix_matvec_comm",
+    "circulant_neumann_step_comm", "ring_laplacian_matvec"), 0)
+
+
+def launch_counts() -> dict[str, int]:
+    """{kernel name: launches since the last reset}."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
 def _kernel(name: str):
@@ -58,7 +98,7 @@ def _kernel(name: str):
     return fn, lib
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
+def _launch(name: str, counter: str, dev: torch.device, *args) -> None:
     fn, lib = _kernel(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -66,6 +106,11 @@ def _launch(name: str, dev: torch.device, *args) -> None:
     if rc != 0:
         msg = lib.mixing_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+    _LAUNCHES[counter] += 1
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def _check_state(name: str, t, shape=None, like=None) -> None:
@@ -115,6 +160,39 @@ def _check_common(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} is on {t.device}; expected cpu or cuda")
 
 
+def parse_kernel_comm(comm: str | None) -> tuple[int, bool] | None:
+    """(bits, ef) for a fusable comm spec; None for the plain kernel."""
+    if comm in (None, "identity"):
+        return None
+    if comm not in KERNEL_COMMS:
+        raise ValueError(
+            f"comm={comm!r} is not kernel-fusable; expected one of "
+            f"{KERNEL_COMMS} (identity/top-k/rand-k/bf16 gossip composes "
+            f"the compressor with the plain mix — see MixingOp)")
+    base, _, opt = comm.partition("+")
+    return int(base[3:]), opt == "ef"
+
+
+def _check_wire(y, zp, scale, seed, hat, ef: bool) -> None:
+    """The comm-fused kernels' operands: y f32 (n, d); zp, scale (n, 1)
+    f32 on y's device; seed a Python int; hat (n, d) f32 iff EF."""
+    if y.dtype != torch.float32:
+        raise ValueError(f"the comm-fused kernels take a float32 operand, "
+                         f"got {y.dtype}")
+    n = y.shape[0]
+    _check_table("zp", zp, (n, 1), torch.float32, y.device)
+    _check_table("scale", scale, (n, 1), torch.float32, y.device)
+    if isinstance(seed, bool) or not isinstance(seed, int) \
+            or not -2 ** 31 <= seed < 2 ** 32:
+        raise TypeError(f"seed must be a Python int in the 32-bit range, "
+                        f"got {seed!r}")
+    if ef:
+        _check_state("hat", hat, y.shape, like=y)
+    elif hat is not None:
+        raise ValueError("hat is the error-feedback replica; pass it only "
+                         "with comm='int8+ef' or 'int4+ef'")
+
+
 def circulant_tables(n: int, offsets, weights, device):
     """The circulant kernels' (k,) int32 offset and (k,) f32 weight
     tables on `device`, offsets reduced into [0, n)."""
@@ -135,15 +213,9 @@ def _check_circulant(offsets, weights, device) -> int:
     return k
 
 
-def circulant_mix_matvec(y: torch.Tensor, *, w_self: float,
-                         offsets: torch.Tensor, weights: torch.Tensor,
-                         laplacian: bool = False) -> torch.Tensor:
-    """W·Y (or (I−W)·Y) for circulant W; y: (n, d) f32 or bf16.
-
-    W[i, (i+o) mod n] = c_o for o, c_o in zip(offsets, weights),
-    W[i, i] = w_self; offsets (k,) int32 in [0, n) and weights (k,) f32
-    on y's device (`circulant_tables`).  f32 accumulation, output in y's
-    dtype."""
+def _circulant_mix(counter: str, y, w_self, offsets, weights, laplacian):
+    """The plain circulant kernel (or its plain version on the CPU),
+    counted under `counter`."""
     _check_state("y", y)
     n, d = y.shape
     k = _check_circulant(offsets, weights, y.device)
@@ -151,45 +223,99 @@ def circulant_mix_matvec(y: torch.Tensor, *, w_self: float,
         return circulant_mix_ref(y.float(), float(w_self), offsets.tolist(),
                                  weights.tolist(), laplacian).to(y.dtype)
     out = torch.empty_like(y)
-    _launch("circulant_mix", y.device, y.data_ptr(), out.data_ptr(), n, d,
-            _DTYPE_CODE[y.dtype], float(w_self), k, offsets.data_ptr(),
-            weights.data_ptr(), int(bool(laplacian)))
-    circulant_mix_matvec.launches += 1
+    _launch("circulant_mix", counter, y.device, y.data_ptr(),
+            out.data_ptr(), n, d, _DTYPE_CODE[y.dtype], float(w_self), k,
+            offsets.data_ptr(), weights.data_ptr(), int(bool(laplacian)))
     return out
 
 
+def circulant_mix_matvec(y: torch.Tensor, zp=None, scale=None, seed=None,
+                         hat=None, *, w_self: float, offsets: torch.Tensor,
+                         weights: torch.Tensor, laplacian: bool = False,
+                         comm: str | None = None):
+    """W·Y (or (I−W)·Y) for circulant W; y: (n, d) f32 or bf16.
+
+    W[i, (i+o) mod n] = c_o for o, c_o in zip(offsets, weights),
+    W[i, i] = w_self; offsets (k,) int32 in [0, n) and weights (k,) f32
+    on y's device (`circulant_tables`).  f32 accumulation, output in y's
+    dtype.  `comm`, zp, scale, seed, hat: the comm-fused twin (module
+    docstring); returns (out, payload) under ``+ef``."""
+    fused = parse_kernel_comm(comm)
+    if fused is None:
+        return _circulant_mix("circulant_mix_matvec", y, w_self, offsets,
+                              weights, laplacian)
+    bits, ef = fused
+    _check_state("y", y)
+    _check_wire(y, zp, scale, seed, hat, ef)
+    n, d = y.shape
+    k = _check_circulant(offsets, weights, y.device)
+    if y.device.type == "cpu":
+        return circulant_mix_fused_ref(
+            y, zp, scale, seed, hat, w_self=float(w_self),
+            offsets=offsets.tolist(), weights=weights.tolist(),
+            laplacian=laplacian, bits=bits)
+    out = torch.empty_like(y)
+    pay = torch.empty_like(y) if ef else None
+    _launch("circulant_mix_comm", "circulant_mix_matvec_comm", y.device,
+            y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
+            zp.data_ptr(), scale.data_ptr(), seed & 0xFFFFFFFF,
+            float(2 ** bits - 1), n, d, float(w_self), k,
+            offsets.data_ptr(), weights.data_ptr(), int(bool(laplacian)))
+    return (out, pay) if ef else out
+
+
 def sparse_mix_matvec(y: torch.Tensor, w_self: torch.Tensor,
-                      neighbors: torch.Tensor, weights: torch.Tensor, *,
-                      laplacian: bool = False) -> torch.Tensor:
+                      neighbors: torch.Tensor, weights: torch.Tensor,
+                      zp=None, scale=None, seed=None, hat=None, *,
+                      laplacian: bool = False, comm: str | None = None):
     """W·Y (or (I−W)·Y) for any W from padded tables; y: (n, d).
 
     w_self: (n,) f32 diagonal; neighbors: (n, k) int32 with every entry
     in [0, n); weights: (n, k) f32 — padded slots hold the row's own
     index with weight 0 (`repro_torch.topology.structure
     .sparse_structure`, which builds them in range from W).  Indices are
-    not range-checked here: that would synchronize every launch."""
+    not range-checked here: that would synchronize every launch.  `comm`
+    and its operands as in `circulant_mix_matvec`; each gathered row is
+    decoded with its source row's zp/scale."""
+    fused = parse_kernel_comm(comm)
     _check_state("y", y)
     n, d = y.shape
     k = neighbors.shape[1] if neighbors.dim() == 2 else -1
     _check_table("w_self", w_self, (n,), torch.float32, y.device)
     _check_table("neighbors", neighbors, (n, k), torch.int32, y.device)
     _check_table("weights", weights, (n, k), torch.float32, y.device)
+    if fused is None:
+        if y.device.type == "cpu":
+            return sparse_mix_padded_ref(y.float(), w_self, neighbors,
+                                         weights, laplacian).to(y.dtype)
+        out = torch.empty_like(y)
+        _launch("sparse_mix", "sparse_mix_matvec", y.device, y.data_ptr(),
+                out.data_ptr(), w_self.data_ptr(), neighbors.data_ptr(),
+                weights.data_ptr(), n, d, k, _DTYPE_CODE[y.dtype],
+                int(bool(laplacian)))
+        return out
+    bits, ef = fused
+    _check_wire(y, zp, scale, seed, hat, ef)
     if y.device.type == "cpu":
-        return sparse_mix_padded_ref(y.float(), w_self, neighbors, weights,
-                                     laplacian).to(y.dtype)
+        return sparse_mix_fused_ref(y, w_self, neighbors, weights, zp,
+                                    scale, seed, hat, laplacian=laplacian,
+                                    bits=bits)
     out = torch.empty_like(y)
-    _launch("sparse_mix", y.device, y.data_ptr(), out.data_ptr(),
-            w_self.data_ptr(), neighbors.data_ptr(), weights.data_ptr(), n,
-            d, k, _DTYPE_CODE[y.dtype], int(bool(laplacian)))
-    sparse_mix_matvec.launches += 1
-    return out
+    pay = torch.empty_like(y) if ef else None
+    _launch("sparse_mix_comm", "sparse_mix_matvec_comm", y.device,
+            y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
+            zp.data_ptr(), scale.data_ptr(), seed & 0xFFFFFFFF,
+            float(2 ** bits - 1), w_self.data_ptr(), neighbors.data_ptr(),
+            weights.data_ptr(), n, d, k, int(bool(laplacian)))
+    return (out, pay) if ef else out
 
 
 def circulant_neumann_step(h: torch.Tensor, hvp_h: torch.Tensor,
-                           p: torch.Tensor, d_scalar: torch.Tensor, *,
+                           p: torch.Tensor, d_scalar: torch.Tensor,
+                           zp=None, scale=None, seed=None, *,
                            w_self: float, offsets: torch.Tensor,
-                           weights: torch.Tensor,
-                           beta: float) -> torch.Tensor:
+                           weights: torch.Tensor, beta: float,
+                           comm: str | None = None) -> torch.Tensor:
     """One fused DIHGP Neumann iteration (Eq. 14) for circulant W:
 
         h⁺ = (D̃h − (I−W)h − β·hvp_h − p) / D̃
@@ -197,38 +323,65 @@ def circulant_neumann_step(h: torch.Tensor, hvp_h: torch.Tensor,
     h, hvp_h, p: (n, d), one dtype (f32; bf16 is accepted and
     accumulated in f32); d_scalar: (n, 1) f32 per-agent D̃; the
     circulant W as in `circulant_mix_matvec`; β a Python number (a
-    runtime kernel argument)."""
+    runtime kernel argument).  ``comm="int8" | "int4"`` with zp, scale
+    and seed quantizes the W·h gossip in the same pass; error feedback
+    is refused, as `repro` refuses it (no payload write-back)."""
+    fused = parse_kernel_comm(comm)
     _check_state("h", h)
     _check_state("hvp_h", hvp_h, h.shape, like=h)
     _check_state("p", p, h.shape, like=h)
     n, d = h.shape
     _check_table("d_scalar", d_scalar, (n, 1), torch.float32, h.device)
     k = _check_circulant(offsets, weights, h.device)
+    if fused is None:
+        if h.device.type == "cpu":
+            return neumann_step_ref(h.float(), hvp_h.float(), p.float(),
+                                    d_scalar, w_self=float(w_self),
+                                    offsets=offsets.tolist(),
+                                    weights=weights.tolist(),
+                                    beta=float(beta)).to(h.dtype)
+        out = torch.empty_like(h)
+        _launch("circulant_neumann", "circulant_neumann_step", h.device,
+                h.data_ptr(), hvp_h.data_ptr(), p.data_ptr(),
+                d_scalar.data_ptr(), out.data_ptr(), n, d,
+                _DTYPE_CODE[h.dtype], float(w_self), k, offsets.data_ptr(),
+                weights.data_ptr(), float(beta))
+        return out
+    bits, ef = fused
+    if ef:
+        raise ValueError("the fused Neumann kernel does not lower '+ef' "
+                         "comm (no payload write-back); compose it from "
+                         "mix_c and the Neumann update instead")
+    _check_wire(h, zp, scale, seed, None, False)
     if h.device.type == "cpu":
-        return neumann_step_ref(h.float(), hvp_h.float(), p.float(),
-                                d_scalar, w_self=float(w_self),
-                                offsets=offsets.tolist(),
-                                weights=weights.tolist(),
-                                beta=float(beta)).to(h.dtype)
+        return neumann_step_fused_ref(h, hvp_h, p, d_scalar, zp, scale,
+                                      seed, w_self=float(w_self),
+                                      offsets=offsets.tolist(),
+                                      weights=weights.tolist(),
+                                      beta=float(beta), bits=bits)
     out = torch.empty_like(h)
-    _launch("circulant_neumann", h.device, h.data_ptr(), hvp_h.data_ptr(),
-            p.data_ptr(), d_scalar.data_ptr(), out.data_ptr(), n, d,
-            _DTYPE_CODE[h.dtype], float(w_self), k, offsets.data_ptr(),
-            weights.data_ptr(), float(beta))
-    circulant_neumann_step.launches += 1
+    _launch("circulant_neumann_comm", "circulant_neumann_step_comm",
+            h.device, h.data_ptr(), hvp_h.data_ptr(), p.data_ptr(),
+            d_scalar.data_ptr(), out.data_ptr(), zp.data_ptr(),
+            scale.data_ptr(), seed & 0xFFFFFFFF, float(2 ** bits - 1), n, d,
+            float(w_self), k, offsets.data_ptr(), weights.data_ptr(),
+            float(beta))
     return out
 
 
-KERNELS = (circulant_mix_matvec, sparse_mix_matvec, circulant_neumann_step)
-for _k in KERNELS:
-    _k.launches = 0
+def ring_offsets(n: int, w_edge: float):
+    """The ring's circulant offsets and weights: (1, n−1), or the single
+    offset (1,) for n = 2, where ±1 name the same neighbor."""
+    if n == 2:
+        return (1,), (w_edge,)
+    return (1, n - 1), (w_edge, w_edge)
 
 
-def launch_counts() -> dict[str, int]:
-    """{wrapper name: kernel launches since the last reset}."""
-    return {k.__name__: k.launches for k in KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+def ring_laplacian_matvec(y: torch.Tensor, *, w_self: float,
+                          w_edge: float) -> torch.Tensor:
+    """(I − W)·Y for ring W (`repro`'s compatibility wrapper over the
+    circulant kernel); y: (n, d) f32 or bf16, any n ≥ 2 and d.  Builds
+    the (k,) offset tables on y's device at every call."""
+    offsets, weights = ring_offsets(y.shape[0], float(w_edge))
+    off, w = circulant_tables(y.shape[0], offsets, weights, y.device)
+    return _circulant_mix("ring_laplacian_matvec", y, w_self, off, w, True)

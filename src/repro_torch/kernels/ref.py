@@ -4,11 +4,32 @@ Each function computes exactly what its kernel in `csrc/` computes, in
 the same order of operations, on any device.  The wrappers in
 `repro_torch.kernels.mixing_matvec` run these for CPU tensors; the
 tests and `chip_smoke.py` hold the kernels against them on the card.
-Counterparts of `repro.kernels.ref`.
+Counterparts of `repro.kernels.ref`, and of the in-kernel quantizer
+helpers of `repro.kernels.mixing_matvec` (`_fmix32`, `_hash_uniform`,
+`_quantize`) with the comm-fused kernel bodies built on them.
 """
 from __future__ import annotations
 
 import torch
+
+_M32 = 0xFFFFFFFF
+
+
+def ring_laplacian_ref(y: torch.Tensor, w_self: float, w_edge: float,
+                       hops: int = 1) -> torch.Tensor:
+    """(I − W)·Y for a circulant 2·hops-regular graph; y: (n, d).
+
+    W row: w_self on the diagonal, w_edge at offsets ±1..±hops
+    (wraparound); where ±o coincide (o = n/2) the neighbor counts once."""
+    out = (1.0 - w_self) * y
+    n = y.shape[0]
+    for o in range(1, hops + 1):
+        if (2 * o) % n == 0:
+            out = out - w_edge * torch.roll(y, o, dims=0)
+        else:
+            out = out - w_edge * (torch.roll(y, o, dims=0)
+                                  + torch.roll(y, -o, dims=0))
+    return out
 
 
 def circulant_mix_ref(y: torch.Tensor, w_self: float, offsets, weights,
@@ -63,4 +84,101 @@ def neumann_step_ref(h, hvp_h, p, d_scalar, *, w_self: float, offsets,
     """The fused circulant Neumann step: `neumann_update` over
     `circulant_mix_ref`; d_scalar (n, 1)."""
     mix = circulant_mix_ref(h, w_self, offsets, weights)
+    return neumann_update(mix, h, hvp_h, p, d_scalar, beta)
+
+
+# ---------------------------------------------------------------------------
+# The comm-fused kernels' quantizer (int8/int4 stochastic rounding)
+# ---------------------------------------------------------------------------
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x · c) mod 2³² for int64 x in [0, 2³²) and a 32-bit constant c,
+    in two 16-bit halves so no int64 product overflows.  The hash runs
+    in int64 because torch on the CPU has no right shift for uint32."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on int64 tensors holding uint32
+    values (`repro.kernels.mixing_matvec._fmix32`)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def hash_uniform(seed: int, rows: torch.Tensor, cols: torch.Tensor
+                 ) -> torch.Tensor:
+    """U[0, 1) f32 draws keyed on (seed, global row, global column),
+    bitwise `repro.kernels.mixing_matvec._hash_uniform`: the same
+    element gets the same draw in every layout and on every device.
+    rows/cols: integer tensors (broadcastable); seed: a Python int."""
+    smix = ((int(seed) & _M32) * 0xC2B2AE3D) & _M32
+    base = (_mul32(rows.long() & _M32, 0x9E3779B9) + (cols.long() & _M32)) \
+        & _M32
+    h = fmix32(fmix32(base ^ smix))
+    return (h >> 8).to(torch.float32) * 2.0 ** -24
+
+
+def quantize(x, zp, scale, u, levels: float) -> torch.Tensor:
+    """Decoded stochastic-quantizer roundtrip of x given the per-row
+    wire metadata: zp + scale·clip(⌊(x − zp)/scale + u⌋, 0, levels)."""
+    q = torch.clamp(torch.floor((x - zp) / scale + u), 0.0, levels)
+    return zp + scale * q
+
+
+def _payload(y, zp, scale, seed: int, hat, bits: int) -> torch.Tensor:
+    """The decoded broadcast of every row of y (n, d), quantized once:
+    C(y), or hat + C(y − hat) with error feedback."""
+    n, d = y.shape
+    u = hash_uniform(seed, torch.arange(n, device=y.device)[:, None],
+                     torch.arange(d, device=y.device)[None, :])
+    levels = float(2 ** bits - 1)
+    if hat is None:
+        return quantize(y, zp, scale, u, levels)
+    return hat + quantize(y - hat, zp, scale, u, levels)
+
+
+def circulant_mix_fused_ref(y, zp, scale, seed: int, hat=None, *,
+                            w_self: float, offsets, weights,
+                            laplacian: bool = False, bits: int = 8):
+    """Comm-fused circulant mix (`_mix_fused_body`): the neighbor terms
+    mix the quantized payload, the self term w_self·y_i stays exact.
+    Returns out, or (out, payload) when `hat` is given (EF)."""
+    pay = _payload(y, zp, scale, seed, hat, bits)
+    acc = w_self * y
+    for o, c in zip(offsets, weights):
+        acc = acc + c * torch.roll(pay, -int(o), dims=0)
+    out = y - acc if laplacian else acc
+    return out if hat is None else (out, pay)
+
+
+def sparse_mix_fused_ref(y, w_self, neighbors, weights, zp, scale,
+                         seed: int, hat=None, *, laplacian: bool = False,
+                         bits: int = 8):
+    """Comm-fused padded gather (`_sparse_fused_body`): each gathered
+    row is its source row's payload, quantized with that row's own
+    zp/scale; the self term stays exact.  EF as in
+    `circulant_mix_fused_ref`."""
+    pay = _payload(y, zp, scale, seed, hat, bits)
+    acc = w_self.to(y.dtype)[:, None] * y
+    for j in range(neighbors.shape[1]):
+        acc = acc + weights[:, j:j + 1].to(y.dtype) \
+            * pay.index_select(0, neighbors[:, j].long())
+    out = y - acc if laplacian else acc
+    return out if hat is None else (out, pay)
+
+
+def neumann_step_fused_ref(h, hvp_h, p, d_scalar, zp, scale, seed: int, *,
+                           w_self: float, offsets, weights, beta: float,
+                           bits: int = 8) -> torch.Tensor:
+    """Comm-fused Neumann step (`_neumann_fused_body`, no EF): the W·h
+    neighbor terms mix the quantized h; the self, D̃, HVP and p terms
+    never cross the wire and stay exact."""
+    mix = circulant_mix_fused_ref(h, zp, scale, seed, w_self=w_self,
+                                  offsets=offsets, weights=weights,
+                                  bits=bits)
     return neumann_update(mix, h, hvp_h, p, d_scalar, beta)

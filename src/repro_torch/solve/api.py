@@ -3,7 +3,9 @@
 This slice runs ``method="dagm"`` on ``tier="reference"``: one
 `dagm_run_chunk` of K rounds on the problem's device, every gossip
 through a `MixingOp` (the CUDA kernels on ring/circulant and
-Erdős–Rényi graphs).  The other methods and tiers raise
+Erdős–Rényi graphs) on the wire policy `spec.comm` — the comm-fused
+kernels for int8/int4 (± error feedback).  `SolveResult.ledger` charges
+the exact compressed bytes of the sends that ran.  The other methods and tiers raise
 NotImplementedError naming the ROADMAP queue item that ports them.
 """
 from __future__ import annotations
@@ -56,7 +58,8 @@ def solve(problem, network, spec: SolverSpec, *, x0=None, y0=None,
               lies on `device`.
     network:  a `repro_torch.topology.Network`.
     x0/y0:    optional initial stacked iterates, numpy arrays or tensors.
-    seed:     the y0 draw (`torch.Generator(device).manual_seed(seed)`).
+    seed:     the y0 draw (`torch.Generator(device).manual_seed(seed)`)
+              and the gossip channels' random streams.
     device:   where the run happens — CUDA unless the caller names
               another; raises without a card.
     """

@@ -9,7 +9,7 @@
   `np.arange(K)`; `materialize()` lowers all three to (K,) float32
   arrays.  γ defaults to float32(1)/float32(α), the paper's coupling.
 * `MixingSpec` — the gossip execution backend (`repro_torch.topology`).
-* `CommSpec`   — the gossip wire (identity in this slice of the port).
+* `CommSpec`   — the gossip wire policy (`repro_torch.comm`).
 
 `repro`'s options of the methods and tiers that are not ported yet
 (`ShardedSpec`, `CommSpec.persist_ef`, the baselines' `momentum`, `b`
@@ -165,6 +165,13 @@ def validate_spec(spec: SolverSpec) -> None:
     spec.schedule.materialize(spec.K)
     if spec.dihgp not in ("dense", "matrix_free", "exact"):
         raise ValueError(f"unknown dihgp backend {spec.dihgp!r}")
+    from ..comm import parse_comm_spec
+    parse_comm_spec(spec.comm.spec)
+    if spec.comm.spec != "identity" and spec.dihgp == "exact":
+        raise ValueError(
+            "dihgp='exact' solves the penalized system densely and has "
+            "no gossip to compress; use 'dense' or 'matrix_free' with "
+            f"comm={spec.comm.spec!r}")
 
 
 def mixing_kwargs(spec: SolverSpec) -> dict:

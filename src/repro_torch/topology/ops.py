@@ -35,9 +35,23 @@ accumulates in f32: the operand is rounded to bf16 once, every backend
 accumulates the rounded values in f32, and the result is rounded back
 through bf16 before it is returned in the caller's dtype.
 
-Not ported yet: compressed gossip beyond the identity wire (ROADMAP
-queue 1 item 5) and fault-masked mixing (`MaskedMixingOp`, queue 1
-item 7); both raise NotImplementedError.
+Compressed gossip
+-----------------
+`MixingOp(..., comm="int8+ef")` (any `repro_torch.comm` spec) routes the
+`*_c` channel methods through the wire policy.  An int8/int4 quantizer
+(± error feedback) on an f32 operand without bf16 storage, on the
+circulant or padded-gather tier, runs the comm-fused CUDA kernels:
+quantize → mix → decode in one pass (`_fused_plan`, `_apply_fused`).
+Every other policy and tier — bf16, top-k, rand-k, the dense W, the
+star's CSR path, bf16 storage — composes the compressor with the plain
+mix (`compressed_payload`, then `_apply`, then the exact self term),
+which is `repro`'s own dispatch (`repro.topology.ops
+.MixingOp._fused_plan`).  `repro`'s VMEM and tile planning has no
+counterpart: the kernels mask the ragged edge, so the plan is always the
+full operand.
+
+Not ported yet: fault-masked mixing (`MaskedMixingOp`, ROADMAP queue 1
+item 7), which raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -171,6 +185,7 @@ class MixingOp:
         self.storage_dtype = resolve_mixing_dtype(dtype)
         self.comm = parse_comm_spec(comm)
         self.ledger = CommLedger(name)
+        self._diag = torch.diagonal(self.W)
         self.structure = circulant_structure(W_np)
         self.sparse = sparse_structure(W_np)
         base = backend.removesuffix("_pallas")
@@ -295,29 +310,122 @@ class MixingOp:
 
     # -- gossip channels (repro_torch.comm) --------------------------------
 
-    def comm_channel(self, name: str, x):
+    def comm_channel(self, name: str, x, seed: int = 0):
         """Open a gossip channel for stacked variable template `x`:
         registers the payload shape in the ledger and returns the
-        ChannelState to thread through the round loop."""
+        ChannelState (random stream `seed`) to thread through the round
+        loop."""
         from ..comm import channel_init
         self.ledger.register(name, x.shape[1:], self.comm)
-        return channel_init(self.comm, name, x)
+        return channel_init(self.comm, name, x, seed)
 
-    # The channel twins: the identity wire (the only policy
-    # `parse_comm_spec` accepts so far) gossips exactly, and each
-    # exchange bumps the channel's send counter.
+    def _fused_plan(self, flat: torch.Tensor) -> bool:
+        """True when this gossip runs the comm-fused kernels: a fusable
+        policy (int8/int4 ± EF), no bf16 storage, an f32 operand, and the
+        circulant or padded-gather tier.  Otherwise the compressor
+        composes with the plain mix, as in `repro`."""
+        return (self.comm.fusable and self.storage_dtype is None
+                and flat.dtype == torch.float32
+                and (self.backend == "circulant"
+                     or (self.backend == "sparse_gather"
+                         and self._sp_use_padded)))
+
+    def _next_seed(self, st) -> int:
+        """The seed of the channel's next send: a host integer from the
+        channel's stream (`repro_torch.comm.send_seed`), so no device
+        synchronization.  Every stochastic send, fused or composed,
+        draws its seed here."""
+        from ..comm import send_seed
+        return send_seed(st.seed, st.sends)
+
+    def _apply_fused(self, y: torch.Tensor, flat: torch.Tensor, st,
+                     laplacian: bool):
+        """One comm-fused gossip: the same `row_quant_params` wire
+        metadata and state advance (sends + 1, hat ← payload under EF)
+        as `compressed_payload` + `_apply`, in one kernel."""
+        from ..comm import row_quant_params
+        bits = self.comm.compressor.bits
+        ef = self.comm.ef
+        comm = f"int{bits}" + ("+ef" if ef else "")
+        seed = self._next_seed(st)
+        flat = flat.contiguous()
+        hat = st.hat.reshape(flat.shape).contiguous() if ef else None
+        zp, scale = row_quant_params(flat - hat if ef else flat, bits)
+        if self.backend == "circulant":
+            res = circulant_mix_matvec(flat, zp, scale, seed, hat,
+                                       w_self=self.structure.w_self,
+                                       offsets=self._circ_off,
+                                       weights=self._circ_w,
+                                       laplacian=laplacian, comm=comm)
+        else:
+            res = sparse_mix_matvec(flat, self._sp_wself, self._sp_idx,
+                                    self._sp_wts, zp, scale, seed, hat,
+                                    laplacian=laplacian, comm=comm)
+        if ef:
+            out, pay = res
+            st = dataclasses.replace(st, hat=pay.reshape(y.shape),
+                                     sends=st.sends + 1)
+        else:
+            out, st = res, st.bump()
+        return out.reshape(y.shape), st
+
+    def _apply_c(self, y: torch.Tensor, st, laplacian: bool):
+        """compress → mix → decompress around one gossip of y (n, ...).
+
+        The neighbors mix the decoded payload ŷ; the self-weight term
+        w_ii·y_i never crosses the wire, so the backend result W·ŷ is
+        corrected by diag(W)·(y − ŷ) before the (I−W) algebra.  A
+        fusable policy on a kernel tier runs the whole sequence in the
+        comm-fused kernel instead (`_fused_plan`)."""
+        from ..comm import compressed_payload
+        if self.comm.is_identity:
+            return self._apply(y, laplacian), st.bump()
+        flat = y.reshape(y.shape[0], -1)
+        if self._fused_plan(flat):
+            return self._apply_fused(y, flat, st, laplacian)
+        y_hat, st = compressed_payload(self.comm, y, st,
+                                       self._next_seed(st))
+        mixed = self._apply(y_hat, laplacian=False)
+        expand = (slice(None),) + (None,) * (y.dim() - 1)
+        mixed = mixed + self._diag[expand].to(y.dtype) * (y - y_hat)
+        return (y - mixed) if laplacian else mixed, st
 
     def mix_c(self, y: torch.Tensor, st):
         """(W ⊗ I) y through the gossip channel -> (out, state)."""
-        return self._apply(y, laplacian=False), st.bump()
+        return self._apply_c(y, st, laplacian=False)
 
     def laplacian_c(self, y: torch.Tensor, st):
         """((I − W) ⊗ I) y through the gossip channel."""
-        return self._apply(y, laplacian=True), st.bump()
+        return self._apply_c(y, st, laplacian=True)
 
     def neumann_step_c(self, h, hvp_h, p, d_scalar, beta: float, st):
-        """Fused DIHGP step through the gossip channel."""
-        return self.neumann_step(h, hvp_h, p, d_scalar, beta), st.bump()
+        """Fused DIHGP step with the W·h gossip on the channel.  The
+        identity wire keeps the plain fused step; a fusable quantizer
+        without EF on the circulant tier runs the comm-fused Neumann
+        kernel (quantize + mix + the Eq. 14 update in one pass); EF and
+        the other tiers compose `mix_c` (itself fused where possible)
+        with the update."""
+        if self.comm.is_identity:
+            return self.neumann_step(h, hvp_h, p, d_scalar, beta), \
+                st.bump()
+        flat = h.reshape(h.shape[0], -1)
+        if not self.comm.ef and self.backend == "circulant" \
+                and self._fused_plan(flat):
+            from ..comm import row_quant_params
+            bits = self.comm.compressor.bits
+            seed = self._next_seed(st)
+            flat = flat.contiguous()
+            zp, scale = row_quant_params(flat, bits)
+            out = circulant_neumann_step(
+                flat, hvp_h.reshape(flat.shape).contiguous(),
+                p.reshape(flat.shape).contiguous(),
+                d_scalar.reshape(h.shape[0], 1).float().contiguous(),
+                zp, scale, seed, w_self=self.structure.w_self,
+                offsets=self._circ_off, weights=self._circ_w,
+                beta=float(beta), comm=f"int{bits}")
+            return out.reshape(h.shape), st.bump()
+        mix, st = self.mix_c(h, st)
+        return _neumann_update(mix, h, hvp_h, p, d_scalar, beta), st
 
     # -- fault-masked mixing (not ported) ----------------------------------
 

@@ -18,7 +18,7 @@ import torch
 from repro_torch.core.problems import ho_regression, quadratic_bilevel
 from repro_torch.kernels import mixing_matvec as mm
 from repro_torch.kernels import ref
-from repro_torch.solve import ScheduleSpec, SolverSpec, solve
+from repro_torch.solve import CommSpec, ScheduleSpec, SolverSpec, solve
 from repro_torch.topology import make_mixing_op, make_network
 from repro_torch.topology.structure import (circulant_structure,
                                             sparse_structure)
@@ -66,10 +66,10 @@ def test_circulant_mix_kernel(cuda, shape, dtype, laplacian, kind, offsets):
     n, d = shape
     s = circulant_structure(make_network(kind, n, offsets=offsets).W)
     y = _randn(shape, dtype, cuda)
-    before = mm.circulant_mix_matvec.launches
+    before = mm.launch_counts()["circulant_mix_matvec"]
     got = mm.circulant_mix_matvec(y, laplacian=laplacian, **_tables(s, cuda))
     torch.cuda.synchronize()
-    assert mm.circulant_mix_matvec.launches == before + 1
+    assert mm.launch_counts()["circulant_mix_matvec"] == before + 1
     assert got.dtype == dtype and got.shape == y.shape
     want = ref.circulant_mix_ref(y.float(), s.w_self, s.offsets,
                                  s.weights, laplacian).to(dtype)
@@ -86,10 +86,10 @@ def test_sparse_mix_kernel(cuda, shape, dtype, laplacian, kind):
     tabs = [torch.as_tensor(a, device=cuda)
             for a in (sp.w_self, sp.neighbors, sp.weights)]
     y = _randn(shape, dtype, cuda)
-    before = mm.sparse_mix_matvec.launches
+    before = mm.launch_counts()["sparse_mix_matvec"]
     got = mm.sparse_mix_matvec(y, *tabs, laplacian=laplacian)
     torch.cuda.synchronize()
-    assert mm.sparse_mix_matvec.launches == before + 1
+    assert mm.launch_counts()["sparse_mix_matvec"] == before + 1
     want = ref.sparse_mix_padded_ref(y.float(), *tabs, laplacian).to(dtype)
     _close(got, want)
 
@@ -102,11 +102,11 @@ def test_circulant_neumann_kernel(cuda, shape, dtype):
     h, hvp, p = (_randn(shape, dtype, cuda, seed=i) for i in range(3))
     dsc = torch.as_tensor(np.random.default_rng(3).uniform(
         1.5, 3.0, (n, 1)), dtype=torch.float32).to(cuda)
-    before = mm.circulant_neumann_step.launches
+    before = mm.launch_counts()["circulant_neumann_step"]
     got = mm.circulant_neumann_step(h, hvp, p, dsc, beta=0.1,
                                     **_tables(s, cuda))
     torch.cuda.synchronize()
-    assert mm.circulant_neumann_step.launches == before + 1
+    assert mm.launch_counts()["circulant_neumann_step"] == before + 1
     want = ref.neumann_step_ref(h.float(), hvp.float(), p.float(), dsc,
                                 w_self=s.w_self, offsets=s.offsets,
                                 weights=s.weights, beta=0.1).to(dtype)
@@ -202,3 +202,157 @@ def test_solve_cuda_matches_cpu(cuda, kind, n, family, dihgp):
     torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(gpu.y.cpu(), cpu.y, rtol=1e-4, atol=1e-5)
     assert gpu.ledger.total_bytes == cpu.ledger.total_bytes
+
+
+# ---------------------------------------------------------------------------
+# Comm-fused kernels (int8/int4 ± EF): the payload is bitwise the plain
+# version's (no FMA contraction in the quantizer, IEEE division); the
+# mixed output differs only by the accumulation's FMA contraction.
+# ---------------------------------------------------------------------------
+
+COMMS = ["int8", "int4", "int8+ef", "int4+ef"]
+FUSED_SHAPES = [(16, 2010), (16, 157000), (3, 1), (7, 129), (128, 1000)]
+
+
+def _wire(y, comm, dev, seed=5):
+    from repro_torch.comm import row_quant_params
+    bits, ef = int(comm[3]), comm.endswith("+ef")
+    hat = 0.5 * _randn(y.shape, torch.float32, dev, seed=seed) if ef \
+        else None
+    zp, sc = row_quant_params(y - hat if ef else y, bits)
+    return bits, ef, zp, sc, hat
+
+
+def _close_fused(got, want, ef):
+    if ef:
+        assert torch.equal(got[1], want[1])
+        got, want = got[0], want[0]
+    _close(got, want)
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("comm", COMMS)
+@pytest.mark.parametrize("laplacian", [False, True])
+def test_circulant_mix_comm_kernel(cuda, shape, comm, laplacian):
+    n, d = shape
+    s = circulant_structure(make_network("circulant", n, offsets=(1, 2)).W
+                            if n >= 6 else make_network("ring", n).W)
+    y = _randn(shape, torch.float32, cuda)
+    bits, ef, zp, sc, hat = _wire(y, comm, cuda)
+    before = mm.launch_counts()["circulant_mix_matvec_comm"]
+    got = mm.circulant_mix_matvec(y, zp, sc, 2 ** 31 - 2, hat,
+                                  laplacian=laplacian, comm=comm,
+                                  **_tables(s, cuda))
+    torch.cuda.synchronize()
+    assert mm.launch_counts()["circulant_mix_matvec_comm"] == before + 1
+    want = ref.circulant_mix_fused_ref(y, zp, sc, 2 ** 31 - 2, hat,
+                                       w_self=s.w_self, offsets=s.offsets,
+                                       weights=s.weights,
+                                       laplacian=laplacian, bits=bits)
+    _close_fused(got, want, ef)
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("comm", COMMS)
+@pytest.mark.parametrize("kind", ["erdos_renyi", "star"])
+def test_sparse_mix_comm_kernel(cuda, shape, comm, kind):
+    n, d = shape
+    sp = sparse_structure(make_network(kind, n, r=0.5, seed=0).W)
+    tabs = [torch.as_tensor(a, device=cuda)
+            for a in (sp.w_self, sp.neighbors, sp.weights)]
+    y = _randn(shape, torch.float32, cuda, seed=1)
+    bits, ef, zp, sc, hat = _wire(y, comm, cuda)
+    before = mm.launch_counts()["sparse_mix_matvec_comm"]
+    got = mm.sparse_mix_matvec(y, *tabs, zp, sc, 99, hat, laplacian=True,
+                               comm=comm)
+    torch.cuda.synchronize()
+    assert mm.launch_counts()["sparse_mix_matvec_comm"] == before + 1
+    want = ref.sparse_mix_fused_ref(y, *tabs, zp, sc, 99, hat,
+                                    laplacian=True, bits=bits)
+    _close_fused(got, want, ef)
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("comm", ["int8", "int4"])
+def test_circulant_neumann_comm_kernel(cuda, shape, comm):
+    n, d = shape
+    s = circulant_structure(make_network("ring", n).W)
+    h, hvp, p = (_randn(shape, torch.float32, cuda, seed=i)
+                 for i in range(3))
+    dsc = torch.as_tensor(np.random.default_rng(3).uniform(
+        1.5, 3.0, (n, 1)), dtype=torch.float32).to(cuda)
+    bits, _, zp, sc, _ = _wire(h, comm, cuda)
+    before = mm.launch_counts()["circulant_neumann_step_comm"]
+    got = mm.circulant_neumann_step(h, hvp, p, dsc, zp, sc, 7, beta=0.1,
+                                    comm=comm, **_tables(s, cuda))
+    torch.cuda.synchronize()
+    assert mm.launch_counts()["circulant_neumann_step_comm"] == before + 1
+    want = ref.neumann_step_fused_ref(h, hvp, p, dsc, zp, sc, 7,
+                                      w_self=s.w_self, offsets=s.offsets,
+                                      weights=s.weights, beta=0.1,
+                                      bits=bits)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("n,d", [(2, 1), (2, 157000), (3, 129),
+                                 (16, 2010)])
+def test_ring_laplacian_kernel(cuda, n, d):
+    W = make_network("ring", n).W if n > 2 else np.full((2, 2), 0.5)
+    w_self, w_edge = float(W[0, 0]), float(W[0, 1])
+    y = _randn((n, d), torch.float32, cuda)
+    before = mm.launch_counts()
+    got = mm.ring_laplacian_matvec(y, w_self=w_self, w_edge=w_edge)
+    torch.cuda.synchronize()
+    after = mm.launch_counts()
+    assert after["ring_laplacian_matvec"] == \
+        before["ring_laplacian_matvec"] + 1
+    assert after["circulant_mix_matvec"] == before["circulant_mix_matvec"]
+    _close(got, ref.ring_laplacian_ref(y, w_self, w_edge))
+
+
+def test_row_quant_params_on_the_card_is_the_cpus(cuda):
+    """The wire metadata is bitwise equal on both devices (bf16 RNE casts
+    and a tensor-by-tensor division)."""
+    from repro_torch.comm import row_quant_params
+    y = _randn((64, 5000), torch.float32, "cpu") \
+        * torch.logspace(-3, 3, 64)[:, None]
+    for bits in (4, 8):
+        zc, sc = row_quant_params(y, bits)
+        zg, sg = row_quant_params(y.to(cuda), bits)
+        assert torch.equal(zg.cpu(), zc) and torch.equal(sg.cpu(), sc)
+    u = ref.hash_uniform(12345, torch.arange(64, device=cuda)[:, None],
+                         torch.arange(5000, device=cuda)[None, :])
+    assert torch.equal(u.cpu(), ref.hash_uniform(
+        12345, torch.arange(64)[:, None], torch.arange(5000)[None, :]))
+
+
+@pytest.mark.parametrize("comm", ["int8", "int4", "int8+ef", "int4+ef",
+                                  "bf16", "top_k:0.1+ef", "rand_k:0.25"])
+@pytest.mark.parametrize("kind", ["ring", "erdos_renyi", "star"])
+def test_solve_with_comm_cuda_matches_cpu(cuda, comm, kind):
+    """Compressed solve on the card vs the CPU: the same send seeds give
+    the same uniforms and rand-k indices on both devices, so the runs
+    agree except where a ~1e-7 autodiff difference flips a stochastic
+    rounding (one neighbor term moves by w·scale): norm-relative 1e-2."""
+    n = 16
+    net = make_network(kind, n, r=0.5, seed=0)
+    spec = SolverSpec(K=6, M=4, U=2, dihgp="matrix_free", curvature=10.0,
+                      comm=CommSpec(comm),
+                      schedule=ScheduleSpec(alpha=0.05, beta=0.05))
+    rng = np.random.default_rng(0)
+    probs = {dev: quadratic_bilevel(n, 130, 40, seed=1, device=dev)
+             for dev in ("cpu", "cuda")}
+    x0 = 0.1 * rng.standard_normal((n, 130))
+    y0 = 0.1 * rng.standard_normal((n, 40))
+    mm.reset_launch_counts()
+    gpu = solve(probs["cuda"], net, spec, x0=x0, y0=y0, device="cuda")
+    counts = mm.launch_counts()
+    cpu = solve(probs["cpu"], net, spec, x0=x0, y0=y0, device="cpu")
+    fused = spec.comm.spec.startswith("int") and kind != "star"
+    assert (sum(v for k, v in counts.items() if k.endswith("_comm")) > 0) \
+        == fused
+    for g, c in ((gpu.x, cpu.x), (gpu.y, cpu.y)):
+        assert torch.isfinite(g).all()
+        assert ((g.cpu() - c).norm() / c.norm()).item() <= 1e-2
+    assert gpu.ledger.total_bytes == cpu.ledger.total_bytes \
+        == spec.comm_ledger(130, 40).total_bytes
