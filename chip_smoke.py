@@ -13,7 +13,9 @@ Phases, in order (any failure exits non-zero before the last line):
                the bytes/operations bound: the plain circulant, sparse-
                gather and Neumann kernels, their comm-fused twins
                (int8/int4 ± error feedback; payload bitwise) and the
-               ring Laplacian;
+               ring Laplacian; then the row-tiled halo kernels at
+               n = 4096 (plain and fused, at the planner's row tile and
+               two others, bitwise against the full-operand kernels);
   4. main    — `repro_torch.solve` on the paper's §6.2 hyper-
                representation MLP at its published widths (d=784,
                hidden=200: d1=157,000, d2=2,010; n=16 agents) on a ring
@@ -26,13 +28,20 @@ Phases, in order (any failure exits non-zero before the last line):
                with the same run on the card through the kernels' plain
                versions, and with the CPU run within the algorithm's own
                seed-to-seed spread (see E2E_NORM_REL);
-  5. the kernel list as one JSON line, then the device JSON line last.
+  5. large   — the same solve on n = 4096 agents (K = 3), where the
+               shared-memory planner sends every gossip through the halo
+               kernels: ring identity, int4 and int8+ef, Erdős–Rényi
+               (r = 0.004) identity and int8, each with exact launch
+               counts and ledger bytes, held against the same solve on
+               the card through the plain versions, timed and profiled;
+  6. the kernel list as one JSON line, then the device JSON line last.
 
 Imports torch and the port only; needs no network.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -64,10 +73,15 @@ N_AGENTS = 16
 D_IN, HIDDEN, N_CLASSES, M_PER = 784, 200, 10, 30
 D1, D2 = D_IN * HIDDEN + HIDDEN, HIDDEN * N_CLASSES + N_CLASSES
 K, M, U = 5, 5, 3
+# the large-network path: one (4096, 157000) f32 state is 2.57 GB; an
+# Erdős–Rényi graph with mean degree ~18 (k_max 36, the padded gather)
+N_LARGE, K_LARGE, ER_R_LARGE = 4096, 3, 0.004
 
-# tolerances: f32 kernels vs their plain versions differ only by FMA
-# contraction (≤ a few ulp of outputs of size ≤ ~10); bf16 outputs are
-# rounded from f32 accumulators, so they may differ by one bf16 ulp.
+# tolerances: the kernels round each product and sum on its own, in
+# their plain versions' order (no FMA contraction), so outputs are
+# expected to agree bit for bit and `check` prints how many elements
+# differ; the pass mark stays a few ulp of outputs of size ≤ ~10 for
+# f32 and one bf16 ulp for bf16 outputs (rounded from f32 accumulators).
 F32_TOL = 1e-5
 BF16_REL_TOL = 2.0 ** -7
 # end to end, GPU vs CPU: cuBLAS and CPU reductions in the autodiff
@@ -155,12 +169,14 @@ def bound(nbytes: float, flops: float, int_ops: float = 0.0
 
 def check(name, got, want, dtype_name) -> float:
     err = (got.float() - want.float()).abs().max().item()
+    differ = int((got != want).sum().item())
     if dtype_name == "float32":
         tol = F32_TOL
     else:
         tol = BF16_REL_TOL * want.float().abs().max().item()
     status = "ok" if err <= tol else "FAIL"
-    print(f"  {name}: max_abs_err={err:.3e} tol={tol:.3e} {status}")
+    print(f"  {name}: max_abs_err={err:.3e} tol={tol:.3e} {status} "
+          f"(elements differing {differ})")
     if err > tol:
         raise AssertionError(f"{name} disagrees with its plain version")
     return err
@@ -168,8 +184,7 @@ def check(name, got, want, dtype_name) -> float:
 
 def check_fused(name, got, want, ef: bool) -> float:
     """A comm-fused kernel vs its plain version: under EF the payload
-    must be bitwise equal; the mixed output within F32_TOL (FMA
-    contraction of the accumulation only)."""
+    must be bitwise equal; the mixed output within F32_TOL."""
     if ef:
         (got, pay), (want, want_pay) = got, want
         diff = int((pay != want_pay).sum().item())
@@ -180,8 +195,36 @@ def check_fused(name, got, want, ef: bool) -> float:
     return check(name, got, want, "float32")
 
 
-def kernel_phase(torch, results: dict) -> None:
+def wire_operands(torch, gen, n, d, comm, extra=0):
+    """(bits, ef, pool): operands of one comm-fused launch, y (and hat),
+    its row metadata, plus `extra` more (n, d) operands (the Neumann
+    step's hvp_h and p), in an `operand_pool`."""
     from repro_torch.comm import row_quant_params
+    bits, ef = int(comm[3]), comm.endswith("+ef")
+    dev = gen.device
+
+    def make():
+        y = torch.randn((n, d), generator=gen, device=dev)
+        hat = 0.5 * torch.randn((n, d), generator=gen, device=dev) \
+            if ef else None
+        zp, sc = row_quant_params(y - hat if ef else y, bits)
+        more = tuple(torch.randn((n, d), generator=gen, device=dev)
+                     for _ in range(extra))
+        return (y, zp, sc, hat) + more
+    return bits, ef, operand_pool(torch, make, n * d * 4 * (1 + ef + extra))
+
+
+def fused_bound(n, d, k, ef, lap, table_bytes):
+    """Bound of a comm-fused mix: reads y (and hat) and the (n, 1)
+    zp/scale, writes out (and the payload); the mix's 2(k+1) FLOP plus
+    the quantizer once per element."""
+    nbytes = n * d * 4 * (2 + 2 * ef) + 8 * n + table_bytes
+    return bound(nbytes,
+                 (2 * (k + 1) + lap + QUANT_F32_OPS + 2 * ef) * n * d,
+                 QUANT_INT_OPS * n * d)
+
+
+def kernel_phase(torch, results: dict) -> None:
     from repro_torch.kernels import mixing_matvec as mm
     from repro_torch.kernels import ref
     from repro_torch.topology import make_network
@@ -343,29 +386,7 @@ def kernel_phase(torch, results: dict) -> None:
                     bound=b_ms, by=b_by))
 
     def wire_pool(n, d, comm, extra=0):
-        """Operands of one comm-fused launch: y (and hat), its row
-        metadata, plus `extra` more (n, d) operands (the Neumann step's
-        hvp_h and p)."""
-        bits, ef = int(comm[3]), comm.endswith("+ef")
-
-        def make():
-            y = torch.randn((n, d), generator=gen, device=dev)
-            hat = 0.5 * torch.randn((n, d), generator=gen, device=dev) \
-                if ef else None
-            zp, sc = row_quant_params(y - hat if ef else y, bits)
-            more = tuple(torch.randn((n, d), generator=gen, device=dev)
-                         for _ in range(extra))
-            return (y, zp, sc, hat) + more
-        return bits, ef, operand_pool(torch, make,
-                                      n * d * 4 * (1 + ef + extra))
-
-    def fused_bound(n, d, k, ef, lap, table_bytes):
-        # reads y (and hat) and the (n, 1) zp/scale, writes out (and the
-        # payload); the mix's 2(k+1) FLOP plus the quantizer per element
-        nbytes = n * d * 4 * (2 + 2 * ef) + 8 * n + table_bytes
-        return bound(nbytes,
-                     (2 * (k + 1) + lap + QUANT_F32_OPS + 2 * ef) * n * d,
-                     QUANT_INT_OPS * n * d)
+        return wire_operands(torch, gen, n, d, comm, extra)
 
     # -- circulant_mix_matvec, comm-fused --------------------------------
     print("kernel circulant_mix_matvec_comm (ring, int8/int4 ± EF)")
@@ -514,6 +535,257 @@ def kernel_phase(torch, results: dict) -> None:
                     bound=b_ms, by=b_by))
 
 
+@functools.lru_cache(maxsize=None)
+def large_networks():
+    """The large-network path's graphs at n = N_LARGE: the ring and an
+    Erdős–Rényi graph (r = ER_R_LARGE, seed 0)."""
+    from repro_torch.topology import make_network
+    return (make_network("ring", N_LARGE),
+            make_network("erdos_renyi", N_LARGE, r=ER_R_LARGE, seed=0))
+
+
+def halo_kernel_phase(torch, results: dict) -> None:
+    """The row-tiled halo kernels at the large-network path's shapes,
+    (4096, 157000) and (4096, 2010): at the planner's row tile and at
+    half and twice it, each launch held bitwise against the full-operand
+    kernel (plain output; fused payload and output) and within tolerance
+    of its plain version; timed at the planner's row tile, beside the
+    full-operand kernel's device time and `torch.sparse.mm` with a CSR W
+    (the library yardstick: it computes the uncompressed mix)."""
+    from repro_torch.kernels import mixing_matvec as mm
+    from repro_torch.kernels import ref
+    from repro_torch.topology.structure import (circulant_structure,
+                                                sparse_structure)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(1)
+    n = N_LARGE
+    ring, er = large_networks()
+    s = circulant_structure(ring.W)
+    sp = sparse_structure(er.W)
+    k = len(s.offsets)
+    host = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights)
+    off, w = mm.circulant_tables(n, s.offsets, s.weights, dev)
+    tabs = dict(w_self=s.w_self, offsets=off, weights=w)
+    er_tabs = tuple(torch.as_tensor(a, device=dev)
+                    for a in (sp.w_self, sp.neighbors, sp.weights))
+    h_lo, h_hi = mm.halo_extents(s.offsets, n)
+    eye = torch.eye(n, device=dev)
+    csr = {}
+    for name, net in (("ring", ring), ("er", er)):
+        W = torch.as_tensor(net.W, dtype=torch.float32, device=dev)
+        csr[name] = (W.to_sparse_csr(), (eye - W).to_sparse_csr())
+    shapes = [(n, D1), (n, D2)]
+    dtypes = [("float32", torch.float32), ("bfloat16", torch.bfloat16)]
+
+    def tiles(planned):
+        return [planned, planned // 2, planned * 2]
+
+    def bitwise(tag, got, full):
+        pairs = zip(got, full) if isinstance(got, tuple) else [(got, full)]
+        diff = sum(int((g != f).sum().item()) for g, f in pairs)
+        print(f"  {tag}: elements differing from the full-operand kernel "
+              f"{diff} (bitwise)")
+        if diff:
+            raise AssertionError(f"{tag}: not bitwise equal to the "
+                                 f"full-operand kernel")
+
+    def timings(kname, key, launch, plain_fn, pool, symbol, full_fn,
+                full_symbol, lib_fn, b, err, bn):
+        big = key[1] == D1
+        ms = cuda_ms(torch, launch, pool, iters=50 if big else 200)
+        dev_ms = device_ms(torch, launch, pool, symbol)
+        full_dev = device_ms(torch, full_fn, pool, full_symbol)
+        plain = cuda_ms(torch, plain_fn, pool, iters=3 if big else 20,
+                        warmup=1)
+        lib = None if lib_fn is None else cuda_ms(torch, lib_fn, pool,
+                                                  iters=20 if big else 200)
+        print(f"    bn={bn} ms={ms:.5f} device_ms={dev_ms:.5f} "
+              f"full-operand device_ms={full_dev:.5f} plain_ms={plain:.5f} "
+              f"library_ms(sparse.mm CSR)="
+              f"{'n/a' if lib is None else f'{lib:.5f}'} "
+              f"bound_ms={b[0]:.5f} ({b[1]})")
+        results.setdefault(kname, {})[key] = dict(
+            err=err, ms=ms, dev=dev_ms, plain=plain, lib=lib, bound=b[0],
+            by=b[1], bn=bn, full_dev=full_dev)
+
+    # -- circulant_mix_matvec_halo ---------------------------------------
+    print(f"kernel circulant_mix_matvec_halo (ring n={n}, row tiles)")
+    for d_ in (D1, D2):
+        for dname, dt in dtypes:
+            item = torch.tensor([], dtype=dt).element_size()
+            pool = operand_pool(torch, lambda: torch.randn(
+                (n, d_), generator=gen, device=dev).to(dt), n * d_ * item)
+            planned = mm.pick_halo_bn(n, h_lo=h_lo, h_hi=h_hi,
+                                      itemsize=item)
+            for lap in (False, True):
+                y = pool[0]
+                want = ref.circulant_mix_ref(y.float(), s.w_self, s.offsets,
+                                             s.weights, lap).to(dt)
+                full = mm.circulant_mix_matvec(y, laplacian=lap, **tabs)
+                err = 0.0
+                for bn in tiles(planned):
+                    got = mm.circulant_mix_matvec_halo(y, laplacian=lap,
+                                                       bn=bn, **host)
+                    torch.cuda.synchronize()
+                    tag = f"({n}, {d_}) {dname} laplacian={lap} bn={bn}"
+                    bitwise(tag, got, full)
+                    err = max(err, check(tag, got, want, dname))
+                del got, full, want
+                if lap != (d_ == D1):
+                    continue        # time (I−W)·X at d1 and W·Y at d2
+
+                def launch(t, lap=lap):
+                    return mm.circulant_mix_matvec_halo(
+                        t, laplacian=lap, bn=planned, **host)
+                A = csr["ring"][int(lap)]
+                timings("circulant_mix_matvec_halo", (n, d_, dname, lap),
+                        launch, lambda t, lap=lap: ref.circulant_mix_ref(
+                            t.float(), s.w_self, s.offsets, s.weights,
+                            lap).to(t.dtype), pool, "circulant_mix_halo_kernel",
+                        lambda t, lap=lap: mm.circulant_mix_matvec(
+                            t, laplacian=lap, **tabs), "circulant_mix_kernel",
+                        (lambda t: torch.sparse.mm(A, t))
+                        if dt == torch.float32 else None,
+                        bound(2 * n * d_ * item + 8 * k,
+                              (2 * (k + 1) + lap) * n * d_), err, planned)
+            del pool
+
+    # -- circulant_mix_matvec_halo, comm-fused ---------------------------
+    print(f"kernel circulant_mix_matvec_halo_comm (ring n={n}, int8/int4 "
+          f"± EF, row tiles)")
+    for d_ in (D1, D2):
+        for comm in COMMS:
+            bits, ef, pool = wire_operands(torch, gen, n, d_, comm)
+            planned = mm.pick_halo_bn(n, h_lo=h_lo, h_hi=h_hi,
+                                      blocks=mm.plan_blocks(True, ef))
+            for lap in (False, True):
+                t = pool[0]
+                want = ref.circulant_mix_fused_ref(
+                    *t[:3], SEED, t[3], laplacian=lap, bits=bits, **host)
+                full = mm.circulant_mix_matvec(*t[:3], SEED, t[3],
+                                               laplacian=lap, comm=comm,
+                                               **tabs)
+                err = 0.0
+                for bn in tiles(planned):
+                    got = mm.circulant_mix_matvec_halo(
+                        *t[:3], SEED, t[3], laplacian=lap, bn=bn, comm=comm,
+                        **host)
+                    torch.cuda.synchronize()
+                    tag = f"({n}, {d_}) {comm} laplacian={lap} bn={bn}"
+                    bitwise(tag, got, full)
+                    err = max(err, check_fused(tag, got, want, ef))
+                del got, full, want
+                if lap != (d_ == D1):
+                    continue
+
+                def launch(t, lap=lap, comm=comm):
+                    return mm.circulant_mix_matvec_halo(
+                        *t[:3], SEED, t[3], laplacian=lap, bn=planned,
+                        comm=comm, **host)
+                A = csr["ring"][int(lap)]
+                timings("circulant_mix_matvec_halo_comm", (n, d_, comm, lap),
+                        launch, lambda t, lap=lap, bits=bits:
+                        ref.circulant_mix_fused_ref(
+                            *t[:3], SEED, t[3], laplacian=lap, bits=bits,
+                            **host), pool, "circulant_mix_halo_comm_kernel",
+                        lambda t, lap=lap, comm=comm: mm.circulant_mix_matvec(
+                            *t[:3], SEED, t[3], laplacian=lap, comm=comm,
+                            **tabs), "circulant_mix_comm_kernel",
+                        lambda t: torch.sparse.mm(A, t[0]),
+                        fused_bound(n, d_, k, ef, lap, 8 * k), err, planned)
+            del pool
+
+    # -- sparse_mix_matvec_halo ------------------------------------------
+    print(f"kernel sparse_mix_matvec_halo (Erdős–Rényi n={n} r={ER_R_LARGE}"
+          f" k={sp.k}, row tiles)")
+    for d_ in (D1, D2):
+        for dname, dt in dtypes:
+            item = torch.tensor([], dtype=dt).element_size()
+            pool = operand_pool(torch, lambda: torch.randn(
+                (n, d_), generator=gen, device=dev).to(dt), n * d_ * item)
+            planned = mm.pick_halo_bn(n, itemsize=item)
+            for lap in (False, True):
+                y = pool[0]
+                want = ref.sparse_mix_padded_ref(y.float(), *er_tabs,
+                                                 lap).to(dt)
+                full = mm.sparse_mix_matvec(y, *er_tabs, laplacian=lap)
+                err = 0.0
+                for bn in tiles(planned):
+                    got = mm.sparse_mix_matvec_halo(y, *er_tabs,
+                                                    laplacian=lap, bn=bn)
+                    torch.cuda.synchronize()
+                    tag = f"({n}, {d_}) {dname} laplacian={lap} bn={bn}"
+                    bitwise(tag, got, full)
+                    err = max(err, check(tag, got, want, dname))
+                del got, full, want
+                if lap != (d_ == D1):
+                    continue
+
+                def launch(t, lap=lap):
+                    return mm.sparse_mix_matvec_halo(t, *er_tabs,
+                                                     laplacian=lap,
+                                                     bn=planned)
+                A = csr["er"][int(lap)]
+                timings("sparse_mix_matvec_halo", (n, d_, dname, lap),
+                        launch, lambda t, lap=lap: ref.sparse_mix_padded_ref(
+                            t.float(), *er_tabs, lap).to(t.dtype), pool,
+                        "sparse_mix_halo_kernel",
+                        lambda t, lap=lap: mm.sparse_mix_matvec(
+                            t, *er_tabs, laplacian=lap), "sparse_mix_kernel",
+                        (lambda t: torch.sparse.mm(A, t))
+                        if dt == torch.float32 else None,
+                        bound(2 * n * d_ * item + sp.nnz * 8 + n * 4,
+                              (2 * (sp.nnz + n) + lap * n) * d_), err,
+                        planned)
+            del pool
+
+    # -- sparse_mix_matvec_halo, comm-fused (no EF) ----------------------
+    print(f"kernel sparse_mix_matvec_halo_comm (Erdős–Rényi n={n}, "
+          f"int8/int4, row tiles)")
+    for d_ in (D1, D2):
+        for comm in ("int8", "int4"):
+            bits, _, pool = wire_operands(torch, gen, n, d_, comm)
+            planned = mm.pick_halo_bn(n, blocks=mm.plan_blocks(True))
+            for lap in (False, True):
+                t = pool[0]
+                want = ref.sparse_mix_fused_ref(t[0], *er_tabs, *t[1:3],
+                                                SEED, laplacian=lap,
+                                                bits=bits)
+                full = mm.sparse_mix_matvec(t[0], *er_tabs, *t[1:3], SEED,
+                                            laplacian=lap, comm=comm)
+                err = 0.0
+                for bn in tiles(planned):
+                    got = mm.sparse_mix_matvec_halo(
+                        t[0], *er_tabs, *t[1:3], SEED, laplacian=lap, bn=bn,
+                        comm=comm)
+                    torch.cuda.synchronize()
+                    tag = f"({n}, {d_}) {comm} laplacian={lap} bn={bn}"
+                    bitwise(tag, got, full)
+                    err = max(err, check_fused(tag, got, want, False))
+                del got, full, want
+                if lap != (d_ == D1):
+                    continue
+
+                def launch(t, lap=lap, comm=comm):
+                    return mm.sparse_mix_matvec_halo(
+                        t[0], *er_tabs, *t[1:3], SEED, laplacian=lap,
+                        bn=planned, comm=comm)
+                A = csr["er"][int(lap)]
+                timings("sparse_mix_matvec_halo_comm", (n, d_, comm, lap),
+                        launch, lambda t, lap=lap, bits=bits:
+                        ref.sparse_mix_fused_ref(
+                            t[0], *er_tabs, *t[1:3], SEED, laplacian=lap,
+                            bits=bits), pool, "sparse_mix_halo_comm_kernel",
+                        lambda t, lap=lap, comm=comm: mm.sparse_mix_matvec(
+                            t[0], *er_tabs, *t[1:3], SEED, laplacian=lap,
+                            comm=comm), "sparse_mix_comm_kernel",
+                        lambda t: torch.sparse.mm(A, t[0]),
+                        fused_bound(n, d_, sp.nnz / n, False, lap,
+                                    sp.nnz * 8 + n * 4), err, planned)
+            del pool
+
+
 def main_path_phase(torch, counts_out: dict) -> None:
     import numpy as np
 
@@ -558,7 +830,7 @@ def main_path_phase(torch, counts_out: dict) -> None:
          {**zero, "sparse_mix_matvec_comm": gossips}, 865580),
     ]
     identity_metrics = {}
-    timed = {}
+    timed, busy = {}, {}
     for label, net, comm, expected, ledger_bytes in runs:
         spec = spec_for(comm)
         print(f"main path: solve(hyper_representation d1={D1} d2={D2}, "
@@ -618,14 +890,146 @@ def main_path_phase(torch, counts_out: dict) -> None:
         if not res.ledger.total_bytes == cpu.ledger.total_bytes == preview \
                 == ledger_bytes:
             raise AssertionError(f"{label}: ledger bytes disagree")
-        profile_run(torch, lambda: run("cuda"))
-    time_in_turns(torch, timed)
+        busy[label] = profile_run(torch, lambda: run("cuda"))
+    idle_shares(busy, time_in_turns(torch, timed), K)
 
 
-def time_in_turns(torch, timed: dict, reps: int = 5) -> None:
+def large_network_phase(torch, counts_out: dict) -> None:
+    """The same §6.2 solve on n = N_LARGE agents, K = K_LARGE rounds:
+    the shared-memory planner sends every gossip through a halo kernel.
+    Each run: exact launch counts, exact ledger bytes, agreement with the
+    same solve on the card through the plain versions, seconds per
+    round, peak device memory and one profiled run."""
+    import numpy as np
+
+    from repro_torch.core.problems import hyper_representation
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solve import CommSpec, ScheduleSpec, SolverSpec, solve
+    from repro_torch.topology import ops as tops
+
+    n = N_LARGE
+    prob = hyper_representation(n, d=D_IN, hidden=HIDDEN,
+                                n_classes=N_CLASSES, m_per=M_PER, seed=0,
+                                device="cuda")
+    assert (prob.d1, prob.d2) == (D1, D2)
+    # x0 and y0 as in the n = 16 runs, put on the card once: the 2.57 GB
+    # host-to-device copy of x0 is set-up, not a round
+    x0 = torch.as_tensor(np.broadcast_to(
+        0.3 * np.random.default_rng(42).standard_normal(D1),
+        (n, D1)).astype(np.float32), device="cuda")
+    y0 = torch.as_tensor((0.01 * np.random.default_rng(0).standard_normal(
+        (n, D2))).astype(np.float32), device="cuda")
+    ring, er = large_networks()
+    timed, busy = {}, {}
+    zero = dict.fromkeys(launch_counts(), 0)
+    gossips = K_LARGE * (M + U + 1)
+    # (label, graph, comm spec, expected launches, ledger bytes): per
+    # agent, K_LARGE rounds of M + U d2 gossips and one d1 gossip
+    runs = [
+        ("ring identity", ring, "identity",
+         {**zero, "circulant_mix_matvec_halo": K_LARGE * (M + 1),
+          "circulant_neumann_step": K_LARGE * U}, 2076960),
+        ("ring int4", ring, "int4",
+         {**zero, "circulant_mix_matvec_halo_comm": gossips}, 259728),
+        ("ring int8+ef", ring, "int8+ef",
+         {**zero, "circulant_mix_matvec_halo_comm": gossips}, 519348),
+        ("erdos_renyi identity", er, "identity",
+         {**zero, "sparse_mix_matvec_halo": gossips}, 2076960),
+        ("erdos_renyi int8", er, "int8",
+         {**zero, "sparse_mix_matvec_halo_comm": gossips}, 519348),
+    ]
+    for label, net, comm, expected, ledger_bytes in runs:
+        spec = SolverSpec(method="dagm", K=K_LARGE, M=M, U=U,
+                          dihgp="matrix_free",
+                          schedule=ScheduleSpec(alpha=0.1, beta=0.1),
+                          comm=CommSpec(comm))
+        print(f"large: solve(hyper_representation n={n} d1={D1} d2={D2}, "
+              f"{net.name}, K={K_LARGE} M={M} U={U} dihgp=matrix_free, "
+              f"comm={comm})")
+
+        def run(dev="cuda", spec=spec, net=net):
+            return solve(prob, net, spec, x0=x0, y0=y0, seed=0,
+                         device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        counts = launch_counts()
+        print(f"  launches {counts} expected {expected}")
+        if counts != expected:
+            raise AssertionError(f"{label}: launch counts {counts} != "
+                                 f"{expected}")
+        for name, c in counts.items():
+            counts_out[name] = counts_out.get(name, 0) + c
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        for key, val in res.metrics.items():
+            if val.shape != (K_LARGE,) or not torch.isfinite(val).all():
+                raise AssertionError(f"{label}: metric {key} not finite "
+                                     f"(K,): {val}")
+        for name, t, shape in (("x", res.x, (n, D1)), ("y", res.y, (n, D2))):
+            if tuple(t.shape) != shape or not torch.isfinite(t).all():
+                raise AssertionError(f"{label}: final {name} bad")
+        print("  metrics", {k: [round(float(v), 6) for v in val.cpu()]
+                            for k, val in res.metrics.items()})
+        preview = spec.comm_ledger(D1, D2).total_bytes
+        print(f"  ledger total_bytes={res.ledger.total_bytes} (spec preview "
+              f"{preview}, expected {ledger_bytes})")
+        if not res.ledger.total_bytes == preview == ledger_bytes:
+            raise AssertionError(f"{label}: ledger bytes disagree")
+        with plain_versions():
+            plain = run()
+        compare_runs(torch, "the card's plain versions", res, plain,
+                     compressed=comm != "identity", norm_rel_xy=True)
+        del res, plain
+        print(f"  seconds per round of the first run {first / K_LARGE:.6f} "
+              f"(host clock)")
+        timed[label] = run
+        busy[label] = profile_run(torch, run)
+    # every solve builds its MixingOp (structure detection over the dense
+    # (n, n) W on the host), set-up that the K_LARGE rounds share: timed
+    # inside each timed run, so each run's rounds are its time less its
+    # own set-up
+    spent = []
+
+    def timed_build(*args, **kw):
+        t0 = time.perf_counter()
+        op = build(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return op
+    build, tops.make_mixing_op = tops.make_mixing_op, timed_build
+    try:
+        seconds = time_in_turns(torch, timed, reps=3, rounds=K_LARGE)
+    finally:
+        tops.make_mixing_op = build
+    idle_shares(busy, seconds, K_LARGE)
+    print("net of each run's MixingOp set-up (make_mixing_op inside solve):")
+    for j, (label, ts) in enumerate(seconds.items()):
+        setups = spent[j::len(seconds)]
+        net = median([t * K_LARGE - u for t, u in zip(ts, setups)])
+        line = (f"  {label}: set-up median {median(setups):.3f} s, all "
+                f"{' '.join(f'{u:.3f}' for u in setups)}; seconds per round "
+                f"net {net / K_LARGE:.6f}")
+        if busy[label] is not None:
+            line += (f"; device busy {busy[label] / 1e6:.6f} s of {net:.6f} s "
+                     f"(idle share {1 - busy[label] / 1e6 / net:.4f})")
+        print(line)
+
+
+def median(values):
+    return sorted(values)[len(values) // 2]
+
+
+def time_in_turns(torch, timed: dict, reps: int = 5, rounds: int = K
+                  ) -> dict:
     """Seconds per round of every main-path run, timed in turns (each
     run once per pass, `reps` passes), so that the host's drift over the
-    script falls on all of them alike."""
+    script falls on all of them alike; returns {label: seconds per round
+    of each pass, in pass order}."""
     seconds = {label: [] for label in timed}
     for _ in range(reps):
         for label, run in timed.items():
@@ -633,31 +1037,45 @@ def time_in_turns(torch, timed: dict, reps: int = 5) -> None:
             t0 = time.perf_counter()
             run("cuda")
             torch.cuda.synchronize()
-            seconds[label].append((time.perf_counter() - t0) / K)
-    print(f"seconds per round, {reps} passes in turns (host clock, {K} "
-          f"rounds per run):")
+            seconds[label].append((time.perf_counter() - t0) / rounds)
+    print(f"seconds per round, {reps} passes in turns (host clock, "
+          f"{rounds} rounds per run):")
     for label, ts in seconds.items():
         ts = sorted(ts)
-        print(f"  {label}: median {ts[len(ts) // 2]:.6f} min {ts[0]:.6f} "
+        print(f"  {label}: median {median(ts):.6f} min {ts[0]:.6f} "
               f"max {ts[-1]:.6f} all {' '.join(f'{t:.6f}' for t in ts)}")
+    return seconds
+
+
+def idle_shares(busy: dict, seconds: dict, rounds: int) -> None:
+    """The device's idle share of an unprofiled run: 1 − (device busy µs
+    of the profiled run) / (median seconds per round × rounds)."""
+    for label, us in busy.items():
+        if us is not None:
+            wall = median(seconds[label]) * rounds * 1e6
+            print(f"  {label}: device busy {us:.1f} us of {wall:.1f} us "
+                  f"unprofiled (idle share {1 - us / wall:.4f})")
 
 
 def norm_rel(a, b) -> float:
-    a, b = a.cpu().double(), b.cpu().double()
+    """‖a − b‖ / ‖b‖ in float64, on a's device."""
+    a, b = a.double(), b.to(a.device).double()
     return ((a - b).norm() / b.norm()).item()
 
 
-def compare_runs(torch, what, res, ref_run, compressed=False) -> None:
+def compare_runs(torch, what, res, ref_run, compressed=False,
+                 norm_rel_xy=False) -> None:
     """The card's run against a reference run of the same solve:
-    elementwise on the identity wire; by norm-relative error (x, y) and
-    a wider metric band when compressed (see E2E_NORM_REL)."""
+    elementwise on the identity wire (by norm-relative error with
+    `norm_rel_xy`); by norm-relative error (x, y) and a wider metric band
+    when compressed (see E2E_NORM_REL)."""
     for name, g, c in (("x", res.x, ref_run.x), ("y", res.y, ref_run.y)):
-        g, c = g.cpu(), c.cpu()
+        c = c.to(g.device)
         err = (g - c).abs().max().item()
         rel = norm_rel(g, c)
         print(f"  vs {what} {name}: max_abs_err={err:.3e} norm_rel_err="
               f"{rel:.3e}")
-        if compressed:
+        if compressed or norm_rel_xy:
             if not rel <= E2E_NORM_REL:
                 raise AssertionError(f"{name}: norm-relative error {rel} "
                                      f"> {E2E_NORM_REL} against {what}")
@@ -729,10 +1147,23 @@ def plain_versions():
             return ref.neumann_step_ref(h, hvp, p, dsc, **kw)
         return ref.neumann_step_fused_ref(h, hvp, p, dsc, zp, scale, seed,
                                           bits=int(comm[3]), **kw)
+    def circ_halo(y, zp=None, scale=None, seed=None, hat=None, *, bn,
+                  comm=None, **kw):
+        bits = None if comm in (None, "identity") else int(comm[3])
+        return ref.circulant_mix_halo_ref(y, zp, scale, seed, hat, bn=bn,
+                                          bits=bits, **kw)
+
+    def sparse_halo(y, w_self, nbr, wts, zp=None, scale=None, seed=None, *,
+                    laplacian=False, bn, comm=None):
+        bits = None if comm in (None, "identity") else int(comm[3])
+        return ref.sparse_mix_halo_ref(y, w_self, nbr, wts, zp, scale, seed,
+                                       laplacian=laplacian, bn=bn, bits=bits)
     names = ("circulant_mix_matvec", "sparse_mix_matvec",
-             "circulant_neumann_step")
+             "circulant_neumann_step", "circulant_mix_matvec_halo",
+             "sparse_mix_matvec_halo")
     saved = [getattr(ops, n) for n in names]
-    for n, fn in zip(names, (circ, sparse, neumann)):
+    for n, fn in zip(names, (circ, sparse, neumann, circ_halo,
+                             sparse_halo)):
         setattr(ops, n, fn)
     try:
         yield
@@ -741,10 +1172,10 @@ def plain_versions():
             setattr(ops, n, fn)
 
 
-def profile_run(torch, run) -> None:
+def profile_run(torch, run) -> float | None:
     """Device time by kernel and the device's busy share over one more
     run under torch.profiler (which slows the host, so its wall time is
-    not the round time above)."""
+    not the round time above); returns the device's busy µs."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -753,13 +1184,19 @@ def profile_run(torch, run) -> None:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(getattr(e, "self_device_time_total", 0.0), e.count, e.key)
+    # device activities only (kernels, copies, sets): an operator's row
+    # repeats the time of the kernels it launched, and the tracer's own
+    # buffer requests are not the program's work
+    from torch.autograd import DeviceType
+    rows = [(e.self_device_time_total, e.count, e.key)
             for e in prof.key_averages()
-            if getattr(e, "self_device_time_total", 0.0) > 0]
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("Activity Buffer Request")]
     busy_us = sum(r[0] for r in rows)
     if not rows:
         print("  profiler: no device time recorded (not measured)")
-        return
+        return None
     print(f"  profiler: device busy {busy_us:.1f} us of {wall_us:.1f} us "
           f"wall (idle share {1 - busy_us / wall_us:.4f}); "
           f"{sum(r[1] for r in rows)} device ops")
@@ -767,9 +1204,10 @@ def profile_run(torch, run) -> None:
         print(f"    {us:10.1f} us  x{count:<5d} {key[:90]}")
     for us, count, key in rows:
         if any(tag in key for tag in ("_mix_kernel", "_neumann_kernel",
-                                      "_comm_kernel")):
+                                      "_comm_kernel", "_halo_kernel")):
             print(f"  port kernel: {us:.1f} us device in {count} launches "
                   f"({us / count:.2f} us each) {key[:70]}")
+    return busy_us
 
 
 def main() -> int:
@@ -809,13 +1247,18 @@ def main() -> int:
                 print(f"  ptxas {log.stem}: {line.strip()}")
 
     results: dict = {}
-    kernel_phase(torch, results)
     counts: dict = {}
-    main_path_phase(torch, counts)
+    for phase, args in ((kernel_phase, results), (halo_kernel_phase, results),
+                        (main_path_phase, counts),
+                        (large_network_phase, counts)):
+        t0 = time.perf_counter()
+        phase(torch, args)
+        print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s")
 
     # one entry per kernel, at the main path's largest f32 launch (the
-    # Neumann steps: the d2 launch they run at); ring_laplacian_matvec is
-    # not on the main path and reports its (16, d1) check
+    # Neumann steps: the d2 launch they run at; the halo kernels: the
+    # (4096, d1) gossip of the large-network path); ring_laplacian_matvec
+    # is not on the main path and reports its (16, d1) check
     src = "src/repro/kernels/mixing_matvec.py"
     pick = {
         "circulant_mix_matvec": ((N_AGENTS, D1, "float32", True), 274),
@@ -826,6 +1269,11 @@ def main() -> int:
         "sparse_mix_matvec_comm": ((N_AGENTS, D1, "int8+ef", True), 551),
         "circulant_neumann_step_comm": ((N_AGENTS, D2, "int4", None), 826),
         "ring_laplacian_matvec": ((N_AGENTS, D1, "float32", True), 923),
+        "circulant_mix_matvec_halo": ((N_LARGE, D1, "float32", True), 439),
+        "circulant_mix_matvec_halo_comm": ((N_LARGE, D1, "int8+ef", True),
+                                           439),
+        "sparse_mix_matvec_halo": ((N_LARGE, D1, "float32", True), 739),
+        "sparse_mix_matvec_halo_comm": ((N_LARGE, D1, "int8", True), 739),
     }
     kernels = []
     for name, (key, line) in pick.items():
@@ -843,7 +1291,8 @@ def main() -> int:
             "library_ms": row["lib"],
             "shape": [key[0], key[1]], "dtype": "float32",
             "comm": key[2] if key[2] in COMMS else "identity",
-            "on_main_path": name != "ring_laplacian_matvec"})
+            "on_main_path": name != "ring_laplacian_matvec",
+            **({"bn": row["bn"]} if "bn" in row else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

@@ -64,12 +64,21 @@ def row_quant_params(flat: torch.Tensor, bits: int):
     f32.  The division is tensor by tensor: torch turns a division by a
     Python number into a multiplication by its reciprocal on the card,
     which is not bitwise `span / levels`.  flat: (n, F); returns two
-    (n, 1) f32 tensors."""
+    (n, 1) f32 tensors.
+
+    A span/levels below the smallest normal f32 counts as a constant
+    row (scale 1): `repro`'s XLA code flushes subnormals to zero, so a
+    subnormal span gets scale 1 there too, and a subnormal quotient
+    would flush to a zero scale, which makes (x − zp)/scale = 0/0 at
+    the row's minimum and the decoded payload NaN.  torch keeps
+    subnormals on both devices, where that zero scale came from a
+    row of tiny DIHGP iterates (the n = 4096 ring, int4)."""
     levels = float(2 ** bits - 1)
     flat = flat.float()
     zp = flat.amin(dim=1, keepdim=True).to(torch.bfloat16).float()
     span = flat.amax(dim=1, keepdim=True) - zp
-    scale = torch.where(span > 0.0, span / torch.full_like(span, levels),
+    raw = span / torch.full_like(span, levels)
+    scale = torch.where(raw >= torch.finfo(torch.float32).tiny, raw,
                         torch.ones_like(span))
     scale = (scale * (1.0 + 2.0 ** -7)).to(torch.bfloat16).float()
     return zp, scale

@@ -53,6 +53,26 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, size_t i,
   p[i] = __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
 
+// One term of a mix, acc + w * v with the product and the sum each
+// rounded on its own, as the plain versions' separate torch operations
+// (no FMA contraction): a kernel's output is bitwise its plain version's,
+// and every kernel with the same order agrees with the others bit for bit.
+__device__ __forceinline__ float term(float acc, float w, float v) {
+  return __fadd_rn(acc, __fmul_rn(w, v));
+}
+
+// Eq. 14, (D*h - (h - mix) - beta*hvp - p) / D, in the plain version's
+// order of operations, each rounded on its own (IEEE division).
+__device__ __forceinline__ float neumann_update(float h, float mix,
+                                                float hvp, float p, float d,
+                                                float beta) {
+  const float num = __fsub_rn(
+      __fsub_rn(__fsub_rn(__fmul_rn(d, h), __fsub_rn(h, mix)),
+                __fmul_rn(beta, hvp)),
+      p);
+  return __fdiv_rn(num, d);
+}
+
 // Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec (plain
 // path, _mix_body).
 // Bound: bytes.  Each output element needs its own input plus k neighbor
@@ -62,8 +82,9 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, size_t i,
 // feature axis j, so every neighbor-row read of a warp is one coalesced
 // segment; the k re-reads of a row by other agents' blocks hit L2.
 // f32 accumulation in repro's order: w_self*y_i, then + c_t*y_{(i+o_t)%n}
-// in offset order, then y_i - acc for the Laplacian.  The ragged edge
-// j >= d is masked, so any d works.
+// in offset order (`term`, no FMA), then y_i - acc for the Laplacian, so
+// the output is bitwise the plain version's and the row-tiled halo
+// twin's.  The ragged edge j >= d is masked, so any d works.
 template <typename T>
 __global__ void circulant_mix_kernel(const T* __restrict__ y,
                                      T* __restrict__ out, int n, int d,
@@ -73,13 +94,13 @@ __global__ void circulant_mix_kernel(const T* __restrict__ y,
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
     const size_t at = (size_t)i * d + j;
     const float yi = load_f32(y, at);
-    float acc = c.w_self * yi;
+    float acc = __fmul_rn(c.w_self, yi);
     for (int t = 0; t < c.k; ++t) {
       int src = i + __ldg(c.off + t);
       if (src >= n) src -= n;
-      acc = acc + __ldg(c.w + t) * load_f32(y, (size_t)src * d + j);
+      acc = term(acc, __ldg(c.w + t), load_f32(y, (size_t)src * d + j));
     }
-    if (laplacian) acc = yi - acc;
+    if (laplacian) acc = __fsub_rn(yi, acc);
     store_f32(out, at, acc);
   }
 }
@@ -104,13 +125,13 @@ __global__ void sparse_mix_kernel(const T* __restrict__ y,
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
     const size_t at = (size_t)i * d + j;
     const float yi = load_f32(y, at);
-    float acc = w_self[i] * yi;
+    float acc = __fmul_rn(w_self[i], yi);
     const int* ni = nbr + (size_t)i * k;
     const float* wi = wts + (size_t)i * k;
     for (int t = 0; t < k; ++t) {
-      acc = acc + wi[t] * load_f32(y, (size_t)ni[t] * d + j);
+      acc = term(acc, wi[t], load_f32(y, (size_t)ni[t] * d + j));
     }
-    if (laplacian) acc = yi - acc;
+    if (laplacian) acc = __fsub_rn(yi, acc);
     store_f32(out, at, acc);
   }
 }
@@ -121,7 +142,8 @@ __global__ void sparse_mix_kernel(const T* __restrict__ y,
 // 2(k+1) + 6 FLOP per element.
 // Design: circulant_mix's layout; the mix stays in a register and the
 // Eq. 14 update (D*h - (h - mix) - beta*hvp - p) / D is applied in the
-// same thread, dividing as repro does.  beta is a runtime scalar.
+// same thread (`neumann_update`), dividing as repro does.  beta is a
+// runtime scalar.
 template <typename T>
 __global__ void circulant_neumann_kernel(const T* __restrict__ h,
                                          const T* __restrict__ hvp,
@@ -134,16 +156,15 @@ __global__ void circulant_neumann_kernel(const T* __restrict__ h,
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
     const size_t at = (size_t)i * d + j;
     const float hi = load_f32(h, at);
-    float mix = c.w_self * hi;
+    float mix = __fmul_rn(c.w_self, hi);
     for (int t = 0; t < c.k; ++t) {
       int src = i + __ldg(c.off + t);
       if (src >= n) src -= n;
-      mix = mix + __ldg(c.w + t) * load_f32(h, (size_t)src * d + j);
+      mix = term(mix, __ldg(c.w + t), load_f32(h, (size_t)src * d + j));
     }
     const float di = dsc[i];
-    const float num =
-        di * hi - (hi - mix) - beta * load_f32(hvp, at) - load_f32(p, at);
-    store_f32(out, at, num / di);
+    store_f32(out, at, neumann_update(hi, mix, load_f32(hvp, at),
+                                      load_f32(p, at), di, beta));
   }
 }
 
@@ -161,8 +182,8 @@ __global__ void circulant_neumann_kernel(const T* __restrict__ h,
 // inputs: the payload is never materialized, and every consumer of row r
 // sees the same decoded values.  The quantizer uses the _rn intrinsics (no
 // FMA contraction) and IEEE division, so payloads are bitwise equal to the
-// plain PyTorch versions' (repro_torch/kernels/ref.py); only the
-// accumulation of the mixed output may contract into FMAs.
+// plain PyTorch versions' (repro_torch/kernels/ref.py); the mixes
+// accumulate with `term`, in the plain kernels' order.
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -203,7 +224,10 @@ __device__ __forceinline__ float decoded(const float* __restrict__ y,
   const float h = w.hat ? w.hat[at] : 0.0f;
   const float x = w.hat ? __fsub_rn(y[at], h) : y[at];
   const float z = __fadd_rn(__fdiv_rn(__fsub_rn(x, zp), sc), u);
-  const float q = fminf(fmaxf(floorf(z), 0.0f), w.levels);
+  // clip to [0, levels] keeping NaN, as torch.clamp and jnp.clip do
+  // (fminf/fmaxf would turn a NaN code into 0)
+  float q = floorf(z);
+  q = q < 0.0f ? 0.0f : (q > w.levels ? w.levels : q);
   const float dec = __fadd_rn(zp, __fmul_rn(sc, q));
   return w.hat ? __fadd_rn(h, dec) : dec;
 }
@@ -230,13 +254,13 @@ __global__ void circulant_mix_comm_kernel(const float* __restrict__ y,
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
     const size_t at = (size_t)i * d + j;
     const float yi = y[at];
-    float acc = c.w_self * yi;
+    float acc = __fmul_rn(c.w_self, yi);
     for (int t = 0; t < c.k; ++t) {
       int src = i + __ldg(c.off + t);
       if (src >= n) src -= n;
-      acc = acc + __ldg(c.w + t) * decoded(y, w, src, j, d);
+      acc = term(acc, __ldg(c.w + t), decoded(y, w, src, j, d));
     }
-    if (laplacian) acc = yi - acc;
+    if (laplacian) acc = __fsub_rn(yi, acc);
     out[at] = acc;
     if (pay) pay[at] = decoded(y, w, i, j, d);
   }
@@ -262,13 +286,13 @@ __global__ void sparse_mix_comm_kernel(const float* __restrict__ y,
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
     const size_t at = (size_t)i * d + j;
     const float yi = y[at];
-    float acc = w_self[i] * yi;
+    float acc = __fmul_rn(w_self[i], yi);
     const int* ni = nbr + (size_t)i * k;
     const float* wi = wts + (size_t)i * k;
     for (int t = 0; t < k; ++t) {
-      acc = acc + wi[t] * decoded(y, w, ni[t], j, d);
+      acc = term(acc, wi[t], decoded(y, w, ni[t], j, d));
     }
-    if (laplacian) acc = yi - acc;
+    if (laplacian) acc = __fsub_rn(yi, acc);
     out[at] = acc;
     if (pay) pay[at] = decoded(y, w, i, j, d);
   }
@@ -289,16 +313,252 @@ __global__ void circulant_neumann_comm_kernel(
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
     const size_t at = (size_t)i * d + j;
     const float hi = h[at];
-    float mix = c.w_self * hi;
+    float mix = __fmul_rn(c.w_self, hi);
     for (int t = 0; t < c.k; ++t) {
       int src = i + __ldg(c.off + t);
       if (src >= n) src -= n;
-      mix = mix + __ldg(c.w + t) * decoded(h, w, src, j, d);
+      mix = term(mix, __ldg(c.w + t), decoded(h, w, src, j, d));
     }
     const float di = dsc[i];
-    const float num = di * hi - (hi - mix) - beta * hvp[at] - p[at];
-    out[at] = num / di;
+    out[at] = neumann_update(hi, mix, hvp[at], p[at], di, beta);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Row-tiled halo kernels
+// ---------------------------------------------------------------------------
+//
+// The kernels above give one block a row i and 256 columns, and read each
+// neighbor row straight from device memory.  Their halo twins tile the
+// agent axis too: grid (n/bn, ceil(d/kHaloBd)), block (bi, bj) owns the
+// output rows [bi*bn, (bi+1)*bn) and the columns [bj*128, bj*128 + 128).
+// The circulant twin stages the extended tile, rows [row0 - h_lo,
+// row0 + bn + h_hi) mod n, in dynamic shared memory (the counterpart of
+// repro's three _ext_copy DMAs) and reads every neighbor from there at
+// row h_lo + r + s for the signed offset s; the sparse twin stages its own
+// (bn, 128) rows (repro's `own` DMA) and gathers the neighbor rows from
+// device memory.  The wrapper (repro_torch/kernels/mixing_matvec.py) picks
+// bn with bn | n and h_lo, h_hi <= bn, so a staged row wraps at most once,
+// and passes the dynamic shared memory it sized with the same function
+// the tile planner uses; the entry points below recompute it and refuse
+// a launch whose size disagrees.  Accumulation is in the full-operand
+// kernels' order through the same `term`, so for any bn the plain
+// outputs, the fused payloads and the fused outputs are bitwise equal to
+// the full-operand kernels' (and to the plain versions').  Columns past d are masked; a column-tile
+// loop covers d beyond 65535 * 128.
+
+constexpr int kHaloBd = 128;
+constexpr int kHaloThreads = 256;
+constexpr int kSmemOptIn = 232448;  // dynamic shared memory a block may use
+
+__device__ __forceinline__ int wrap_row(int r, int n) {
+  return r < 0 ? r + n : (r >= n ? r - n : r);
+}
+
+// Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec_halo (plain
+// path, _circ_halo_body).
+// Bound: bytes, as circulant_mix_kernel: one read of Y plus the halo rows
+// (h_lo + h_hi of every bn, 2/128 on the ring at bn = 128) and one write.
+// Design: the block stages its (h_lo + bn + h_hi, 128) tile in shared
+// memory with coalesced row reads, synchronizes, and every thread mixes
+// output elements from the tile: each staged element is read from device
+// memory once however many neighbors use it, where the full-operand
+// kernel reads it k + 1 times (through L2).
+template <typename T>
+__global__ void circulant_mix_halo_kernel(const T* __restrict__ y,
+                                          T* __restrict__ out, int n, int d,
+                                          int bn, int h_lo, int h_hi,
+                                          float w_self, int k,
+                                          const int* __restrict__ soff,
+                                          const float* __restrict__ wts,
+                                          int laplacian) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ext = reinterpret_cast<T*>(smem_raw);
+  const int row0 = blockIdx.x * bn;
+  const int ex = h_lo + bn + h_hi;
+  const int ncol = (d + kHaloBd - 1) / kHaloBd;
+  for (int ct = blockIdx.y; ct < ncol; ct += gridDim.y) {
+    const int col0 = ct * kHaloBd;
+    for (int t = threadIdx.x; t < ex * kHaloBd; t += blockDim.x) {
+      const int j = col0 + t % kHaloBd;
+      const int r = wrap_row(row0 - h_lo + t / kHaloBd, n);
+      if (j < d) ext[t] = y[(size_t)r * d + j];
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < bn * kHaloBd; t += blockDim.x) {
+      const int r = t / kHaloBd, c = t % kHaloBd, j = col0 + c;
+      if (j >= d) continue;
+      const float yi = load_f32(ext, (size_t)(h_lo + r) * kHaloBd + c);
+      float acc = __fmul_rn(w_self, yi);
+      for (int q = 0; q < k; ++q) {
+        const int e = h_lo + r + __ldg(soff + q);
+        acc = term(acc, __ldg(wts + q), load_f32(ext, (size_t)e * kHaloBd + c));
+      }
+      if (laplacian) acc = __fsub_rn(yi, acc);
+      store_f32(out, (size_t)(row0 + r) * d + j, acc);
+    }
+    __syncthreads();
+  }
+}
+
+// Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec_halo with
+// comm= (_circ_halo_body, fused; repro's `pscr`).
+// Bound: bytes, as circulant_mix_comm_kernel (one read of y, and hat under
+// EF, one write of out, and the payload under EF), with the quantizer's
+// ~30 operations per element.
+// Design: the block quantizes its extended tile once into a shared
+// payload buffer, one hash per staged element: (h_lo + bn + h_hi) / bn
+// hashes per output element, 1.03 on the ring at bn = 64, where
+// circulant_mix_comm_kernel recomputes k hashes per element (+1 under EF
+// for the payload write): 2 on the ring, 3 with EF.  The mix then reads
+// its neighbors from that buffer; the self term reads the exact y from
+// device memory, and under EF the block writes its own rows' payload.
+// `decoded` is the full-operand kernels' quantizer, so payloads agree bit
+// for bit.
+__global__ void circulant_mix_halo_comm_kernel(
+    const float* __restrict__ y, float* __restrict__ out,
+    float* __restrict__ pay, int n, int d, int bn, int h_lo, int h_hi,
+    float w_self, int k, const int* __restrict__ soff,
+    const float* __restrict__ wts, Wire w, int laplacian) {
+  extern __shared__ __align__(16) float pext[];
+  const int row0 = blockIdx.x * bn;
+  const int ex = h_lo + bn + h_hi;
+  const int ncol = (d + kHaloBd - 1) / kHaloBd;
+  for (int ct = blockIdx.y; ct < ncol; ct += gridDim.y) {
+    const int col0 = ct * kHaloBd;
+    for (int t = threadIdx.x; t < ex * kHaloBd; t += blockDim.x) {
+      const int j = col0 + t % kHaloBd;
+      const int r = wrap_row(row0 - h_lo + t / kHaloBd, n);
+      if (j < d) pext[t] = decoded(y, w, r, j, d);
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < bn * kHaloBd; t += blockDim.x) {
+      const int r = t / kHaloBd, c = t % kHaloBd, j = col0 + c;
+      if (j >= d) continue;
+      const size_t at = (size_t)(row0 + r) * d + j;
+      const float yi = y[at];
+      float acc = __fmul_rn(w_self, yi);
+      for (int q = 0; q < k; ++q) {
+        const int e = h_lo + r + __ldg(soff + q);
+        acc = term(acc, __ldg(wts + q), pext[e * kHaloBd + c]);
+      }
+      if (laplacian) acc = __fsub_rn(yi, acc);
+      out[at] = acc;
+      if (pay) pay[at] = pext[(h_lo + r) * kHaloBd + c];
+    }
+    __syncthreads();
+  }
+}
+
+// Replaces repro/kernels/mixing_matvec.py:sparse_mix_matvec_halo (plain
+// path, _sparse_halo_body).
+// Bound: bytes, as sparse_mix_kernel.
+// Design: the block stages its own (bn, 128) rows in shared memory (all
+// of them in flight at once), then each thread gathers its element's k
+// neighbor rows from device memory in table order, a warp reading 32
+// consecutive columns of one neighbor row; the padded tables' slots that
+// point at the row itself add 0, as in sparse_mix_kernel.
+template <typename T>
+__global__ void sparse_mix_halo_kernel(const T* __restrict__ y,
+                                       T* __restrict__ out,
+                                       const float* __restrict__ w_self,
+                                       const int* __restrict__ nbr,
+                                       const float* __restrict__ wts, int n,
+                                       int d, int k, int bn, int laplacian) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* own = reinterpret_cast<T*>(smem_raw);
+  const int row0 = blockIdx.x * bn;
+  const int ncol = (d + kHaloBd - 1) / kHaloBd;
+  for (int ct = blockIdx.y; ct < ncol; ct += gridDim.y) {
+    const int col0 = ct * kHaloBd;
+    for (int t = threadIdx.x; t < bn * kHaloBd; t += blockDim.x) {
+      const int j = col0 + t % kHaloBd;
+      if (j < d) own[t] = y[(size_t)(row0 + t / kHaloBd) * d + j];
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < bn * kHaloBd; t += blockDim.x) {
+      const int i = row0 + t / kHaloBd, j = col0 + t % kHaloBd;
+      if (j >= d) continue;
+      const float yi = load_f32(own, t);
+      float acc = __fmul_rn(w_self[i], yi);
+      const int* ni = nbr + (size_t)i * k;
+      const float* wi = wts + (size_t)i * k;
+      for (int q = 0; q < k; ++q) {
+        acc = term(acc, wi[q], load_f32(y, (size_t)ni[q] * d + j));
+      }
+      if (laplacian) acc = __fsub_rn(yi, acc);
+      store_f32(out, (size_t)i * d + j, acc);
+    }
+    __syncthreads();
+  }
+}
+
+// Replaces repro/kernels/mixing_matvec.py:sparse_mix_matvec_halo with
+// comm= (_sparse_halo_body, fused; no EF, as repro).
+// Bound: as sparse_mix_comm_kernel.
+// Design: sparse_mix_halo_kernel with each neighbor's value decoded from
+// (seed, row, column) by `decoded`, k hashes per element as repro's
+// per-neighbor _quantize: an irregular graph's neighbor rows are spread
+// over the whole operand, so there is no extended tile to quantize once.
+__global__ void sparse_mix_halo_comm_kernel(
+    const float* __restrict__ y, float* __restrict__ out,
+    const float* __restrict__ w_self, const int* __restrict__ nbr,
+    const float* __restrict__ wts, int n, int d, int k, int bn, Wire w,
+    int laplacian) {
+  extern __shared__ __align__(16) float own_f[];
+  const int row0 = blockIdx.x * bn;
+  const int ncol = (d + kHaloBd - 1) / kHaloBd;
+  for (int ct = blockIdx.y; ct < ncol; ct += gridDim.y) {
+    const int col0 = ct * kHaloBd;
+    for (int t = threadIdx.x; t < bn * kHaloBd; t += blockDim.x) {
+      const int j = col0 + t % kHaloBd;
+      if (j < d) own_f[t] = y[(size_t)(row0 + t / kHaloBd) * d + j];
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < bn * kHaloBd; t += blockDim.x) {
+      const int i = row0 + t / kHaloBd, j = col0 + t % kHaloBd;
+      if (j >= d) continue;
+      const float yi = own_f[t];
+      float acc = __fmul_rn(w_self[i], yi);
+      const int* ni = nbr + (size_t)i * k;
+      const float* wi = wts + (size_t)i * k;
+      for (int q = 0; q < k; ++q) {
+        acc = term(acc, wi[q], decoded(y, w, ni[q], j, d));
+      }
+      if (laplacian) acc = __fsub_rn(yi, acc);
+      out[(size_t)i * d + j] = acc;
+    }
+    __syncthreads();
+  }
+}
+
+// Dynamic shared memory of a halo launch: `rows` staged rows of kHaloBd
+// elements of `itemsize` bytes (the Python planner's halo_smem_bytes).
+int halo_smem_bytes(int rows, int itemsize) {
+  return rows * kHaloBd * itemsize;
+}
+
+// The launch geometry of a halo kernel, or false when the wrapper's tile
+// or shared-memory size is not one the kernel takes.
+bool halo_launch(int n, int d, int bn, int h_lo, int h_hi, int itemsize,
+                 int smem_bytes, dim3* grid) {
+  if (bn < 1 || n % bn || h_lo < 0 || h_hi < 0 || h_lo > bn || h_hi > bn ||
+      smem_bytes > kSmemOptIn ||
+      smem_bytes != halo_smem_bytes(h_lo + bn + h_hi, itemsize)) {
+    return false;
+  }
+  const int ncol = (d + kHaloBd - 1) / kHaloBd;
+  *grid = dim3(n / bn, ncol < kMaxGridRows ? ncol : kMaxGridRows);
+  return true;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB a block
+// must opt in).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
 }
 
 dim3 grid_for(int n, int d) {
@@ -420,6 +680,110 @@ extern "C" int circulant_neumann_comm(const float* h, const float* hvp,
                                   (cudaStream_t)stream>>>(
       h, hvp, p, dsc, out, n, d, c,
       make_wire(zp, scale, nullptr, seed, levels), beta);
+  return (int)cudaGetLastError();
+}
+
+// Halo entry points.  soff: (k,) int32 signed offsets, each in
+// [-h_lo, h_hi]; weights (k,) f32; bn | n; smem_bytes as halo_smem_bytes
+// for the rows the kernel stages (the extended tile on the circulant, the
+// own rows on the sparse gather).
+extern "C" int circulant_mix_halo(const void* y, void* out, int n, int d,
+                                  int dtype, float w_self, int k,
+                                  const int* soff, const float* weights,
+                                  int laplacian, int bn, int h_lo, int h_hi,
+                                  int smem_bytes, void* stream) {
+  dim3 grid;
+  if ((dtype != 0 && dtype != 1) ||
+      !halo_launch(n, d, bn, h_lo, h_hi, dtype == 0 ? 4 : 2, smem_bytes,
+                   &grid)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (dtype == 0) {
+    err = allow_smem(circulant_mix_halo_kernel<float>, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    circulant_mix_halo_kernel<float><<<grid, kHaloThreads, smem_bytes, s>>>(
+        (const float*)y, (float*)out, n, d, bn, h_lo, h_hi, w_self, k, soff,
+        weights, laplacian);
+  } else {
+    err = allow_smem(circulant_mix_halo_kernel<__nv_bfloat16>, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    circulant_mix_halo_kernel<__nv_bfloat16>
+        <<<grid, kHaloThreads, smem_bytes, s>>>(
+            (const __nv_bfloat16*)y, (__nv_bfloat16*)out, n, d, bn, h_lo,
+            h_hi, w_self, k, soff, weights, laplacian);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int circulant_mix_halo_comm(
+    const float* y, float* out, float* pay, const float* hat,
+    const float* zp, const float* scale, unsigned int seed, float levels,
+    int n, int d, float w_self, int k, const int* soff,
+    const float* weights, int laplacian, int bn, int h_lo, int h_hi,
+    int smem_bytes, void* stream) {
+  dim3 grid;
+  if ((hat == nullptr) != (pay == nullptr) ||
+      !halo_launch(n, d, bn, h_lo, h_hi, 4, smem_bytes, &grid)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t err = allow_smem(circulant_mix_halo_comm_kernel,
+                                     smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  circulant_mix_halo_comm_kernel<<<grid, kHaloThreads, smem_bytes,
+                                   (cudaStream_t)stream>>>(
+      y, out, pay, n, d, bn, h_lo, h_hi, w_self, k, soff, weights,
+      make_wire(zp, scale, hat, seed, levels), laplacian);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sparse_mix_halo(const void* y, void* out, const float* w_self,
+                               const int* nbr, const float* wts, int n,
+                               int d, int k, int dtype, int laplacian,
+                               int bn, int smem_bytes, void* stream) {
+  dim3 grid;
+  if ((dtype != 0 && dtype != 1) ||
+      !halo_launch(n, d, bn, 0, 0, dtype == 0 ? 4 : 2, smem_bytes, &grid)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (dtype == 0) {
+    err = allow_smem(sparse_mix_halo_kernel<float>, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    sparse_mix_halo_kernel<float><<<grid, kHaloThreads, smem_bytes, s>>>(
+        (const float*)y, (float*)out, w_self, nbr, wts, n, d, k, bn,
+        laplacian);
+  } else {
+    err = allow_smem(sparse_mix_halo_kernel<__nv_bfloat16>, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    sparse_mix_halo_kernel<__nv_bfloat16>
+        <<<grid, kHaloThreads, smem_bytes, s>>>(
+            (const __nv_bfloat16*)y, (__nv_bfloat16*)out, w_self, nbr, wts,
+            n, d, k, bn, laplacian);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sparse_mix_halo_comm(const float* y, float* out,
+                                    const float* zp, const float* scale,
+                                    unsigned int seed, float levels,
+                                    const float* w_self, const int* nbr,
+                                    const float* wts, int n, int d, int k,
+                                    int laplacian, int bn, int smem_bytes,
+                                    void* stream) {
+  dim3 grid;
+  if (!halo_launch(n, d, bn, 0, 0, 4, smem_bytes, &grid)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t err = allow_smem(sparse_mix_halo_comm_kernel,
+                                     smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  sparse_mix_halo_comm_kernel<<<grid, kHaloThreads, smem_bytes,
+                                (cudaStream_t)stream>>>(
+      y, out, w_self, nbr, wts, n, d, k, bn,
+      make_wire(zp, scale, nullptr, seed, levels), laplacian);
   return (int)cudaGetLastError();
 }
 

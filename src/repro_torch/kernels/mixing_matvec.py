@@ -1,6 +1,6 @@
 """Wrappers for the gossip CUDA kernels in `csrc/mixing_matvec.cu`.
 
-Counterparts of the full-stripe paths of `repro.kernels.mixing_matvec`:
+Counterparts of `repro.kernels.mixing_matvec`:
 
   * `circulant_mix_matvec`   — W·Y or (I−W)·Y for circulant W,
   * `sparse_mix_matvec`      — the same for any W from padded (n, k)
@@ -8,7 +8,9 @@ Counterparts of the full-stripe paths of `repro.kernels.mixing_matvec`:
   * `circulant_neumann_step` — one fused DIHGP Neumann iteration
                                h⁺ = (D̃h − (I−W)h − β·hvp_h − p)/D̃,
   * `ring_laplacian_matvec`  — (I−W)·Y for a ring, over the circulant
-                               kernel.
+                               kernel,
+  * `circulant_mix_matvec_halo`, `sparse_mix_matvec_halo` — the
+    row-tiled twins of the first two, for large n (below).
 
 With ``comm="int8" | "int4"`` (and ``"+ef"`` for the two mixes) the
 first three take `repro`'s extra operands — the per-row wire metadata
@@ -37,17 +39,51 @@ Each kernel's launches are counted in `launch_counts()`, bumped only
 where a wrapper launches it; the comm-fused kernels count apart from the
 plain ones (`*_comm`), and `ring_laplacian_matvec` apart from
 `circulant_mix_matvec`.  `reset_launch_counts` zeroes them all.
+
+Row tiles and the shared-memory planner
+---------------------------------------
+`repro` keeps a full (n, 128) column stripe of the operand resident in
+a TPU core's VMEM and switches to its row-tiled halo kernels when the
+stripe's live buffers outgrow a 4 MB budget, at n ≈ 4096.  On the H100
+the counterpart of VMEM is the dynamic shared memory one block may opt
+into, `SMEM_BUDGET_BYTES` = 232,448 B (227 KB): the halo kernels stage
+a (h_lo + bn + h_hi, 128) row tile there.  The planner keeps `repro`'s
+rules and its meaning of `blocks`, the variant's live (rows, 128)
+buffers (`plan_blocks`: 3 plain, 4 fused, 6 fused + EF), and only swaps
+the budget (and drops the TPU's sublane rule):
+
+  * the full operand while `stripe_smem_bytes(n, blocks=…)` fits:
+    n·128·4·3 ≤ 232,448 up to n = 151 for plain f32, so the n = 16
+    runs keep the full-operand kernels;
+  * else `pick_halo_bn`: the largest power of two bn ∈ {2048, …, 8} with
+    bn | n, halo extents ≤ bn and (h_lo + bn + h_hi)·128·itemsize·blocks
+    within the budget — at n = 4096 on the ring bn = 128 for the plain
+    mix and 64 for the fused ones;
+  * else no tile: `MixingOp` runs the full-operand kernel.
+
+The halo kernels need less than the planner counts (one staged tile per
+block), and each wrapper sizes its launch with the same
+`halo_smem_bytes`, asserts that it lies within the plan for its bn, and
+the C entry point recomputes it and refuses a launch that disagrees.
+The halo wrappers take the circulant offsets and weights as host
+sequences (`structure.offsets`), so the extents never come from the
+card; their signed (k,) device tables are built once per graph and
+device and cached.  Results do not depend on bn: plain outputs, fused
+payloads and fused outputs equal the full-operand kernels' bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
-from .ref import (circulant_mix_fused_ref, circulant_mix_ref,
+from .ref import (check_halo_tile, circulant_mix_fused_ref,
+                  circulant_mix_halo_ref, circulant_mix_ref, halo_extents,
                   neumann_step_fused_ref, neumann_step_ref,
-                  sparse_mix_fused_ref, sparse_mix_padded_ref)
+                  signed_offsets, sparse_mix_fused_ref, sparse_mix_halo_ref,
+                  sparse_mix_padded_ref)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
@@ -68,13 +104,25 @@ _SIGNATURES = {
                         _P),
     "circulant_neumann_comm": (_P, _P, _P, _P, _P, *_WIRE, _I, _I, _F, _I,
                                _P, _P, _F, _P),
+    # ..., bn, h_lo, h_hi, smem bytes, stream
+    "circulant_mix_halo": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _I, _I,
+                           _I, _I, _P),
+    "circulant_mix_halo_comm": (_P, _P, _P, _P, *_WIRE, _I, _I, _F, _I, _P,
+                                _P, _I, _I, _I, _I, _I, _P),
+    # ..., bn, smem bytes, stream
+    "sparse_mix_halo": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P),
+    "sparse_mix_halo_comm": (_P, _P, *_WIRE, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _P),
 }
 
 # launches per kernel, under the names of chip_smoke's kernel list
 _LAUNCHES = dict.fromkeys((
     "circulant_mix_matvec", "sparse_mix_matvec", "circulant_neumann_step",
     "circulant_mix_matvec_comm", "sparse_mix_matvec_comm",
-    "circulant_neumann_step_comm", "ring_laplacian_matvec"), 0)
+    "circulant_neumann_step_comm", "ring_laplacian_matvec",
+    "circulant_mix_matvec_halo", "circulant_mix_matvec_halo_comm",
+    "sparse_mix_matvec_halo", "sparse_mix_matvec_halo_comm"), 0)
 
 
 def launch_counts() -> dict[str, int]:
@@ -385,3 +433,182 @@ def ring_laplacian_matvec(y: torch.Tensor, *, w_self: float,
     offsets, weights = ring_offsets(y.shape[0], float(w_edge))
     off, w = circulant_tables(y.shape[0], offsets, weights, y.device)
     return _circulant_mix("ring_laplacian_matvec", y, w_self, off, w, True)
+
+
+# ---------------------------------------------------------------------------
+# Row tiles: the shared-memory planner and the halo entry points
+# ---------------------------------------------------------------------------
+
+SMEM_BUDGET_BYTES = 232_448
+HALO_BD = 128
+HALO_BNS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8)
+
+
+def plan_blocks(fused: bool, ef: bool = False) -> int:
+    """Live (rows, 128) buffers of a mix variant, as `repro` counts them:
+    3 plain (input, f32 accumulator, output), 4 fused (+ payload), 6
+    fused with EF (+ replica and payload output)."""
+    return 6 if fused and ef else 4 if fused else 3
+
+
+def halo_smem_bytes(rows: int, *, itemsize: int = 4,
+                    blocks: int = 1) -> int:
+    """Shared memory of `blocks` (rows, HALO_BD) buffers: what the
+    planner counts for a tile, and (blocks=1) what a halo launch
+    stages."""
+    return rows * HALO_BD * itemsize * blocks
+
+
+def stripe_smem_bytes(n: int, *, itemsize: int = 4, blocks: int = 3) -> int:
+    """A full (n, HALO_BD) column stripe's live buffers (`repro`'s
+    `stripe_vmem_bytes`)."""
+    return halo_smem_bytes(n, itemsize=itemsize, blocks=blocks)
+
+
+def pick_halo_bn(n: int, *, h_lo: int = 0, h_hi: int = 0,
+                 itemsize: int = 4, blocks: int = 3) -> int | None:
+    """Largest row tile bn in `HALO_BNS` with bn | n, halo extents ≤ bn
+    and the extended tile's `blocks` buffers within `SMEM_BUDGET_BYTES`
+    (read at the call); None when none qualifies."""
+    for bn in HALO_BNS:
+        if n % bn or bn < max(h_lo, h_hi):
+            continue
+        if halo_smem_bytes(h_lo + bn + h_hi, itemsize=itemsize,
+                           blocks=blocks) <= SMEM_BUDGET_BYTES:
+            return bn
+    return None
+
+
+def plan_row_tile(n: int, *, h_lo: int = 0, h_hi: int = 0,
+                  itemsize: int = 4, blocks: int = 3):
+    """`repro`'s three outcomes for an (n, ·) operand: ("full", None)
+    while the full stripe's `blocks` buffers fit `SMEM_BUDGET_BYTES`,
+    ("halo", bn) for the row-tiled kernels, ("xla", None) when no row
+    tile qualifies."""
+    if stripe_smem_bytes(n, itemsize=itemsize, blocks=blocks) \
+            <= SMEM_BUDGET_BYTES:
+        return "full", None
+    bn = pick_halo_bn(n, h_lo=h_lo, h_hi=h_hi, itemsize=itemsize,
+                      blocks=blocks)
+    return ("xla", None) if bn is None else ("halo", bn)
+
+
+def _halo_smem(n: int, bn, h_lo: int, h_hi: int, itemsize: int,
+               blocks: int, rows: int) -> int:
+    """Check the row tile and size the launch's shared memory: `rows`
+    staged rows, within what a block may use and within the plan's
+    `blocks` buffers for this bn."""
+    check_halo_tile(n, bn, h_lo, h_hi)
+    smem = halo_smem_bytes(rows, itemsize=itemsize)
+    if smem > SMEM_BUDGET_BYTES:
+        raise ValueError(f"bn={bn}: the {rows}-row tile needs {smem} B of "
+                         f"shared memory, over the {SMEM_BUDGET_BYTES} B a "
+                         f"block may use (pick_halo_bn sizes bn)")
+    assert smem <= halo_smem_bytes(h_lo + bn + h_hi, itemsize=itemsize,
+                                   blocks=blocks)
+    return smem
+
+
+@functools.lru_cache(maxsize=64)
+def _signed_tables(n: int, offsets: tuple, weights: tuple, device):
+    """The halo kernels' (k,) int32 signed offsets and (k,) f32 weights
+    on `device`, built once per graph."""
+    return (torch.tensor(signed_offsets(offsets, n), dtype=torch.int32,
+                         device=device),
+            torch.tensor(weights, dtype=torch.float32, device=device))
+
+
+def circulant_mix_matvec_halo(y: torch.Tensor, zp=None, scale=None,
+                              seed=None, hat=None, *, w_self: float,
+                              offsets, weights, laplacian: bool = False,
+                              bn: int, comm: str | None = None):
+    """Row-tiled twin of `circulant_mix_matvec`: grid (n/bn, d/128), each
+    block staging its rows plus the wraparound halo in shared memory.
+    offsets and weights: host sequences (W[i, (i+o) mod n] = c_o, as
+    `structure.offsets`/`.weights`); bn | n and halo extents ≤ bn.
+    `comm` and its operands as in `circulant_mix_matvec`.  The result
+    equals the full-operand kernel's bit for bit, for any bn."""
+    fused = parse_kernel_comm(comm)
+    _check_state("y", y)
+    n, d = y.shape
+    offsets = tuple(int(o) % n for o in offsets)
+    weights = tuple(float(c) for c in weights)
+    if len(offsets) != len(weights):
+        raise ValueError(f"{len(offsets)} offsets but {len(weights)} "
+                         f"weights")
+    h_lo, h_hi = halo_extents(offsets, n)
+    bits, ef = fused if fused is not None else (None, False)
+    if fused is not None:
+        _check_wire(y, zp, scale, seed, hat, ef)
+    smem = _halo_smem(n, bn, h_lo, h_hi, y.element_size(),
+                      plan_blocks(fused is not None, ef), h_lo + bn + h_hi)
+    kw = dict(w_self=float(w_self), offsets=offsets, weights=weights,
+              laplacian=laplacian, bn=bn)
+    if y.device.type == "cpu":
+        if fused is None:
+            return circulant_mix_halo_ref(y.float(), **kw).to(y.dtype)
+        return circulant_mix_halo_ref(y, zp, scale, seed, hat, bits=bits,
+                                      **kw)
+    soff, w = _signed_tables(n, offsets, weights, y.device)
+    out = torch.empty_like(y)
+    geometry = (len(offsets), soff.data_ptr(), w.data_ptr(),
+                int(bool(laplacian)), bn, h_lo, h_hi, smem)
+    if fused is None:
+        _launch("circulant_mix_halo", "circulant_mix_matvec_halo", y.device,
+                y.data_ptr(), out.data_ptr(), n, d, _DTYPE_CODE[y.dtype],
+                float(w_self), *geometry)
+        return out
+    pay = torch.empty_like(y) if ef else None
+    _launch("circulant_mix_halo_comm", "circulant_mix_matvec_halo_comm",
+            y.device, y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
+            zp.data_ptr(), scale.data_ptr(), seed & 0xFFFFFFFF,
+            float(2 ** bits - 1), n, d, float(w_self), *geometry)
+    return (out, pay) if ef else out
+
+
+def sparse_mix_matvec_halo(y: torch.Tensor, w_self: torch.Tensor,
+                           neighbors: torch.Tensor, weights: torch.Tensor,
+                           zp=None, scale=None, seed=None, *,
+                           laplacian: bool = False, bn: int,
+                           comm: str | None = None) -> torch.Tensor:
+    """Row-tiled twin of `sparse_mix_matvec`: grid (n/bn, d/128), each
+    block staging its own rows in shared memory and gathering neighbor
+    rows from device memory.  Tables as in `sparse_mix_matvec`; bn | n.
+    ``comm="int8" | "int4"`` fuses the quantizer; error feedback is
+    refused, as `repro` refuses it (no payload write-back here)."""
+    fused = parse_kernel_comm(comm)
+    if fused is not None and fused[1]:
+        raise ValueError("the sparse halo kernel does not lower '+ef' "
+                         "comm; use the full-operand kernel or compose "
+                         "the compressor with the plain mix")
+    _check_state("y", y)
+    n, d = y.shape
+    k = neighbors.shape[1] if neighbors.dim() == 2 else -1
+    _check_table("w_self", w_self, (n,), torch.float32, y.device)
+    _check_table("neighbors", neighbors, (n, k), torch.int32, y.device)
+    _check_table("weights", weights, (n, k), torch.float32, y.device)
+    if fused is not None:
+        _check_wire(y, zp, scale, seed, None, False)
+    smem = _halo_smem(n, bn, 0, 0, y.element_size(),
+                      plan_blocks(fused is not None), bn)
+    if y.device.type == "cpu":
+        if fused is None:
+            return sparse_mix_halo_ref(y.float(), w_self, neighbors,
+                                       weights, laplacian=laplacian,
+                                       bn=bn).to(y.dtype)
+        return sparse_mix_halo_ref(y, w_self, neighbors, weights, zp, scale,
+                                   seed, laplacian=laplacian, bn=bn,
+                                   bits=fused[0])
+    out = torch.empty_like(y)
+    tables = (w_self.data_ptr(), neighbors.data_ptr(), weights.data_ptr(),
+              n, d, k)
+    if fused is None:
+        _launch("sparse_mix_halo", "sparse_mix_matvec_halo", y.device,
+                y.data_ptr(), out.data_ptr(), *tables, _DTYPE_CODE[y.dtype],
+                int(bool(laplacian)), bn, smem)
+        return out
+    _launch("sparse_mix_halo_comm", "sparse_mix_matvec_halo_comm", y.device,
+            y.data_ptr(), out.data_ptr(), zp.data_ptr(), scale.data_ptr(),
+            seed & 0xFFFFFFFF, float(2 ** fused[0] - 1), *tables,
+            int(bool(laplacian)), bn, smem)
+    return out

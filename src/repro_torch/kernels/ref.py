@@ -1,7 +1,10 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
 Each function computes exactly what its kernel in `csrc/` computes, in
-the same order of operations, on any device.  The wrappers in
+the same order of operations, on any device.  The row-tiled halo
+kernels' result does not depend on the tile, so their plain versions
+(`*_halo_ref`) are the full-operand ones behind `repro`'s argument
+checks (`check_halo_tile`).  The wrappers in
 `repro_torch.kernels.mixing_matvec` run these for CPU tensors; the
 tests and `chip_smoke.py` hold the kernels against them on the card.
 Counterparts of `repro.kernels.ref`, and of the in-kernel quantizer
@@ -130,16 +133,30 @@ def quantize(x, zp, scale, u, levels: float) -> torch.Tensor:
     return zp + scale * q
 
 
+# elements per block of rows in `_payload`: the int64 hash temporaries
+# of one block stay near 128 MB each, also for (4096, 157000) operands
+_PAYLOAD_BLOCK = 1 << 24
+
+
 def _payload(y, zp, scale, seed: int, hat, bits: int) -> torch.Tensor:
     """The decoded broadcast of every row of y (n, d), quantized once:
-    C(y), or hat + C(y − hat) with error feedback."""
+    C(y), or hat + C(y − hat) with error feedback.  Elementwise, so
+    computing it by blocks of rows changes no bit."""
     n, d = y.shape
-    u = hash_uniform(seed, torch.arange(n, device=y.device)[:, None],
-                     torch.arange(d, device=y.device)[None, :])
     levels = float(2 ** bits - 1)
-    if hat is None:
-        return quantize(y, zp, scale, u, levels)
-    return hat + quantize(y - hat, zp, scale, u, levels)
+    cols = torch.arange(d, device=y.device)[None, :]
+    step = max(1, _PAYLOAD_BLOCK // d)
+    out = torch.empty_like(y)
+    for r0 in range(0, n, step):
+        rows = slice(r0, min(n, r0 + step))
+        u = hash_uniform(seed, torch.arange(rows.start, rows.stop,
+                                            device=y.device)[:, None], cols)
+        if hat is None:
+            out[rows] = quantize(y[rows], zp[rows], scale[rows], u, levels)
+        else:
+            out[rows] = hat[rows] + quantize(y[rows] - hat[rows], zp[rows],
+                                             scale[rows], u, levels)
+    return out
 
 
 def circulant_mix_fused_ref(y, zp, scale, seed: int, hat=None, *,
@@ -182,3 +199,64 @@ def neumann_step_fused_ref(h, hvp_h, p, d_scalar, zp, scale, seed: int, *,
                                   offsets=offsets, weights=weights,
                                   bits=bits)
     return neumann_update(mix, h, hvp_h, p, d_scalar, beta)
+
+
+# ---------------------------------------------------------------------------
+# Row-tiled (halo) entry points
+# ---------------------------------------------------------------------------
+
+def signed_offsets(offsets, n: int) -> tuple[int, ...]:
+    """Cyclic offsets 0 ≤ o < n remapped to the shorter direction (o ≤
+    n//2 stays +o, else o − n), as `repro`'s: the halo extents follow."""
+    return tuple(o if o <= n // 2 else o - n for o in (int(o) % n
+                                                        for o in offsets))
+
+
+def halo_extents(offsets, n: int) -> tuple[int, int]:
+    """(h_lo, h_hi): the rows of low and high halo a row tile needs."""
+    signed = signed_offsets(offsets, n)
+    return (max((-s for s in signed if s < 0), default=0),
+            max((s for s in signed if s > 0), default=0))
+
+
+def check_halo_tile(n: int, bn, h_lo: int = 0, h_hi: int = 0) -> None:
+    """`repro`'s row-tile rules: bn | n, and halo extents ≤ bn so that no
+    staged range wraps more than once."""
+    if isinstance(bn, bool) or not isinstance(bn, int) or bn < 1:
+        raise ValueError(f"bn must be a positive int, got {bn!r}")
+    if n % bn:
+        raise ValueError(f"n={n} not a multiple of bn={bn}")
+    if max(h_lo, h_hi) > bn:
+        raise ValueError(f"halo extents ({h_lo}, {h_hi}) exceed bn={bn}; "
+                         f"widen the row tile or use the full-operand "
+                         f"kernel")
+
+
+def circulant_mix_halo_ref(y, zp=None, scale=None, seed=None, hat=None, *,
+                           w_self: float, offsets, weights,
+                           laplacian: bool = False, bn: int,
+                           bits: int | None = None):
+    """Plain version of `circulant_mix_matvec_halo`: the checks on the
+    row tile, then `circulant_mix_ref` (bits None) or
+    `circulant_mix_fused_ref`."""
+    n = y.shape[0]
+    check_halo_tile(n, bn, *halo_extents(offsets, n))
+    if bits is None:
+        return circulant_mix_ref(y, w_self, offsets, weights, laplacian)
+    return circulant_mix_fused_ref(y, zp, scale, seed, hat, w_self=w_self,
+                                   offsets=offsets, weights=weights,
+                                   laplacian=laplacian, bits=bits)
+
+
+def sparse_mix_halo_ref(y, w_self, neighbors, weights, zp=None, scale=None,
+                        seed=None, *, laplacian: bool = False, bn: int,
+                        bits: int | None = None):
+    """Plain version of `sparse_mix_matvec_halo` (no EF): the checks on
+    the row tile, then `sparse_mix_padded_ref` (bits None) or
+    `sparse_mix_fused_ref`."""
+    check_halo_tile(y.shape[0], bn)
+    if bits is None:
+        return sparse_mix_padded_ref(y, w_self, neighbors, weights,
+                                     laplacian)
+    return sparse_mix_fused_ref(y, w_self, neighbors, weights, zp, scale,
+                                seed, laplacian=laplacian, bits=bits)

@@ -24,9 +24,28 @@ MixingOp backends (resolved once, at construction)
 "circulant_pallas" and "sparse_gather_pallas" (the names of `repro`'s
 Pallas tiers) are accepted as aliases of "circulant" and
 "sparse_gather".  On a CUDA tensor those tiers always launch the port's
-kernels; the kernels mask the ragged edge, so `repro`'s tile
+kernels; the kernels mask the ragged edge, so `repro`'s (8, 128) shape
 constraints and their fallbacks have no counterpart here.  On a CPU
 tensor the kernel wrappers run their plain PyTorch versions.
+
+Row tiles
+---------
+`_stripe_plan` mirrors `repro`'s three outcomes, with the card's shared
+memory in place of VMEM (`repro_torch.kernels.mixing_matvec`, "Row
+tiles and the shared-memory planner"): ("full", None) runs the
+full-operand kernels, ("halo", bn) their row-tiled halo twins, and
+("xla", None), where no row tile qualifies, the full-operand kernels
+again (they take any n; `repro` falls back to XLA there).  The plan
+depends on n, the operand's itemsize and the variant's live buffers
+(3 plain, 4 fused, 6 fused + EF), never on the data: the full operand
+holds up to n = 151 (f32, plain), so the n = 16 runs keep the
+full-operand kernels and n = 4096 takes the halo tier; `repro`
+switches at n ≈ 4096, so for 151 < n < 4096 the two dispatch
+differently and agree in result (the halo kernels equal the
+full-operand ones bit for bit).  The identity Neumann step
+keeps its full-operand kernel at any n, as `repro`'s does; the
+comm-fused Neumann kernel runs on the full tier only, and on the halo
+tier the step composes `mix_c` (a fused halo mix) with the update.
 
 Mixing dtype
 ------------
@@ -46,9 +65,8 @@ Every other policy and tier — bf16, top-k, rand-k, the dense W, the
 star's CSR path, bf16 storage — composes the compressor with the plain
 mix (`compressed_payload`, then `_apply`, then the exact self term),
 which is `repro`'s own dispatch (`repro.topology.ops
-.MixingOp._fused_plan`).  `repro`'s VMEM and tile planning has no
-counterpart: the kernels mask the ragged edge, so the plan is always the
-full operand.
+.MixingOp._fused_plan`).  On the halo tier the sparse gather with EF
+composes too: its halo kernel has no payload write-back, as in `repro`.
 
 Not ported yet: fault-masked mixing (`MaskedMixingOp`, ROADMAP queue 1
 item 7), which raises NotImplementedError.
@@ -63,8 +81,12 @@ import torch
 
 from .._device import resolve_device
 from ..kernels.mixing_matvec import (circulant_mix_matvec,
+                                     circulant_mix_matvec_halo,
                                      circulant_neumann_step,
-                                     circulant_tables, sparse_mix_matvec)
+                                     circulant_tables, halo_extents,
+                                     plan_blocks, plan_row_tile,
+                                     sparse_mix_matvec,
+                                     sparse_mix_matvec_halo)
 from ..kernels.ref import neumann_update as _neumann_update
 from ..kernels.ref import sparse_mix_ref
 from .graphs import (circulant_graph, complete_graph, erdos_renyi_graph,
@@ -243,6 +265,25 @@ class MixingOp:
                 f"backend={self.backend}, neighbors={k}, "
                 f"dtype={self.dtype})")
 
+    @property
+    def _kernel_tier(self) -> bool:
+        """The circulant or padded-gather tier: the CUDA kernels."""
+        return self.backend == "circulant" or (
+            self.backend == "sparse_gather" and self._sp_use_padded)
+
+    def _stripe_plan(self, flat: torch.Tensor, *, blocks: int,
+                     circulant: bool):
+        """("full", None) when the full (n, 128) stripe's `blocks` live
+        buffers fit the shared-memory budget, ("halo", bn) for the
+        row-tiled kernels, ("xla", None) when no row tile qualifies (the
+        full-operand kernels run).  `blocks`: `plan_blocks` of the
+        variant (3 plain, 4 fused, 6 fused + EF)."""
+        n = flat.shape[0]
+        h_lo, h_hi = halo_extents(self.structure.offsets, n) if circulant \
+            else (0, 0)
+        return plan_row_tile(n, h_lo=h_lo, h_hi=h_hi,
+                             itemsize=flat.element_size(), blocks=blocks)
+
     # -- primitives --------------------------------------------------------
 
     def mix(self, y: torch.Tensor) -> torch.Tensor:
@@ -261,13 +302,29 @@ class MixingOp:
             # bf16 storage: round the operand once; every backend then
             # accumulates the rounded values in f32
             flat = flat.to(self.storage_dtype)
-        if self.backend == "circulant":
+        bn = None
+        if self._kernel_tier:
+            _, bn = self._stripe_plan(
+                flat, blocks=plan_blocks(False),
+                circulant=self.backend == "circulant")
+        if self.backend == "circulant" and bn is not None:
+            s = self.structure
+            out = circulant_mix_matvec_halo(flat.contiguous(),
+                                            w_self=s.w_self,
+                                            offsets=s.offsets,
+                                            weights=s.weights,
+                                            laplacian=laplacian, bn=bn)
+        elif self.backend == "circulant":
             out = circulant_mix_matvec(flat.contiguous(),
                                        w_self=self.structure.w_self,
                                        offsets=self._circ_off,
                                        weights=self._circ_w,
                                        laplacian=laplacian)
-        elif self.backend == "sparse_gather" and self._sp_use_padded:
+        elif self._kernel_tier and bn is not None:
+            out = sparse_mix_matvec_halo(flat.contiguous(), self._sp_wself,
+                                         self._sp_idx, self._sp_wts,
+                                         laplacian=laplacian, bn=bn)
+        elif self._kernel_tier:
             out = sparse_mix_matvec(flat.contiguous(), self._sp_wself,
                                     self._sp_idx, self._sp_wts,
                                     laplacian=laplacian)
@@ -319,16 +376,24 @@ class MixingOp:
         self.ledger.register(name, x.shape[1:], self.comm)
         return channel_init(self.comm, name, x, seed)
 
-    def _fused_plan(self, flat: torch.Tensor) -> bool:
-        """True when this gossip runs the comm-fused kernels: a fusable
-        policy (int8/int4 ± EF), no bf16 storage, an f32 operand, and the
-        circulant or padded-gather tier.  Otherwise the compressor
-        composes with the plain mix, as in `repro`."""
-        return (self.comm.fusable and self.storage_dtype is None
-                and flat.dtype == torch.float32
-                and (self.backend == "circulant"
-                     or (self.backend == "sparse_gather"
-                         and self._sp_use_padded)))
+    def _fused_plan(self, flat: torch.Tensor):
+        """(backend, bn) when this gossip runs the comm-fused kernels —
+        bn None for the full-operand kernel, else the halo kernel's row
+        tile — and None when the compressor composes with the plain
+        mix, as in `repro`: a policy that is not int8/int4 (± EF), bf16
+        storage, a non-f32 operand, a tier without kernels, or the
+        sparse gather with EF on the halo tier (no payload write-back
+        there)."""
+        if not (self.comm.fusable and self.storage_dtype is None
+                and flat.dtype == torch.float32 and self._kernel_tier):
+            return None
+        ef = self.comm.ef
+        circulant = self.backend == "circulant"
+        tier, bn = self._stripe_plan(flat, blocks=plan_blocks(True, ef),
+                                     circulant=circulant)
+        if tier == "halo" and ef and not circulant:
+            return None
+        return self.backend, bn
 
     def _next_seed(self, st) -> int:
         """The seed of the channel's next send: a host integer from the
@@ -339,10 +404,11 @@ class MixingOp:
         return send_seed(st.seed, st.sends)
 
     def _apply_fused(self, y: torch.Tensor, flat: torch.Tensor, st,
-                     laplacian: bool):
+                     laplacian: bool, bn: int | None = None):
         """One comm-fused gossip: the same `row_quant_params` wire
         metadata and state advance (sends + 1, hat ← payload under EF)
-        as `compressed_payload` + `_apply`, in one kernel."""
+        as `compressed_payload` + `_apply`, in one kernel (the halo
+        kernel with row tile bn, or the full-operand one)."""
         from ..comm import row_quant_params
         bits = self.comm.compressor.bits
         ef = self.comm.ef
@@ -351,12 +417,25 @@ class MixingOp:
         flat = flat.contiguous()
         hat = st.hat.reshape(flat.shape).contiguous() if ef else None
         zp, scale = row_quant_params(flat - hat if ef else flat, bits)
-        if self.backend == "circulant":
+        if self.backend == "circulant" and bn is not None:
+            s = self.structure
+            res = circulant_mix_matvec_halo(flat, zp, scale, seed, hat,
+                                            w_self=s.w_self,
+                                            offsets=s.offsets,
+                                            weights=s.weights,
+                                            laplacian=laplacian, bn=bn,
+                                            comm=comm)
+        elif self.backend == "circulant":
             res = circulant_mix_matvec(flat, zp, scale, seed, hat,
                                        w_self=self.structure.w_self,
                                        offsets=self._circ_off,
                                        weights=self._circ_w,
                                        laplacian=laplacian, comm=comm)
+        elif bn is not None:
+            res = sparse_mix_matvec_halo(flat, self._sp_wself, self._sp_idx,
+                                         self._sp_wts, zp, scale, seed,
+                                         laplacian=laplacian, bn=bn,
+                                         comm=comm)
         else:
             res = sparse_mix_matvec(flat, self._sp_wself, self._sp_idx,
                                     self._sp_wts, zp, scale, seed, hat,
@@ -381,8 +460,9 @@ class MixingOp:
         if self.comm.is_identity:
             return self._apply(y, laplacian), st.bump()
         flat = y.reshape(y.shape[0], -1)
-        if self._fused_plan(flat):
-            return self._apply_fused(y, flat, st, laplacian)
+        plan = self._fused_plan(flat)
+        if plan is not None:
+            return self._apply_fused(y, flat, st, laplacian, plan[1])
         y_hat, st = compressed_payload(self.comm, y, st,
                                        self._next_seed(st))
         mixed = self._apply(y_hat, laplacian=False)
@@ -401,16 +481,16 @@ class MixingOp:
     def neumann_step_c(self, h, hvp_h, p, d_scalar, beta: float, st):
         """Fused DIHGP step with the W·h gossip on the channel.  The
         identity wire keeps the plain fused step; a fusable quantizer
-        without EF on the circulant tier runs the comm-fused Neumann
-        kernel (quantize + mix + the Eq. 14 update in one pass); EF and
-        the other tiers compose `mix_c` (itself fused where possible)
-        with the update."""
+        without EF on the circulant tier's full operand runs the
+        comm-fused Neumann kernel (quantize + mix + the Eq. 14 update in
+        one pass); EF, the halo tier and the other tiers compose `mix_c`
+        (itself fused where possible) with the update."""
         if self.comm.is_identity:
             return self.neumann_step(h, hvp_h, p, d_scalar, beta), \
                 st.bump()
         flat = h.reshape(h.shape[0], -1)
-        if not self.comm.ef and self.backend == "circulant" \
-                and self._fused_plan(flat):
+        if not self.comm.ef \
+                and self._fused_plan(flat) == ("circulant", None):
             from ..comm import row_quant_params
             bits = self.comm.compressor.bits
             seed = self._next_seed(st)
