@@ -34,7 +34,16 @@ Phases, in order (any failure exits non-zero before the last line):
                (r = 0.004) identity and int8, each with exact launch
                counts and ledger bytes, held against the same solve on
                the card through the plain versions, timed and profiled;
-  6. the kernel list as one JSON line, then the device JSON line last.
+  6. ops     — the `kernels.ops` path (attention, wkv): the flash-
+               attention and WKV-scan kernels against their plain
+               versions at the head widths of qwen3-4b (train_4k, f32
+               and bf16), mixtral-8x7b (prefill_32k, window 4096, f32
+               and bf16) and rwkv6-7b (train_4k), timed beside
+               scaled_dot_product_attention; then `ops.attention` and
+               `ops.wkv` for OPS_LAYERS calls each with exact launch
+               counts, and off the kernel route (switch off, S % 128,
+               T % chunk) with none;
+  7. the kernel list as one JSON line, then the device JSON line last.
 
 Imports torch and the port only; needs no network.
 """
@@ -1020,6 +1029,288 @@ def large_network_phase(torch, counts_out: dict) -> None:
         print(line)
 
 
+# The kernels.ops path (attention and the RWKV6 WKV mix) at the head widths
+# of three configurations the repo ships (src/repro/configs) and the
+# sequence lengths of configs/base.py INPUT_SHAPES; the batch is cut from
+# the global batch (256 at train_4k, 32 at prefill_32k) to one card's.
+ATTN_CASES = {
+    # name: (B, S, q heads, kv heads, hd, causal, window, dtype)
+    "qwen3-4b train_4k f32": (2, 4096, 32, 8, 128, True, 0, "float32"),
+    "qwen3-4b train_4k bf16": (2, 4096, 32, 8, 128, True, 0, "bfloat16"),
+    "mixtral-8x7b prefill_32k bf16": (1, 32768, 32, 8, 128, True, 4096,
+                                      "bfloat16"),
+    # the window's tile skip held at f32's tolerance: one 64-key tile
+    # dropped or added moves outputs by ~3e-3
+    "mixtral-8x7b prefill_32k f32": (1, 32768, 32, 8, 128, True, 4096,
+                                     "float32"),
+    # pins the kernel's semantics: the window holds without causal
+    "non-causal window 32 f32": (1, 1024, 4, 4, 128, False, 32, "float32"),
+}
+WKV_CASE = ("rwkv6-7b train_4k f32", (4, 4096, 64, 64))   # B, T, H, hd
+OPS_LAYERS = 4           # calls per configuration on the path: 4 layers
+BF16_FLOP_PER_S = 989e12
+# (atol, rtol).  f32 and the WKV scan as tests/test_kernels.py holds
+# repro's kernels.  bf16: the kernel and its plain version both compute
+# in f32 from the same bf16 inputs and round once to bf16, so they may
+# differ by one bf16 rounding, ≤ 2^-7·|want|, plus f32 summation-order
+# noise (far below 1e-6 for outputs of size ~1).
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-6, 2.0 ** -7)}
+WKV_TOL = (1e-4, 1e-4)
+
+
+def allclose_err(name, got, want, tol) -> float:
+    """max |got − want|; fails unless |got − want| ≤ atol + rtol·|want|
+    everywhere, with (atol, rtol) = tol."""
+    atol, rtol = tol
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    excess = (diff - atol - rtol * want.float().abs()).max().item()
+    ok = excess <= 0 and all_finite(got)
+    print(f"  {name}: max_abs_err={err:.3e} (atol={atol:g}, "
+          f"rtol={rtol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def all_finite(t) -> bool:
+    return bool(t.float().isfinite().all().item())
+
+
+def attention_pairs(S: int, causal: bool, window: int) -> int:
+    """Unmasked (q, k) pairs of one head: the kernel's masks."""
+    total = 0
+    for qi in range(S):
+        lo = max(0, qi - window + 1) if window else 0
+        hi = qi + 1 if causal else S
+        total += hi - lo
+    return total
+
+
+def device_ms_or_none(torch, fn, args, symbol: str, iters: int,
+                      attempts: int = 3):
+    """Mean device time (ms) of the kernel named like `symbol` over
+    `iters` launches, from torch.profiler.  The tracer misses the first
+    launches of a window (up to 3 of 50 on the H100), and of a window of
+    a few long launches all of them, so one step of the same launches
+    runs under the profiler's warm-up before the step it records.  None
+    (not measured) when no attempt records all `iters` launches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for attempt in range(attempts):
+        recorded = []
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: recorded.append(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn(*args)
+                torch.cuda.synchronize()
+                prof.step()
+        hits = [e for e in (recorded[0] if recorded else ())
+                if symbol in e.key
+                and getattr(e, "self_device_time_total", 0) > 0]
+        count = sum(e.count for e in hits)
+        if count == iters:
+            return sum(e.self_device_time_total for e in hits) / count / 1e3
+        print(f"  profiler saw {count} launches of {symbol}, expected "
+              f"{iters} (attempt {attempt + 1} of {attempts})")
+    print(f"  device ms of {symbol}: not measured (the profiler did not "
+          f"record all {iters} launches)")
+    return None
+
+
+def ops_kernel_phase(torch, out: dict) -> None:
+    """The flash-attention and WKV-scan kernels against their plain
+    versions at the three configurations' widths, timed; then the
+    `kernels.ops` path (attention and wkv, OPS_LAYERS calls each) with
+    exact launch counts, the switch off, and shapes off the kernel
+    route."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (kernel_mode, launch_counts, ops,
+                                     reset_launch_counts)
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    def randn(shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)
+                ).to(dtype)
+
+    def attn_inputs(B, S, H, KV, hd, dtype):
+        """q (B, S, H, hd); k, v with KV heads broadcast to H outside the
+        kernel, as `repro`'s flash_attention docstring asks."""
+        q = randn((B, S, H, hd), dtype)
+        k, v = (randn((B, S, KV, hd), dtype).repeat_interleave(H // KV, 2)
+                for _ in range(2))
+        return q, k, v
+
+    def wkv_inputs(B, T, H, hd):
+        """Drawn as tests/test_kernels.py draws them."""
+        r, k, v = (randn((B, T, H, hd), scale=0.5) for _ in range(3))
+        logw = -torch.exp(randn((B, T, H, hd)).clamp(-8, 2))
+        return r, k, v, logw, randn((H, hd), scale=0.5)
+
+    rows = out.setdefault("rows", {})
+    for name, (B, S, H, KV, hd, causal, window, dt) in ATTN_CASES.items():
+        dtype = getattr(torch, dt)
+        print(f"kernel flash_attention: {name} (B={B}, S={S}, H={H}, "
+              f"kv heads {KV}, hd={hd}) causal={causal} window={window}")
+        q, k, v = attn_inputs(B, S, H, KV, hd, dtype)
+        kw = dict(causal=causal, window=window)
+        got = flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = allclose_err("vs flash_attention_ref", got, want, ATTN_TOL[dt])
+        if not causal and window:
+            gap = (want.float() - ref.attention_ref(q, k, v, **kw).float()
+                   ).abs().max().item()
+            print(f"  attention_ref (window only under causal) differs by "
+                  f"{gap:.3e}: the kernel's masks hold, as repro's kernel")
+            if gap < 1e-2:
+                raise AssertionError("the window did not apply without "
+                                     "causal")
+        del got, want
+        long = S * S * B * H > 2 ** 31
+        ms = cuda_ms(torch, lambda t: flash_attention(*t, **kw), [(q, k, v)],
+                     iters=3 if long else 10, warmup=1)
+        dev_ms = device_ms_or_none(torch, functools.partial(
+            flash_attention, **kw), (q, k, v),
+                                   "flash_attention_kernel",
+                                   iters=2 if long else 5)
+        plain = cuda_ms(torch, lambda t: ref.flash_attention_ref(*t, **kw),
+                        [(q, k, v)], iters=1 if long else 3, warmup=1)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        if window:            # an explicit (S, S) mask: SDPA has no window
+            i = torch.arange(S, device=dev)
+            keep = (i[:, None] - i[None, :]) < window
+            if causal:
+                keep &= i[None, :] <= i[:, None]
+            sdpa_kw = dict(attn_mask=keep)
+        else:
+            sdpa_kw = dict(is_causal=causal)
+        lib = cuda_ms(torch, lambda t: F.scaled_dot_product_attention(
+            *t, **sdpa_kw), [(qt, kt, vt)], iters=3 if long else 10,
+            warmup=1)
+        del sdpa_kw
+        pairs = attention_pairs(S, causal, window) * B * H
+        nbytes = 4 * B * S * H * hd * q.element_size()
+        flops = 4 * hd * pairs
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / (BF16_FLOP_PER_S if dt == "bfloat16"
+                         else F32_FLOP_PER_S) * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+        print(f"    ms={ms:.5f} device_ms={dev_ms} plain_ms={plain:.5f} "
+              f"library_ms(scaled_dot_product_attention)={lib:.5f} "
+              f"bound_ms={b_ms:.5f} ({b_by}: {pairs} unmasked pairs x "
+              f"4·{hd} FLOP = {flops:.4e} FLOP; {nbytes} bytes)")
+        rows[("flash_attention", name)] = dict(
+            err=err, ms=ms, dev=dev_ms, plain=plain, lib=lib, bound=b_ms,
+            by=b_by, shape=[B, S, H, hd], dtype=dt)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    name, (B, T, H, hd) = WKV_CASE
+    print(f"kernel rwkv6_scan: {name} (B={B}, T={T}, H={H}, hd={hd})")
+    ins = wkv_inputs(B, T, H, hd)
+    got = rwkv6_scan(*ins)
+    want = ref.rwkv6_scan_ref(*ins)
+    torch.cuda.synchronize()
+    err = allclose_err("vs rwkv6_scan_ref", got, want, WKV_TOL)
+    ms = cuda_ms(torch, lambda t: rwkv6_scan(*t), [ins], iters=10, warmup=2)
+    dev_ms = device_ms_or_none(torch, rwkv6_scan, ins, "rwkv6_scan_kernel",
+                               iters=5)
+    plain = cuda_ms(torch, lambda t: ref.rwkv6_scan_ref(*t), [ins], iters=1,
+                    warmup=0)
+    # r, k, v, logw read once, u read once, out written once; the kernel's
+    # 5·hd² FLOP per step (out: r·S, 2 hd²; S: w·S + k·v, 3 hd²)
+    nbytes = 5 * B * T * H * hd * 4 + H * hd * 4
+    flops = 5 * B * T * H * hd * hd
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"    ms={ms:.5f} device_ms={dev_ms} plain_ms={plain:.5f} "
+          f"library_ms=n/a (no PyTorch call computes the WKV recurrence) "
+          f"bound_ms={b_ms:.5f} ({b_by}: {nbytes} bytes; {flops:.4e} FLOP)")
+    rows[("rwkv6_scan", name)] = dict(
+        err=err, ms=ms, dev=dev_ms, plain=plain, lib=None, bound=b_ms,
+        by=b_by, shape=[B, T, H, hd], dtype="float32")
+    del got, want
+
+    # -- the path: kernels.ops.attention and .wkv ------------------------
+    zero = dict.fromkeys(launch_counts(), 0)
+    path = ["qwen3-4b train_4k bf16", "mixtral-8x7b prefill_32k bf16"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    last = {}
+    for name in path:
+        B, S, H, KV, hd, causal, window, dt = ATTN_CASES[name]
+        q, k, v = attn_inputs(B, S, H, KV, hd, getattr(torch, dt))
+        for layer in range(OPS_LAYERS):
+            o = ops.attention(q, k, v, causal=causal, window=window)
+            if o.shape != q.shape or o.dtype != q.dtype \
+                    or not all_finite(o):
+                raise AssertionError(f"ops.attention {name} layer {layer}: "
+                                     f"bad output")
+            q = o                      # the next layer attends from this
+        last[name] = (q, k, v)
+    wr, wk, wv, wlogw, wu = wkv_inputs(*WKV_CASE[1])
+    for layer in range(OPS_LAYERS):
+        o = ops.wkv(wr, wk, wv, wlogw, wu)
+        if o.shape != wr.shape or o.dtype != torch.float32 \
+                or not all_finite(o):
+            raise AssertionError(f"ops.wkv layer {layer}: bad output")
+        wr = 0.5 * o / o.abs().max()   # the next layer's receptance
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = {**zero, "flash_attention": OPS_LAYERS * len(path),
+                "rwkv6_scan": OPS_LAYERS}
+    print(f"ops path: {OPS_LAYERS} layers of ops.attention at "
+          f"{', '.join(path)} and of ops.wkv at {WKV_CASE[0]}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"  launches {counts} expected {expected}")
+    if counts != expected:
+        raise AssertionError(f"ops path: launch counts {counts} != "
+                             f"{expected}")
+    out["counts"] = counts
+
+    # the same entry points off the kernel route launch nothing; where
+    # the two routes' semantics agree (causal, no window) their outputs do
+    q, k, v = last["qwen3-4b train_4k bf16"]
+    on_attn = ops.attention(q, k, v, causal=True)
+    on_wkv = ops.wkv(wr, wk, wv, wlogw, wu)
+    off = [
+        ("kernel_mode(False) attention, qwen3-4b", False,
+         lambda: ops.attention(q, k, v, causal=True), on_attn,
+         ATTN_TOL["bfloat16"]),
+        ("attention at S = 4032 (S % 128 != 0), qwen3-4b", True,
+         lambda: ops.attention(q[:, :4032], k[:, :4032], v[:, :4032]),
+         None, None),
+        ("kernel_mode(False) wkv, rwkv6-7b", False,
+         lambda: ops.wkv(wr, wk, wv, wlogw, wu), on_wkv, WKV_TOL),
+        ("wkv at T = 4000 (T % 64 != 0), rwkv6-7b", True,
+         lambda: ops.wkv(*(a[:, :4000] for a in (wr, wk, wv, wlogw)), wu),
+         None, None),
+    ]
+    for label, enabled, call, kernel_out, tol in off:
+        reset_launch_counts()
+        with kernel_mode(enabled):
+            o = call()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"  {label}: launches {sum(counts.values())} expected 0")
+        if counts != zero or not all_finite(o):
+            raise AssertionError(f"{label}: {counts}")
+        if kernel_out is not None:
+            allclose_err("kernel route vs this oracle route", kernel_out, o,
+                         tol)
+
+
 def median(values):
     return sorted(values)[len(values) // 2]
 
@@ -1238,9 +1529,16 @@ def main() -> int:
     # the CPU reference runs on the cores this process may use, not on
     # every core the host reports
     torch.set_num_threads(max(1, min(8, len(os.sched_getaffinity(0)))))
-    took = _build.build("mixing_matvec")
-    print(f"build: mixing_matvec "
-          f"{'cached' if took is None else f'{took:.2f} s'}")
+    # one nvcc per source, all started together
+    from concurrent.futures import ThreadPoolExecutor
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        took = dict(zip(sources, pool.map(_build.build, sources)))
+    for name in sources:
+        print(f"build: {name} "
+              f"{'cached' if took[name] is None else f'{took[name]:.2f} s'}")
+    print(f"build: {time.perf_counter() - t0:.2f} s in all")
     for log in sorted(_build.BUILD_DIR.glob(f"*-{_build.source_hash()}.log")):
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -1248,9 +1546,11 @@ def main() -> int:
 
     results: dict = {}
     counts: dict = {}
+    ops_out: dict = {}
     for phase, args in ((kernel_phase, results), (halo_kernel_phase, results),
                         (main_path_phase, counts),
-                        (large_network_phase, counts)):
+                        (large_network_phase, counts),
+                        (ops_kernel_phase, ops_out)):
         t0 = time.perf_counter()
         phase(torch, args)
         print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s")
@@ -1293,6 +1593,26 @@ def main() -> int:
             "comm": key[2] if key[2] in COMMS else "identity",
             "on_main_path": name != "ring_laplacian_matvec",
             **({"bn": row["bn"]} if "bn" in row else {})})
+    # the kernels.ops path's two kernels: not on DAGM's main path; their
+    # launches come from the ops path's run, each row (times and error)
+    # from its check at qwen3-4b (attention, bf16) and rwkv6-7b (wkv)
+    for name, case, src_line in (
+            ("flash_attention", "qwen3-4b train_4k bf16",
+             "src/repro/kernels/flash_attention.py:71"),
+            ("rwkv6_scan", WKV_CASE[0], "src/repro/kernels/rwkv6_scan.py:51")):
+        row = ops_out["rows"][(name, case)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": src_line,
+            "launches": ops_out["counts"][name],
+            "max_abs_err": row["err"],
+            "ms": row["ms"], "device_ms": row["dev"],
+            "plain_ms": row["plain"],
+            "bound_ms": row["bound"], "bound_by": row["by"],
+            "library_ms": row["lib"],
+            "shape": row["shape"], "dtype": row["dtype"],
+            "case": case, "on_main_path": False})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

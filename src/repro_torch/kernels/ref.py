@@ -13,6 +13,8 @@ helpers of `repro.kernels.mixing_matvec` (`_fmix32`, `_hash_uniform`,
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -260,3 +262,108 @@ def sparse_mix_halo_ref(y, w_self, neighbors, weights, zp=None, scale=None,
                                      laplacian)
     return sparse_mix_fused_ref(y, w_self, neighbors, weights, zp, scale,
                                 seed, laplacian=laplacian, bits=bits)
+
+
+# ---------------------------------------------------------------------------
+# Attention and the RWKV6 WKV recurrence (`repro.kernels.ref`'s
+# `attention_ref` / `rwkv6_ref` and the plain versions of the kernels in
+# `csrc/flash_attention.cu` and `csrc/rwkv6_scan.cu`)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+# f32 scores one q chunk may hold (1 GiB): at S = 32768 the whole
+# (B, H, S, S) score tensor would be 137 GB per batch row
+_SCORE_ELEMS = 1 << 28
+
+
+def _attention_chunked(q, k, v, *, causal: bool, window: int,
+                       kernel_masks: bool, q_chunk: int | None
+                       ) -> torch.Tensor:
+    """Softmax attention in f32 over chunks of q rows, each against the
+    keys its mask can reach; output in q's dtype.
+
+    kernel_masks: the causal and window masks apply independently (the
+    kernel's semantics); else the window applies only under causal
+    (`attention_ref`'s).  Masked scores are NEG_INF, so a key outside a
+    chunk's range would add exp(NEG_INF − max) = 0 to every row that has
+    an unmasked key, as every row here has (key = query)."""
+    B, S, H, hd = q.shape
+    win = window if (kernel_masks or causal) else 0
+    scale = 1.0 / math.sqrt(hd)
+    if q_chunk is None:          # a chunk of ≤ win rows reaches < 2·win keys
+        reach = min(S, 2 * win) if win else S
+        q_chunk = max(1, min(win or S, _SCORE_ELEMS // (B * H * reach)))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    vf_all = v.float()
+    for q0 in range(0, S, q_chunk):
+        q1 = min(S, q0 + q_chunk)
+        lo = max(0, q0 - win + 1) if win else 0
+        hi = q1 if causal else S
+        qf = q[:, q0:q1].float().permute(0, 2, 1, 3)          # (B,H,c,hd)
+        kf = k[:, lo:hi].float().permute(0, 2, 3, 1)          # (B,H,hd,t)
+        s = torch.matmul(qf, kf) * scale
+        qi = torch.arange(q0, q1, device=q.device)[:, None]
+        kj = torch.arange(lo, hi, device=q.device)[None, :]
+        keep = torch.ones((q1 - q0, hi - lo), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            keep &= kj <= qi
+        if win:
+            keep &= (qi - kj) < win
+        s = s.masked_fill(~keep, NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        o = torch.matmul(w, vf_all[:, lo:hi].permute(0, 2, 1, 3))
+        out[:, q0:q1] = o.permute(0, 2, 1, 3).to(q.dtype)
+    return out
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                  q_chunk: int | None = None) -> torch.Tensor:
+    """Plain softmax attention (`repro.kernels.ref.attention_ref`); q, k,
+    v: (B, S, H, hd), the same H.  The window applies only under causal;
+    masked scores NEG_INF, softmax in f32, output in q's dtype.  Runs in
+    chunks of q rows (`q_chunk`, by default sized to 1 GiB of scores),
+    which changes no result."""
+    return _attention_chunked(q, k, v, causal=causal, window=window,
+                              kernel_masks=False, q_chunk=q_chunk)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_chunk: int | None = None) -> torch.Tensor:
+    """Plain version of the flash-attention kernel (`repro`'s
+    `flash_attention`): the causal mask and the window mask
+    (q − k) < window apply independently, so the window holds with
+    causal=False too; masked scores NEG_INF, f32 online-softmax
+    arithmetic (here one softmax per chunk), output in q's dtype.  Every
+    row keeps its own key, so the kernel's acc / max(l, 1e-30) is the
+    softmax here.  q-chunked as `attention_ref`."""
+    return _attention_chunked(q, k, v, causal=causal, window=window,
+                              kernel_masks=True, q_chunk=q_chunk)
+
+
+def rwkv6_ref(r, k, v, logw, u, S0=None):
+    """The WKV recurrence step by step (`repro.kernels.ref.rwkv6_ref`):
+
+        out_t = r_t (S + diag(u) k_tᵀ v_t),  S ← diag(e^{logw_t}) S + k_tᵀ v_t
+
+    r, k, v, logw: (B, T, H, hd); u: (H, hd); S0: (B, H, hd, hd) or None
+    (zeros).  Returns (out (B, T, H, hd) f32, S_T)."""
+    B, T, H, hd = r.shape
+    S = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device) \
+        if S0 is None else S0.float()
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, logw))
+    uf = u.float()
+    out = torch.empty((B, T, H, hd), dtype=torch.float32, device=r.device)
+    for t in range(T):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        out[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t],
+                                 S + uf[:, :, None] * kv)
+        S = torch.exp(wf[:, t])[..., None] * S + kv
+    return out, S
+
+
+def rwkv6_scan_ref(r, k, v, logw, u, *, chunk: int = 64) -> torch.Tensor:
+    """Plain version of the RWKV6 scan kernel: `rwkv6_ref(...)[0]` in f32
+    from a zero state.  The recurrence does not depend on `chunk`, which
+    only `repro`'s TPU grid used; the wrapper checks T % chunk."""
+    return rwkv6_ref(r, k, v, logw, u)[0]
