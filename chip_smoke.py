@@ -6,7 +6,9 @@ kernel on that path against its plain PyTorch version.
 
 Phases, in order (any failure exits non-zero before the last line):
   1. card    — nvidia-smi name and power limit, torch's device name/count;
-  2. build   — compile src/repro_torch/kernels/csrc/*.cu with nvcc;
+  2. build   — compile src/repro_torch/kernels/csrc/*.cu with nvcc (one
+               process each, in parallel) and check that the attention
+               kernel's SASS holds tensor-core HMMA for bf16 and TF32;
   3. kernels — each kernel vs its plain version on the card at the main
                path's shapes, with timings (CUDA events), the plain
                version's and a one-call PyTorch yardstick's times, and
@@ -15,7 +17,11 @@ Phases, in order (any failure exits non-zero before the last line):
                (int8/int4 ± error feedback; payload bitwise) and the
                ring Laplacian; then the row-tiled halo kernels at
                n = 4096 (plain and fused, at the planner's row tile and
-               two others, bitwise against the full-operand kernels);
+               two others, bitwise against the full-operand kernels) and
+               every route of the compressed sparse gather (the column
+               slab at c = 8, 4, 2, 1 and the row-tiled kernel, driven
+               by a lower shared-memory budget; bitwise against the
+               full-operand kernel and the plain version);
   4. main    — `repro_torch.solve` on the paper's §6.2 hyper-
                representation MLP at its published widths (d=784,
                hidden=200: d1=157,000, d2=2,010; n=16 agents) on a ring
@@ -30,15 +36,23 @@ Phases, in order (any failure exits non-zero before the last line):
                seed-to-seed spread (see E2E_NORM_REL);
   5. large   — the same solve on n = 4096 agents (K = 3), where the
                shared-memory planner sends every gossip through the halo
-               kernels: ring identity, int4 and int8+ef, Erdős–Rényi
-               (r = 0.004) identity and int8, each with exact launch
-               counts and ledger bytes, held against the same solve on
-               the card through the plain versions, timed and profiled;
+               kernels (the compressed Erdős–Rényi gossip through the
+               column-slab kernel): ring identity, int4 and int8+ef,
+               Erdős–Rényi (r = 0.004) identity and int8, each with exact
+               launch counts and ledger bytes, held against the same
+               solve on the card through the plain versions, timed and
+               profiled;
+  5b. routes — explicit "circulant" / "sparse_gather" MixingOps, and
+               "auto" with the kernel switch off, launch no kernel and
+               backpropagate; the entry points (solve, MixingOp,
+               kernels.ops) hand back the caller's TF32 flags;
   6. ops     — the `kernels.ops` path (attention, wkv): the flash-
                attention and WKV-scan kernels against their plain
                versions at the head widths of qwen3-4b (train_4k, f32
                and bf16), mixtral-8x7b (prefill_32k, window 4096, f32
-               and bf16) and rwkv6-7b (train_4k), timed beside
+               and bf16) and rwkv6-7b (train_4k), and at head dims
+               outside the powers of two (attention 80 and 256, f32 and
+               bf16; WKV 96 and 256), timed beside
                scaled_dot_product_attention; then `ops.attention` and
                `ops.wkv` for OPS_LAYERS calls each with exact launch
                counts, and off the kernel route (switch off, S % 128,
@@ -558,7 +572,10 @@ def halo_kernel_phase(torch, results: dict) -> None:
     (4096, 157000) and (4096, 2010): at the planner's row tile and at
     half and twice it, each launch held bitwise against the full-operand
     kernel (plain output; fused payload and output) and within tolerance
-    of its plain version; timed at the planner's row tile, beside the
+    of its plain version; the compressed sparse gather on each of its
+    routes (slab c = 8, 4, 2, 1; row tiles), bitwise against the
+    full-operand kernel and its plain version; timed at the planner's
+    row tile (and each route of the compressed gather), beside the
     full-operand kernel's device time and `torch.sparse.mm` with a CSR W
     (the library yardstick: it computes the uncompressed mix)."""
     from repro_torch.kernels import mixing_matvec as mm
@@ -590,14 +607,12 @@ def halo_kernel_phase(torch, results: dict) -> None:
     def tiles(planned):
         return [planned, planned // 2, planned * 2]
 
-    def bitwise(tag, got, full):
+    def bitwise(tag, got, full, what="the full-operand kernel"):
         pairs = zip(got, full) if isinstance(got, tuple) else [(got, full)]
         diff = sum(int((g != f).sum().item()) for g, f in pairs)
-        print(f"  {tag}: elements differing from the full-operand kernel "
-              f"{diff} (bitwise)")
+        print(f"  {tag}: elements differing from {what} {diff} (bitwise)")
         if diff:
-            raise AssertionError(f"{tag}: not bitwise equal to the "
-                                 f"full-operand kernel")
+            raise AssertionError(f"{tag}: not bitwise equal to {what}")
 
     def timings(kname, key, launch, plain_fn, pool, symbol, full_fn,
                 full_symbol, lib_fn, b, err, bn):
@@ -750,48 +765,104 @@ def halo_kernel_phase(torch, results: dict) -> None:
             del pool
 
     # -- sparse_mix_matvec_halo, comm-fused (no EF) ----------------------
+    # every route of the planner, driven at n = 4096 by a lower budget
+    # (`smem_budget`): the slab at the planner's c = 8, then 4, 2 and 1,
+    # and the row-tiled kernel (None), which it gives n > 33,536; each
+    # launch bitwise against the full-operand kernel and the plain version
+    routes = [(c, mm.slab_smem_bytes(n, c)) for c in mm.SLAB_COLS]
+    routes.append((None, mm.slab_smem_bytes(n, 1) - 1))
+    assert mm.plan_slab_cols(n) == routes[0][0]
+
+    def route_name(cols, bn):
+        return f"slab c={cols}" if cols else f"row tiles bn={bn}"
+
+    def on_route(budget, fn):
+        def launch(t):
+            with mm.smem_budget(budget):
+                return fn(t)
+        return launch
+
     print(f"kernel sparse_mix_matvec_halo_comm (Erdős–Rényi n={n}, "
-          f"int8/int4, row tiles)")
+          f"int8/int4; routes: "
+          f"{', '.join(route_name(c, 'b') for c, _ in routes)})")
     for d_ in (D1, D2):
         for comm in ("int8", "int4"):
             bits, _, pool = wire_operands(torch, gen, n, d_, comm)
             planned = mm.pick_halo_bn(n, blocks=mm.plan_blocks(True))
             for lap in (False, True):
                 t = pool[0]
-                want = ref.sparse_mix_fused_ref(t[0], *er_tabs, *t[1:3],
-                                                SEED, laplacian=lap,
-                                                bits=bits)
+                want = ref.sparse_mix_halo_ref(t[0], *er_tabs, *t[1:3],
+                                               SEED, laplacian=lap,
+                                               bn=planned, bits=bits)
                 full = mm.sparse_mix_matvec(t[0], *er_tabs, *t[1:3], SEED,
                                             laplacian=lap, comm=comm)
-                err = 0.0
-                for bn in tiles(planned):
-                    got = mm.sparse_mix_matvec_halo(
-                        t[0], *er_tabs, *t[1:3], SEED, laplacian=lap, bn=bn,
-                        comm=comm)
-                    torch.cuda.synchronize()
-                    tag = f"({n}, {d_}) {comm} laplacian={lap} bn={bn}"
-                    bitwise(tag, got, full)
-                    err = max(err, check_fused(tag, got, want, False))
-                del got, full, want
+                err = {}
+                for cols, budget in routes:
+                    for bn in [planned] if cols else tiles(planned):
+                        with mm.smem_budget(budget):
+                            assert mm.plan_slab_cols(n) == cols
+                            got = mm.sparse_mix_matvec_halo(
+                                t[0], *er_tabs, *t[1:3], SEED,
+                                laplacian=lap, bn=bn, comm=comm)
+                        torch.cuda.synchronize()
+                        tag = (f"({n}, {d_}) {comm} laplacian={lap} "
+                               f"{route_name(cols, bn)}")
+                        bitwise(tag, got, full)
+                        bitwise(tag, got, want, "the plain version")
+                        err[cols] = max(err.get(cols, 0.0),
+                                        check_fused(tag, got, want, False))
+                        del got
+                del full, want
                 if lap != (d_ == D1):
                     continue
 
-                def launch(t, lap=lap, comm=comm):
+                def launch(t, lap=lap, comm=comm, bn=planned):
                     return mm.sparse_mix_matvec_halo(
                         t[0], *er_tabs, *t[1:3], SEED, laplacian=lap,
-                        bn=planned, comm=comm)
+                        bn=bn, comm=comm)
                 A = csr["er"][int(lap)]
-                timings("sparse_mix_matvec_halo_comm", (n, d_, comm, lap),
+                key = (n, d_, comm, lap)
+                timings("sparse_mix_matvec_halo_comm", key,
                         launch, lambda t, lap=lap, bits=bits:
                         ref.sparse_mix_fused_ref(
                             t[0], *er_tabs, *t[1:3], SEED, laplacian=lap,
-                            bits=bits), pool, "sparse_mix_halo_comm_kernel",
+                            bits=bits), pool, "sparse_mix_slab_comm_kernel",
                         lambda t, lap=lap, comm=comm: mm.sparse_mix_matvec(
                             t[0], *er_tabs, *t[1:3], SEED, laplacian=lap,
                             comm=comm), "sparse_mix_comm_kernel",
                         lambda t: torch.sparse.mm(A, t[0]),
                         fused_bound(n, d_, sp.nnz / n, False, lap,
-                                    sp.nnz * 8 + n * 4), err, planned)
+                                    sp.nnz * 8 + n * 4), err[routes[0][0]],
+                        planned)
+                # the other routes: ms and device ms on the same operands
+                # (plain, library and bound as the slab's row above; ms
+                # includes the budget switch, a few µs on the host)
+                slab = results["sparse_mix_matvec_halo_comm"][key]
+                slab["slab_cols"] = routes[0][0]
+                slab["routes"] = []
+                big = d_ == D1
+                for cols, budget in routes[1:]:
+                    go = on_route(budget, launch)
+                    ms = cuda_ms(torch, go, pool, iters=5 if big else 50,
+                                 warmup=1 if big else 5)
+                    symbol = (f"sparse_mix_slab_comm_kernel<{cols}>" if cols
+                              else "sparse_mix_halo_comm_kernel")
+                    dev_ms = device_ms(torch, go, pool, symbol,
+                                       iters=5 if big else 50)
+                    print(f"    {route_name(cols, planned)}: ms={ms:.5f} "
+                          f"device_ms={dev_ms:.5f}")
+                    row = dict(err=err[cols], ms=ms, dev=dev_ms,
+                               plain=slab["plain"], lib=slab["lib"],
+                               bound=slab["bound"], by=slab["by"],
+                               full_dev=slab["full_dev"])
+                    if cols:
+                        slab["routes"].append(dict(
+                            slab_cols=cols, max_abs_err=err[cols], ms=ms,
+                            device_ms=dev_ms, bitwise=True))
+                    else:
+                        results.setdefault(
+                            "sparse_mix_matvec_halo_comm_rows",
+                            {})[key] = dict(row, bn=planned)
             del pool
 
 
@@ -1029,6 +1100,75 @@ def large_network_phase(torch, counts_out: dict) -> None:
         print(line)
 
 
+def routes_phase(torch, out: dict) -> None:
+    """MixingOp's routes on the card, at the main path's n = 16 and d2
+    width: an explicit "circulant" or "sparse_gather" backend, and "auto"
+    with the kernel switch off, launch no kernel and backpropagate (the
+    gradient of <g, W·y> is Wᵀ·g); "auto" with the switch on launches.
+    Then the caller's TF32 flags, set here to True, are unchanged after
+    solve, MixingOp's gossips and kernels.ops (each runs inside
+    `strict_f32`)."""
+    from repro_torch.core.problems import quadratic_bilevel
+    from repro_torch.kernels import (kernel_mode, launch_counts, ops,
+                                     reset_launch_counts)
+    from repro_torch.solve import SolverSpec, solve
+    from repro_torch.topology import make_mixing_op, make_network
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(SEED)
+    ring = make_network("ring", N_AGENTS)
+    er = make_network("erdos_renyi", N_AGENTS, r=0.5, seed=0)
+    h, hvp, p, g = (torch.randn((N_AGENTS, D2), generator=gen, device=dev)
+                    for _ in range(4))
+    dsc = torch.full((N_AGENTS, 1), 2.0, device=dev)
+    cases = [("ring, explicit circulant", ring, "circulant", True, 0),
+             ("ER, explicit sparse_gather", er, "sparse_gather", True, 0),
+             ("ring, auto, switch off", ring, "auto", False, 0),
+             ("ER, auto, switch off", er, "auto", False, 0),
+             ("ring, auto, switch on", ring, "auto", True, 3),
+             ("ER, auto, switch on", er, "auto", True, 3)]
+    for label, net, backend, switch, launches in cases:
+        op = make_mixing_op(net, backend, device=dev)
+        W = torch.as_tensor(net.W, dtype=torch.float32, device=dev)
+        with kernel_mode(switch):
+            reset_launch_counts()
+            if launches:
+                op.mix(h)
+                grad_err = 0.0
+            else:
+                y = h.clone().requires_grad_()
+                (op.mix(y) * g).sum().backward()
+                grad_err = (y.grad - W.T @ g).abs().max().item()
+            op.laplacian(h)
+            op.neumann_step(h, hvp, p, dsc, 0.1)
+            torch.cuda.synchronize()
+        n = sum(launch_counts().values())
+        print(f"  routes: {label}: launches {n} expected {launches}"
+              + ("" if launches else f"; gradient vs Wᵀ·g max_abs_err "
+                                     f"{grad_err:.3e}"))
+        if n != launches or not grad_err <= 1e-5:
+            raise AssertionError(f"routes: {label}")
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = True
+    try:
+        make_mixing_op(er, device=dev).mix(h)
+        q = torch.randn((1, 128, 2, 64), generator=gen, device=dev)
+        ops.attention(q, q, q)
+        solve(quadratic_bilevel(8, 4, 4, device="cuda"),
+              make_network("ring", 8), SolverSpec(K=1, M=1, U=1),
+              device="cuda")
+        torch.cuda.synchronize()
+        flags = (matmul.allow_tf32, cudnn.allow_tf32)
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
+    print(f"  routes: TF32 flags after MixingOp, ops.attention and solve "
+          f"{flags}, set to (True, True) by the caller")
+    if flags != (True, True):
+        raise AssertionError("an entry point left TF32 flags changed")
+    out["routes"] = len(cases)
+
+
 # The kernels.ops path (attention and the RWKV6 WKV mix) at the head widths
 # of three configurations the repo ships (src/repro/configs) and the
 # sequence lengths of configs/base.py INPUT_SHAPES; the batch is cut from
@@ -1045,10 +1185,26 @@ ATTN_CASES = {
                                      "float32"),
     # pins the kernel's semantics: the window holds without causal
     "non-causal window 32 f32": (1, 1024, 4, 4, 128, False, 32, "float32"),
+    # head dims outside the powers of two, padded to 80 and 256 in shared
+    # memory: the kernels' whole range (no shipped configuration has them)
+    "head dim 80 f32": (1, 2048, 8, 8, 80, True, 0, "float32"),
+    "head dim 80 bf16": (1, 2048, 8, 8, 80, True, 0, "bfloat16"),
+    "head dim 256 f32": (1, 2048, 8, 8, 256, True, 0, "float32"),
+    "head dim 256 bf16": (1, 2048, 8, 8, 256, True, 0, "bfloat16"),
 }
 WKV_CASE = ("rwkv6-7b train_4k f32", (4, 4096, 64, 64))   # B, T, H, hd
+# the WKV kernel's masked rows (hd 96 in the 128-row template) and its
+# columns split over two blocks (hd 256)
+WKV_HD_CASES = [("head dim 96 f32", (1, 2048, 16, 96)),
+                ("head dim 256 f32", (1, 2048, 8, 256))]
 OPS_LAYERS = 4           # calls per configuration on the path: 4 layers
+# tensor-core peaks.  f32 attention's least time is taken at the fastest
+# f32-accurate rate: 3xTF32 (three TF32 mma per product, each input split
+# into a TF32 high and low part) at 495 / 3 = 165 TFLOP/s of f32 work,
+# above the CUDA cores' 67; bf16 at one bf16 mma per product
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
+TF32_SPLIT = 3
 # (atol, rtol).  f32 and the WKV scan as tests/test_kernels.py holds
 # repro's kernels.  bf16: the kernel and its plain version both compute
 # in f32 from the same bf16 inputs and round once to bf16, so they may
@@ -1087,14 +1243,35 @@ def attention_pairs(S: int, causal: bool, window: int) -> int:
     return total
 
 
-def device_ms_or_none(torch, fn, args, symbol: str, iters: int,
-                      attempts: int = 3):
-    """Mean device time (ms) of the kernel named like `symbol` over
-    `iters` launches, from torch.profiler.  The tracer misses the first
-    launches of a window (up to 3 of 50 on the H100), and of a window of
-    a few long launches all of them, so one step of the same launches
-    runs under the profiler's warm-up before the step it records.  None
-    (not measured) when no attempt records all `iters` launches."""
+def events_ms(torch, fn, args, iters: int) -> float:
+    """Mean ms per launch of back-to-back launches between two CUDA
+    events, one launch already in flight when the first event is
+    recorded: for kernels that run far longer than their host launch
+    cost (~10-20 µs) the device never waits for the host, so this is
+    the kernels' device time."""
+    fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    fn(*args)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_ms_of(torch, fn, args, symbol: str, iters: int,
+                 attempts: int = 2):
+    """(device ms, method) of the kernel named like `symbol`, the mean
+    over `iters` launches.  First from torch.profiler ("profiler"): the
+    tracer misses the first launches of a window (up to 3 of 50 on the
+    H100), and of a window of a few long launches all of them, so one
+    step of the same launches runs under the profiler's warm-up before
+    the step it records.  Where no attempt records all `iters` launches,
+    a kernel that runs 0.1 ms or more is timed by `events_ms` ("events");
+    a shorter one is not measured (None)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     for attempt in range(attempts):
         recorded = []
@@ -1114,12 +1291,19 @@ def device_ms_or_none(torch, fn, args, symbol: str, iters: int,
                 and getattr(e, "self_device_time_total", 0) > 0]
         count = sum(e.count for e in hits)
         if count == iters:
-            return sum(e.self_device_time_total for e in hits) / count / 1e3
+            return (sum(e.self_device_time_total for e in hits) / count
+                    / 1e3, "profiler")
         print(f"  profiler saw {count} launches of {symbol}, expected "
               f"{iters} (attempt {attempt + 1} of {attempts})")
+    ms = events_ms(torch, fn, args, iters)
+    if ms >= 0.1:
+        print(f"  device ms of {symbol} from CUDA events around {iters} "
+              f"back-to-back launches: {ms:.5f}")
+        return ms, "events"
     print(f"  device ms of {symbol}: not measured (the profiler did not "
-          f"record all {iters} launches)")
-    return None
+          f"record all {iters} launches, and {ms:.5f} ms is too short for "
+          f"the events to stand for device time)")
+    return None, "not measured"
 
 
 def ops_kernel_phase(torch, out: dict) -> None:
@@ -1180,10 +1364,9 @@ def ops_kernel_phase(torch, out: dict) -> None:
         long = S * S * B * H > 2 ** 31
         ms = cuda_ms(torch, lambda t: flash_attention(*t, **kw), [(q, k, v)],
                      iters=3 if long else 10, warmup=1)
-        dev_ms = device_ms_or_none(torch, functools.partial(
-            flash_attention, **kw), (q, k, v),
-                                   "flash_attention_kernel",
-                                   iters=2 if long else 5)
+        dev_ms, dev_how = device_ms_of(
+            torch, functools.partial(flash_attention, **kw), (q, k, v),
+            "flash_attention_kernel", iters=2 if long else 5)
         plain = cuda_ms(torch, lambda t: ref.flash_attention_ref(*t, **kw),
                         [(q, k, v)], iters=1 if long else 3, warmup=1)
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
@@ -1204,43 +1387,47 @@ def ops_kernel_phase(torch, out: dict) -> None:
         flops = 4 * hd * pairs
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / (BF16_FLOP_PER_S if dt == "bfloat16"
-                         else F32_FLOP_PER_S) * 1e3
+                         else TF32_FLOP_PER_S / TF32_SPLIT) * 1e3
         b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
             (t_ops, "operations")
-        print(f"    ms={ms:.5f} device_ms={dev_ms} plain_ms={plain:.5f} "
+        print(f"    ms={ms:.5f} device_ms={dev_ms} ({dev_how}) "
+              f"plain_ms={plain:.5f} "
               f"library_ms(scaled_dot_product_attention)={lib:.5f} "
               f"bound_ms={b_ms:.5f} ({b_by}: {pairs} unmasked pairs x "
               f"4·{hd} FLOP = {flops:.4e} FLOP; {nbytes} bytes)")
         rows[("flash_attention", name)] = dict(
-            err=err, ms=ms, dev=dev_ms, plain=plain, lib=lib, bound=b_ms,
-            by=b_by, shape=[B, S, H, hd], dtype=dt)
+            err=err, ms=ms, dev=dev_ms, dev_how=dev_how, plain=plain,
+            lib=lib, bound=b_ms, by=b_by, shape=[B, S, H, hd], dtype=dt)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
-    name, (B, T, H, hd) = WKV_CASE
-    print(f"kernel rwkv6_scan: {name} (B={B}, T={T}, H={H}, hd={hd})")
-    ins = wkv_inputs(B, T, H, hd)
-    got = rwkv6_scan(*ins)
-    want = ref.rwkv6_scan_ref(*ins)
-    torch.cuda.synchronize()
-    err = allclose_err("vs rwkv6_scan_ref", got, want, WKV_TOL)
-    ms = cuda_ms(torch, lambda t: rwkv6_scan(*t), [ins], iters=10, warmup=2)
-    dev_ms = device_ms_or_none(torch, rwkv6_scan, ins, "rwkv6_scan_kernel",
-                               iters=5)
-    plain = cuda_ms(torch, lambda t: ref.rwkv6_scan_ref(*t), [ins], iters=1,
-                    warmup=0)
-    # r, k, v, logw read once, u read once, out written once; the kernel's
-    # 5·hd² FLOP per step (out: r·S, 2 hd²; S: w·S + k·v, 3 hd²)
-    nbytes = 5 * B * T * H * hd * 4 + H * hd * 4
-    flops = 5 * B * T * H * hd * hd
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"    ms={ms:.5f} device_ms={dev_ms} plain_ms={plain:.5f} "
-          f"library_ms=n/a (no PyTorch call computes the WKV recurrence) "
-          f"bound_ms={b_ms:.5f} ({b_by}: {nbytes} bytes; {flops:.4e} FLOP)")
-    rows[("rwkv6_scan", name)] = dict(
-        err=err, ms=ms, dev=dev_ms, plain=plain, lib=None, bound=b_ms,
-        by=b_by, shape=[B, T, H, hd], dtype="float32")
-    del got, want
+    for name, (B, T, H, hd) in [WKV_CASE] + WKV_HD_CASES:
+        print(f"kernel rwkv6_scan: {name} (B={B}, T={T}, H={H}, hd={hd})")
+        ins = wkv_inputs(B, T, H, hd)
+        got = rwkv6_scan(*ins)
+        want = ref.rwkv6_scan_ref(*ins)
+        torch.cuda.synchronize()
+        err = allclose_err("vs rwkv6_scan_ref", got, want, WKV_TOL)
+        ms = cuda_ms(torch, lambda t: rwkv6_scan(*t), [ins], iters=10,
+                     warmup=2)
+        dev_ms, dev_how = device_ms_of(torch, rwkv6_scan, ins,
+                                       "rwkv6_scan_kernel", iters=5)
+        plain = cuda_ms(torch, lambda t: ref.rwkv6_scan_ref(*t), [ins],
+                        iters=1, warmup=0)
+        # r, k, v, logw read once, u read once, out written once; the
+        # kernel's 5·hd² FLOP per step (out: r·S, 2 hd²; S: w·S + k·v, 3 hd²)
+        nbytes = 5 * B * T * H * hd * 4 + H * hd * 4
+        flops = 5 * B * T * H * hd * hd
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"    ms={ms:.5f} device_ms={dev_ms} ({dev_how}) "
+              f"plain_ms={plain:.5f} library_ms=n/a (no PyTorch call "
+              f"computes the WKV recurrence) bound_ms={b_ms:.5f} ({b_by}: "
+              f"{nbytes} bytes; {flops:.4e} FLOP)")
+        rows[("rwkv6_scan", name)] = dict(
+            err=err, ms=ms, dev=dev_ms, dev_how=dev_how, plain=plain,
+            lib=None, bound=b_ms, by=b_by, shape=[B, T, H, hd],
+            dtype="float32")
+        del got, want, ins
 
     # -- the path: kernels.ops.attention and .wkv ------------------------
     zero = dict.fromkeys(launch_counts(), 0)
@@ -1501,6 +1688,26 @@ def profile_run(torch, run) -> float | None:
     return busy_us
 
 
+def tensor_core_instructions(lib) -> dict:
+    """{"BF16": (count, first line), "TF32": (...)}: the tensor-core
+    instructions (HMMA) of a built library's SASS, by input type, from
+    the toolkit's cuobjdump."""
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    found = {}
+    for line in sass.splitlines():
+        if "HMMA" in line:
+            kind = next((t for t in ("BF16", "TF32") if f".{t}" in line),
+                        "other")
+            count, first = found.get(kind,
+                                     (0, " ".join(line.split(";")[0].split())))
+            found[kind] = (count + 1, first)
+    return found
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1523,9 +1730,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{kind!r} count {count}")
 
-    from repro_torch import resolve_device
+    from repro_torch import resolve_device, strict_f32
     from repro_torch.kernels import _build
-    resolve_device("cuda")              # TF32 off for the whole run
+    resolve_device("cuda")
     # the CPU reference runs on the cores this process may use, not on
     # every core the host reports
     torch.set_num_threads(max(1, min(8, len(os.sched_getaffinity(0)))))
@@ -1543,22 +1750,40 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {log.stem}: {line.strip()}")
+    # the attention kernel's products run on the tensor cores in both
+    # dtypes: bf16 mma and the f32 path's 3xTF32 mma
+    hmma = tensor_core_instructions(_build.library_path("flash_attention"))
+    for itype in ("BF16", "TF32"):
+        n_hmma, first = hmma.get(itype, (0, ""))
+        print(f"sass flash_attention: {n_hmma} HMMA .{itype} instructions, "
+              f"e.g. {first}")
+        if not n_hmma:
+            raise AssertionError(f"flash_attention has no {itype} HMMA")
 
     results: dict = {}
     counts: dict = {}
     ops_out: dict = {}
-    for phase, args in ((kernel_phase, results), (halo_kernel_phase, results),
-                        (main_path_phase, counts),
-                        (large_network_phase, counts),
-                        (ops_kernel_phase, ops_out)):
-        t0 = time.perf_counter()
-        phase(torch, args)
-        print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    routes: dict = {}
+    # the plain versions' matmuls in full f32 for the whole run
+    with strict_f32():
+        for phase, args in ((kernel_phase, results),
+                            (halo_kernel_phase, results),
+                            (main_path_phase, counts),
+                            (large_network_phase, counts),
+                            (routes_phase, routes),
+                            (ops_kernel_phase, ops_out)):
+            t0 = time.perf_counter()
+            phase(torch, args)
+            print(f"phase {phase.__name__}: "
+                  f"{time.perf_counter() - t0:.1f} s")
 
     # one entry per kernel, at the main path's largest f32 launch (the
     # Neumann steps: the d2 launch they run at; the halo kernels: the
     # (4096, d1) gossip of the large-network path); ring_laplacian_matvec
-    # is not on the main path and reports its (16, d1) check
+    # is not on the main path and reports its (16, d1) check, the
+    # row-tiled compressed sparse gather (n > 33,536) its (4096, d1)
+    # launch under a lower budget, and the slab's entry its c = 4, 2, 1
+    # routes
     src = "src/repro/kernels/mixing_matvec.py"
     pick = {
         "circulant_mix_matvec": ((N_AGENTS, D1, "float32", True), 274),
@@ -1574,7 +1799,10 @@ def main() -> int:
                                            439),
         "sparse_mix_matvec_halo": ((N_LARGE, D1, "float32", True), 739),
         "sparse_mix_matvec_halo_comm": ((N_LARGE, D1, "int8", True), 739),
+        "sparse_mix_matvec_halo_comm_rows": ((N_LARGE, D1, "int8", True),
+                                             739),
     }
+    off_path = ("ring_laplacian_matvec", "sparse_mix_matvec_halo_comm_rows")
     kernels = []
     for name, (key, line) in pick.items():
         row = results[name][key]
@@ -1591,8 +1819,10 @@ def main() -> int:
             "library_ms": row["lib"],
             "shape": [key[0], key[1]], "dtype": "float32",
             "comm": key[2] if key[2] in COMMS else "identity",
-            "on_main_path": name != "ring_laplacian_matvec",
-            **({"bn": row["bn"]} if "bn" in row else {})})
+            "on_main_path": name not in off_path,
+            **({"bn": row["bn"]} if "bn" in row else {}),
+            **({"slab_cols": row["slab_cols"], "routes": row["routes"]}
+               if "routes" in row else {})})
     # the kernels.ops path's two kernels: not on DAGM's main path; their
     # launches come from the ops path's run, each row (times and error)
     # from its check at qwen3-4b (attention, bf16) and rwkv6-7b (wkv)
@@ -1608,6 +1838,7 @@ def main() -> int:
             "launches": ops_out["counts"][name],
             "max_abs_err": row["err"],
             "ms": row["ms"], "device_ms": row["dev"],
+            "device_ms_method": row["dev_how"],
             "plain_ms": row["plain"],
             "bound_ms": row["bound"], "bound_by": row["by"],
             "library_ms": row["lib"],

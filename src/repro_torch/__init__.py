@@ -17,8 +17,10 @@ counterpart sits where a reader of the JAX package expects it:
 
 The port imports `torch` only.  Entry points run on the CUDA device
 unless the caller passes ``device="cpu"``; without a card they raise
-instead of falling back (`repro_torch.resolve_device`).
+instead of falling back (`repro_torch.resolve_device`), and they keep
+float32 matmuls out of TF32 inside `strict_f32`, which restores the
+caller's flags on exit.
 """
-from ._device import resolve_device
+from ._device import resolve_device, strict_f32
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "strict_f32"]

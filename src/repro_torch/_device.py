@@ -1,5 +1,8 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution and the float32 scope shared by every entry point of
+the port."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -10,18 +13,34 @@ def resolve_device(device=None) -> torch.device:
 
     Raises RuntimeError when CUDA is asked for (explicitly or by
     default) and no card is present — the port never carries on on the
-    CPU unless ``device="cpu"`` was passed.  On CUDA, TF32 is switched
-    off for matmuls and convolutions so float32 stays float32."""
+    CPU unless ``device="cpu"`` was passed.  Sets no global state: the
+    entry points keep float32 in full precision inside `strict_f32`."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "repro_torch runs on a CUDA device by default and none is "
                 "available; pass device='cpu' to run on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         if dev.index is None:        # "cuda" names the current card
             dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     return dev
+
+
+@contextlib.contextmanager
+def strict_f32():
+    """Run a block with TF32 off for matmuls and convolutions, so that
+    float32 stays float32, and give the caller's two flags
+    (`torch.backends.cuda.matmul.allow_tf32`,
+    `torch.backends.cudnn.allow_tf32`) back on exit, exception or not.
+    Also a decorator: `solve`, `MixingOp`'s gossips and the
+    `kernels.ops` entry points run inside it.  The attention kernel's
+    TF32 `mma` is an explicit instruction these flags do not touch."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved

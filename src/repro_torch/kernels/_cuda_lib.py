@@ -1,7 +1,7 @@
-"""What the attention and WKV-scan wrappers share: a library built from
-one `csrc/<name>.cu`, its C entry points bound with ctypes and launched
-on PyTorch's current stream, and the checks on their (B, S, H, hd)
-operands.  (`mixing_matvec` keeps its own copy of the launch pattern.)
+"""The one launch path of the port's kernels: a library built from one
+`csrc/<name>.cu`, its C entry points bound with ctypes and launched on
+PyTorch's current stream (`CudaLibrary`, used by every wrapper), and the
+checks on the attention and WKV-scan wrappers' (B, S, H, hd) operands.
 Nothing loads or builds at import: the first `launch` builds the library
 (`_build.load`)."""
 from __future__ import annotations
@@ -12,8 +12,8 @@ import torch
 
 from . import _build
 
-P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-    ctypes.c_longlong
+P, I, F, LL, U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong, ctypes.c_uint32
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -213,22 +215,28 @@ struct Wire {
   float levels;
 };
 
+// The quantizer's round trip of one value x of a row with metadata
+// (zp, sc), given its uniform u: zp + sc * clip(floor((x - zp)/sc + u),
+// 0, levels).
+__device__ __forceinline__ float roundtrip(float x, float zp, float sc,
+                                           float u, float levels) {
+  const float z = __fadd_rn(__fdiv_rn(__fsub_rn(x, zp), sc), u);
+  // clip to [0, levels] keeping NaN, as torch.clamp and jnp.clip do
+  // (fminf/fmaxf would turn a NaN code into 0)
+  float q = floorf(z);
+  q = q < 0.0f ? 0.0f : (q > levels ? levels : q);
+  return __fadd_rn(zp, __fmul_rn(sc, q));
+}
+
 // The decoded broadcast of element (r, j) of y (n x d, f32).
 __device__ __forceinline__ float decoded(const float* __restrict__ y,
                                          const Wire& w, int r, int j,
                                          int d) {
   const size_t at = (size_t)r * d + j;
   const float u = hash_uniform(w.smix, r, j);
-  const float zp = w.zp[r];
-  const float sc = w.scale[r];
   const float h = w.hat ? w.hat[at] : 0.0f;
   const float x = w.hat ? __fsub_rn(y[at], h) : y[at];
-  const float z = __fadd_rn(__fdiv_rn(__fsub_rn(x, zp), sc), u);
-  // clip to [0, levels] keeping NaN, as torch.clamp and jnp.clip do
-  // (fminf/fmaxf would turn a NaN code into 0)
-  float q = floorf(z);
-  q = q < 0.0f ? 0.0f : (q > w.levels ? w.levels : q);
-  const float dec = __fadd_rn(zp, __fmul_rn(sc, q));
+  const float dec = roundtrip(x, w.zp[r], w.scale[r], u, w.levels);
   return w.hat ? __fadd_rn(h, dec) : dec;
 }
 
@@ -494,12 +502,12 @@ __global__ void sparse_mix_halo_kernel(const T* __restrict__ y,
 }
 
 // Replaces repro/kernels/mixing_matvec.py:sparse_mix_matvec_halo with
-// comm= (_sparse_halo_body, fused; no EF, as repro).
+// comm= (_sparse_halo_body, fused; no EF, as repro), where no column slab
+// fits (sparse_mix_slab_comm_kernel below): n > 33,536 in f32.
 // Bound: as sparse_mix_comm_kernel.
 // Design: sparse_mix_halo_kernel with each neighbor's value decoded from
 // (seed, row, column) by `decoded`, k hashes per element as repro's
-// per-neighbor _quantize: an irregular graph's neighbor rows are spread
-// over the whole operand, so there is no extended tile to quantize once.
+// per-neighbor _quantize.
 __global__ void sparse_mix_halo_comm_kernel(
     const float* __restrict__ y, float* __restrict__ out,
     const float* __restrict__ w_self, const int* __restrict__ nbr,
@@ -529,6 +537,262 @@ __global__ void sparse_mix_halo_comm_kernel(
       out[(size_t)i * d + j] = acc;
     }
     __syncthreads();
+  }
+}
+
+// Replaces repro/kernels/mixing_matvec.py:sparse_mix_matvec_halo with
+// comm= (_sparse_halo_body, fused; no EF, as repro): the compressed gossip
+// on Erdos-Renyi graphs at n = 4096.
+// Bound: bytes, 1.54 ms at (4096, 157000) f32 (y read once, out written
+// once, 3.35 TB/s).  What the work needs besides is one hash per element
+// (~20 integer ops) and k neighbor terms per element, which gather the
+// k decoded values: 23e9 gathers at k = 36, more than the bytes when each
+// comes from device memory or L2.
+// Design: a column slab resident in shared memory.  Block s owns the
+// columns [s*C, s*C + C) of all n rows.  (1) It copies its (n, C) slab of
+// y into shared memory with cp.async (16-byte chunks where d % 4 == 0),
+// then decodes it in place, one hash per element: `roundtrip` is
+// `decoded`'s quantizer, so every value is the payload the wire carries,
+// NaN codes included.  (2) Each warp then takes 32 / LPR output rows, LPR
+// lanes per row, each lane VW = min(C, 4) columns held in registers, and
+// walks (pass of rows, chunk of kSlabKC neighbor slots) in order: the next
+// chunk's indices and weights are copied into the warp's other stage
+// buffer with cp.async while this chunk gathers every neighbor's C values
+// from the slab, one 16-byte read per lane at C = 8 (the two halves of a
+// row lie in neighboring banks, so a quarter-warp's eight reads conflict
+// only where two random rows share a bank group), and the next pass's
+// self-term y loads during its last chunk.  The self term is the exact y
+// from device memory (L2, just read in (1)), and the output is written
+// once.  Accumulation is `term` in table order, w_self*y_i, then the k
+// neighbor terms, then y_i - acc for the Laplacian: the output is bitwise
+// the full-operand kernel's and the plain version's.  So device memory is
+// read and written once, one hash per element (the row-tiled kernel above
+// did k), and nothing but the output is written.  The planner
+// (plan_slab_cols in mixing_matvec.py) picks C, the largest of 8, 4, 2, 1
+// whose slab fits beside the stage buffers: C = 8 (212,992 bytes, one
+// 32-byte sector per row) at n = 4096.
+constexpr int kSlabThreads = 512;
+constexpr int kSlabWarps = kSlabThreads / 32;
+
+// Output rows a warp takes per pass: 16 at C = 8 (two lanes per row),
+// else 32; and the neighbor slots per stage buffer, 16 or 8.
+__host__ __device__ constexpr int slab_rows_per_warp(int cols) {
+  return cols == 8 ? 16 : 32;
+}
+__host__ __device__ constexpr int slab_slots(int cols) {
+  return cols == 8 ? 16 : 8;
+}
+// The table stage: per warp two buffers of rows x (slots + 4) indices and
+// as many weights (rows of whole 16-byte chunks, for 16-byte copies).
+__host__ __device__ constexpr int slab_stage_bytes(int cols) {
+  return kSlabWarps * 2 * slab_rows_per_warp(cols) * (slab_slots(cols) + 4) *
+         8;
+}
+
+// The slab's floats, rounded up to whole 16-byte chunks: the table stage
+// after it takes 16-byte cp.async copies, whatever n and C.
+__host__ __device__ inline size_t slab_floats(int n, int cols) {
+  return ((size_t)n * cols + 3) / 4 * 4;
+}
+
+int slab_smem_bytes(int n, int cols) {
+  const long long b = (long long)slab_floats(n, cols) * 4 +
+                      slab_stage_bytes(cols);
+  return b > kSmemOptIn ? -1 : (int)b;
+}
+
+template <int C>
+__global__ void __launch_bounds__(kSlabThreads)
+    sparse_mix_slab_comm_kernel(const float* __restrict__ y,
+                                float* __restrict__ out,
+                                const float* __restrict__ w_self,
+                                const int* __restrict__ nbr,
+                                const float* __restrict__ wts, int n, int d,
+                                int k, Wire w, int laplacian) {
+  constexpr int VW = C < 4 ? C : 4;  // columns per lane
+  constexpr int LPR = C / VW;        // lanes per row
+  constexpr int RPW = slab_rows_per_warp(C);
+  constexpr int KC = slab_slots(C), KS = KC + 4;
+  constexpr int M = RPW * KC / 32;   // stage entries per lane and buffer
+  constexpr int P4 = KC / 4;         // 16-byte pieces per staged row
+  constexpr int M4 = RPW * P4 / 32;  // pieces per lane and buffer
+  static_assert(RPW * LPR == 32 && M * 32 == RPW * KC && M4 * 32 == RPW * P4,
+                "warp geometry");
+  extern __shared__ __align__(16) float smem_f[];
+  const int nslab = (d + C - 1) / C;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  float* slab = smem_f;  // (n, C)
+  int* tab_s = reinterpret_cast<int*>(slab + slab_floats(n, C));
+  int* nb_s = tab_s + warp * 2 * RPW * KS;         // 2 x (RPW, KS)
+  float* wt_s = reinterpret_cast<float*>(tab_s + kSlabWarps * 2 * RPW * KS) +
+                warp * 2 * RPW * KS;               // 2 x (RPW, KS)
+  const int rsub = lane / LPR;             // this lane's row in the pass
+  const int cl = (lane % LPR) * VW;        // its first column in the slab
+  // 16-byte chunks of every row in device memory
+  const bool vec = C >= 4 && d % 4 == 0 && ((size_t)y & 15) == 0;
+  // the warp's walk: passes of RPW rows, kSlabWarps * RPW apart, each in
+  // chunks of KC neighbor slots
+  const int nch = k > 0 ? (k + KC - 1) / KC : 1;
+  const int row_step = kSlabWarps * RPW;
+  const int npass =
+      n > warp * RPW ? (n - warp * RPW + row_step - 1) / row_step : 0;
+  // this lane's stage entries: slot lane % KC of rows lane / KC + m * 32/KC,
+  // or, in 16-byte pieces where k % 4 == 0 and the tables are aligned,
+  // piece lane % P4 of rows lane / P4 + m * 32/P4
+  const int sq = lane % KC, sr = lane / KC;
+  const int sq4 = lane % P4, sr4 = lane / P4;
+  const bool vec_tab = k % 4 == 0 && ((size_t)nbr & 15) == 0 &&
+                       ((size_t)wts & 15) == 0;
+
+  for (int s = blockIdx.x; s < nslab; s += gridDim.x) {
+    const int c0 = s * C;
+    // (1) stage the (n, C) slab of y, then decode it in place
+    if (vec) {
+      for (int e = tid; e < n * (C / 4); e += kSlabThreads) {
+        const int r = e / (C / 4), j = c0 + (e % (C / 4)) * 4;
+        cp_async16(slab + (size_t)e * 4,
+                   y + (size_t)r * d + (j < d ? j : 0), j < d);
+      }
+    } else {
+      for (int e = tid; e < n * C; e += kSlabThreads) {
+        const int r = e / C, j = c0 + e % C;
+        cp_async4(slab + e, y + (size_t)r * d + (j < d ? j : 0), j < d);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll 4
+    for (int e = tid; e < n * C; e += kSlabThreads) {
+      const int r = e / C, j = c0 + e % C;
+      if (j < d) {
+        slab[e] = roundtrip(slab[e], w.zp[r], w.scale[r],
+                            hash_uniform(w.smix, r, j), w.levels);
+      }
+    }
+    __syncthreads();
+
+    // (2) the mix
+    auto stage = [&](int p, int ch, int buf) {  // async copy of one chunk
+      const int i0 = warp * RPW + p * row_step;
+      int* nb = nb_s + buf * RPW * KS;
+      float* wt = wt_s + buf * RPW * KS;
+      if (vec_tab) {
+        const int r0 = i0 + sr4, q = ch * KC + 4 * sq4;
+        const size_t at = (size_t)r0 * k + q, step = (size_t)(32 / P4) * k;
+#pragma unroll
+        for (int m = 0; m < M4; ++m) {
+          const bool in = r0 + m * (32 / P4) < n && q < k;
+          const int e = (sr4 + m * (32 / P4)) * KS + 4 * sq4;
+          cp_async16(nb + e, in ? nbr + at + m * step : nbr, in);
+          cp_async16(wt + e, in ? wts + at + m * step : wts, in);
+        }
+      } else {
+        const int r0 = i0 + sr, q = ch * KC + sq;
+        const size_t at = (size_t)r0 * k + q, step = (size_t)(32 / KC) * k;
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const bool in = r0 + m * (32 / KC) < n && q < k;
+          const int e = (sr + m * (32 / KC)) * KS + sq;
+          cp_async4(nb + e, in ? nbr + at + m * step : nbr, in);
+          cp_async4(wt + e, in ? wts + at + m * step : wts, in);
+        }
+      }
+      cp_async_commit();
+    };
+    // whole 16-byte row pieces of y and out where d % 4 == 0
+    const bool vec_row = VW == 4 && vec && c0 + cl + 4 <= d &&
+                         ((size_t)out & 15) == 0;
+    float yn[VW], wsn = 0.f;  // the next pass's self term, loaded early
+    auto load_self = [&](int p) {
+      const int i = warp * RPW + p * row_step + rsub;
+      wsn = i < n ? w_self[i] : 0.f;
+      if constexpr (VW == 4) {
+        if (vec_row && i < n) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(y + (size_t)i * d + c0 + cl);
+          yn[0] = x.x, yn[1] = x.y, yn[2] = x.z, yn[3] = x.w;
+          return;
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < VW; ++v) {
+        const int j = c0 + cl + v;
+        yn[v] = i < n && j < d ? y[(size_t)i * d + j] : 0.f;
+      }
+    };
+    float yi[VW], acc[VW];
+    if (npass > 0) {
+      load_self(0);
+      stage(0, 0, 0);
+    }
+    int buf = 0;
+    for (int p = 0; p < npass; ++p) {
+      const int i = warp * RPW + p * row_step + rsub;
+#pragma unroll
+      for (int v = 0; v < VW; ++v) {
+        yi[v] = yn[v];
+        acc[v] = __fmul_rn(wsn, yi[v]);
+      }
+      for (int ch = 0; ch < nch; ++ch, buf ^= 1) {
+        const bool last = ch == nch - 1;
+        if (last && p + 1 < npass) load_self(p + 1);
+        if (!last || p + 1 < npass) {  // the next chunk loads meanwhile
+          stage(last ? p + 1 : p, last ? 0 : ch + 1, buf ^ 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncwarp();
+        const int kc = min(KC, k - ch * KC);
+        const int* nb = nb_s + buf * RPW * KS + rsub * KS;
+        const float* wt = wt_s + buf * RPW * KS + rsub * KS;
+        // every slot is gathered, with no branch, so that the loads of a
+        // chunk issue together; a slot past k (index 0, weight 0 in the
+        // stage) takes weight -0 and value +0, whose term adds exactly
+        // nothing (x + -0 = x for every x, NaN and -0 included)
+#pragma unroll
+        for (int qq = 0; qq < KC; ++qq) {
+          const bool in = qq < kc;
+          const float wq = in ? wt[qq] : -0.0f;
+          const float* src = slab + nb[qq] * C + cl;
+          float v[VW];
+          if constexpr (VW == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(src);
+            v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+          } else if constexpr (VW == 2) {
+            const float2 x = *reinterpret_cast<const float2*>(src);
+            v[0] = x.x, v[1] = x.y;
+          } else {
+            v[0] = src[0];
+          }
+#pragma unroll
+          for (int c = 0; c < VW; ++c) {
+            acc[c] = term(acc[c], wq, in ? v[c] : 0.0f);
+          }
+        }
+        __syncwarp();  // this buffer is read before it is refilled
+      }
+      if (i < n) {
+        float o[VW];
+#pragma unroll
+        for (int v = 0; v < VW; ++v) {
+          o[v] = laplacian ? __fsub_rn(yi[v], acc[v]) : acc[v];
+        }
+        if constexpr (VW == 4) {
+          if (vec_row) {
+            *reinterpret_cast<float4*>(out + (size_t)i * d + c0 + cl) =
+                make_float4(o[0], o[1], o[2], o[3]);
+            continue;
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < VW; ++v) {
+          const int j = c0 + cl + v;
+          if (j < d) out[(size_t)i * d + j] = o[v];
+        }
+      }
+    }
+    __syncthreads();  // the slab is consumed before the next is staged
   }
 }
 
@@ -766,13 +1030,53 @@ extern "C" int sparse_mix_halo(const void* y, void* out, const float* w_self,
   return (int)cudaGetLastError();
 }
 
+template <int C>
+int launch_slab(const float* y, float* out, const float* w_self,
+                const int* nbr, const float* wts, int n, int d, int k,
+                Wire w, int laplacian, int smem_bytes, cudaStream_t s) {
+  const cudaError_t err =
+      allow_smem(sparse_mix_slab_comm_kernel<C>, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int nslab = (d + C - 1) / C;
+  sparse_mix_slab_comm_kernel<C><<<nslab, kSlabThreads, smem_bytes, s>>>(
+      y, out, w_self, nbr, wts, n, d, k, w, laplacian);
+  return (int)cudaGetLastError();
+}
+
+// slab_cols: the column slab's width C in {1, 2, 4, 8} and smem_bytes
+// slab_smem_bytes(n, C) for sparse_mix_slab_comm_kernel; 0 for the
+// row-tiled kernel, with smem_bytes for its (bn, 128) tile.  bn | n either
+// way (the wrapper keeps repro's checks).
 extern "C" int sparse_mix_halo_comm(const float* y, float* out,
                                     const float* zp, const float* scale,
                                     unsigned int seed, float levels,
                                     const float* w_self, const int* nbr,
                                     const float* wts, int n, int d, int k,
-                                    int laplacian, int bn, int smem_bytes,
-                                    void* stream) {
+                                    int laplacian, int bn, int slab_cols,
+                                    int smem_bytes, void* stream) {
+  const Wire w = make_wire(zp, scale, nullptr, seed, levels);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (slab_cols != 0) {
+    if (bn < 1 || n % bn || smem_bytes != slab_smem_bytes(n, slab_cols)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    switch (slab_cols) {
+      case 8:
+        return launch_slab<8>(y, out, w_self, nbr, wts, n, d, k, w,
+                              laplacian, smem_bytes, s);
+      case 4:
+        return launch_slab<4>(y, out, w_self, nbr, wts, n, d, k, w,
+                              laplacian, smem_bytes, s);
+      case 2:
+        return launch_slab<2>(y, out, w_self, nbr, wts, n, d, k, w,
+                              laplacian, smem_bytes, s);
+      case 1:
+        return launch_slab<1>(y, out, w_self, nbr, wts, n, d, k, w,
+                              laplacian, smem_bytes, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   dim3 grid;
   if (!halo_launch(n, d, bn, 0, 0, 4, smem_bytes, &grid)) {
     return (int)cudaErrorInvalidValue;
@@ -780,13 +1084,11 @@ extern "C" int sparse_mix_halo_comm(const float* y, float* out,
   const cudaError_t err = allow_smem(sparse_mix_halo_comm_kernel,
                                      smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  sparse_mix_halo_comm_kernel<<<grid, kHaloThreads, smem_bytes,
-                                (cudaStream_t)stream>>>(
-      y, out, w_self, nbr, wts, n, d, k, bn,
-      make_wire(zp, scale, nullptr, seed, levels), laplacian);
+  sparse_mix_halo_comm_kernel<<<grid, kHaloThreads, smem_bytes, s>>>(
+      y, out, w_self, nbr, wts, n, d, k, bn, w, laplacian);
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* mixing_error_string(int code) {
+extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

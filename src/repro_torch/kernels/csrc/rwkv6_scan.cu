@@ -8,7 +8,7 @@
 // a sequential grid of time chunks; here one block owns one (batch, head)
 // and walks all T steps itself, since blocks run in no order.
 //
-// Design.  hd threads per block; thread j keeps column j of S (hd f32) in
+// Design.  Thread j keeps column j of S (the rows i < hd, in f32) in
 // registers for the whole scan.  Per chunk of kCH steps the block stages
 // r_t, k_t, exp(logw_t) and v_t in shared memory (coalesced loads of hd
 // contiguous values per step) and c_t = sum_i r_t,i u_i k_t,i, reduced
@@ -16,12 +16,20 @@
 //
 //   out_j = sum_i r_i S_ij + v_j c_t,   S_ij <- exp(logw_i) S_ij + k_i v_j
 //
-// (`repro`'s r (S + u k^T v) with the u term summed first).  The scan is a
-// chain of T dependent steps with only B*H blocks of hd threads (64 blocks
-// at B = 1 for rwkv6-7b on 132 SMs), so it is bound by the latency of one
-// step, not by the bytes it moves (r, k, v, logw read once, out written
-// once) nor by its ~5 hd^2 FLOP per step.  Four partial sums break the
-// dependent chain of the out_j reduction.
+// (`repro`'s r (S + u k^T v) with the u term summed first).  Any hd up to
+// 256: the templates take HDP = 16, 32, 64, 128 or 256 rows of S; where
+// hd < HDP the rows past hd are masked (their r, k, logw are 0 and never
+// loaded, so their S stays 0 and adds nothing) and the columns past hd
+// are never stored.  hd == HDP takes an instantiation without masks, so
+// the power-of-two head widths run with no masking in the loop.  Above 128 the columns of S split
+// over ceil(hd / 128) blocks per (batch, head), since each column's
+// recurrence is independent of the others', and two threads share a
+// column, each holding half its rows (a shuffle adds the two halves of
+// out_j).  The scan is a chain of T dependent steps with only B*H blocks
+// (64 blocks at B = 1 for rwkv6-7b on 132 SMs), so it is bound by the
+// latency of one step, not by the bytes it moves (r, k, v, logw read
+// once, out written once) nor by its ~5 hd^2 FLOP per step.  Four partial
+// sums break the dependent chain of the out_j reduction.
 //
 // Plain C entry point at the bottom, loaded with ctypes by
 // repro_torch/kernels/rwkv6_scan.py: launches on the caller's stream,
@@ -38,13 +46,18 @@ namespace {
 
 constexpr int kMaxGrid = 2147483647;
 
-template <int HD>
+template <int HDP>
 struct Geo {
-  // steps staged per chunk: the four (kCH, HD) f32 arrays stay within the
-  // 48 KB of static shared memory
-  static constexpr int kCH = HD <= 64 ? 32 : 16;
-  static constexpr int kWarps = (HD + 31) / 32;
-  static_assert(HD % 4 == 0 && (HD <= 32 || HD % 32 == 0), "head dim");
+  static constexpr int G = HDP > 128 ? 2 : 1;      // threads per column
+  static constexpr int RPT = HDP / G;              // rows of S per thread
+  static constexpr int CB = HDP < 128 ? HDP : 128; // columns per block
+  static constexpr int NB = HDP / CB;              // blocks per (b, h)
+  static constexpr int kThreads = CB * G;          // = min(HDP, 256)
+  // steps staged per chunk: the four staged arrays stay within the 48 KB
+  // of static shared memory
+  static constexpr int kCH = HDP <= 64 ? 32 : (HDP <= 128 ? 16 : 8);
+  static constexpr int kWarps = (kThreads + 31) / 32;
+  static_assert(kThreads == HDP || (G == 2 && kThreads == 256), "geometry");
 };
 
 struct Strides {
@@ -56,71 +69,96 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(HD)
+// MASKED: hd < HDP, so the rows and columns past hd are masked; false
+// when hd == HDP, where every mask is a compile-time constant.
+template <typename T, int HDP, bool MASKED>
+__global__ void __launch_bounds__(Geo<HDP>::kThreads)
     rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ logw,
                       const float* __restrict__ u, float* __restrict__ out,
-                      int T_len, int H, Strides rs, Strides ks, Strides vs,
-                      Strides ws) {
-  using Gm = Geo<HD>;
-  constexpr int CH = Gm::kCH;
-  __shared__ __align__(16) float r_s[CH][HD];
-  __shared__ __align__(16) float k_s[CH][HD];
-  __shared__ __align__(16) float w_s[CH][HD];
-  __shared__ float v_s[CH][HD];
+                      int T_len, int H, int hd, Strides rs, Strides ks,
+                      Strides vs, Strides ws) {
+  using Gm = Geo<HDP>;
+  constexpr int CH = Gm::kCH, G = Gm::G, RPT = Gm::RPT, CB = Gm::CB;
+  __shared__ __align__(16) float r_s[CH][HDP];
+  __shared__ __align__(16) float k_s[CH][HDP];
+  __shared__ __align__(16) float w_s[CH][HDP];
+  __shared__ float v_s[CH][CB];
   __shared__ float part[CH][Gm::kWarps];
   __shared__ float c_s[CH];
 
-  const int j = threadIdx.x;
-  const int lane = j % 32, warp = j / 32;
-  const int bh = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int bh = blockIdx.x / Gm::NB, jb = blockIdx.x % Gm::NB;
   const int b = bh / H, h = bh % H;
-  const T* rb = r + b * rs.b + h * rs.h + j;
-  const T* kb = k + b * ks.b + h * ks.h + j;
-  const T* vb = v + b * vs.b + h * vs.h + j;
-  const T* wb = logw + b * ws.b + h * ws.h + j;
-  float* ob = out + ((long long)b * T_len * H + h) * HD + j;
-  const float uj = u[h * HD + j];
-  const unsigned mask = HD >= 32 ? 0xffffffffu : (1u << HD) - 1u;
+  // staging: thread tid loads row index i = tid of r, k, logw (and u),
+  // and column jb * CB + tid of v for tid < CB.  The rows past hd are
+  // zeroed once here and never written again, so the staging loop has no
+  // masking beyond skipping those lanes; the columns past hd are never
+  // stored, so their v may hold anything.
+  const bool row_in = !MASKED || tid < hd;
+  const T* rb = r + b * rs.b + h * rs.h + tid;
+  const T* kb = k + b * ks.b + h * ks.h + tid;
+  const T* wb = logw + b * ws.b + h * ws.h + tid;
+  const float ui = row_in ? u[h * hd + tid] : 0.f;
+  const int jv = jb * CB + tid;
+  const bool v_in = (G == 1 || tid < CB) && (!MASKED || jv < hd);
+  const T* vb = v + b * vs.b + h * vs.h + jv;
+  if (!row_in) {
+    for (int tt = 0; tt < CH; ++tt) {
+      r_s[tt][tid] = 0.f;
+      k_s[tt][tid] = 0.f;
+      w_s[tt][tid] = 0.f;
+    }
+  }
+  // compute: thread (jl, g) owns column jb * CB + jl, rows g*RPT..+RPT
+  const int jl = tid / G, g = tid % G;
+  const int j = jb * CB + jl;
+  float* ob = out + ((long long)b * T_len * H + h) * hd + j;
+  constexpr int kRed = Gm::kThreads < 32 ? Gm::kThreads : 32;
+  const unsigned mask =
+      kRed == 32 ? 0xffffffffu : (1u << Gm::kThreads) - 1u;
 
-  float Sc[HD];  // column j of S: Sc[i] = S_ij
+  float Sc[RPT];  // rows g*RPT + i of column j of S
 #pragma unroll
-  for (int i = 0; i < HD; ++i) Sc[i] = 0.f;
+  for (int i = 0; i < RPT; ++i) Sc[i] = 0.f;
 
   for (int t0 = 0; t0 < T_len; t0 += CH) {
     const int n = min(CH, T_len - t0);
     for (int tt = 0; tt < n; ++tt) {
       const long long t = t0 + tt;
-      const float rj = to_f32(rb[t * rs.t]);
-      const float kj = to_f32(kb[t * ks.t]);
-      r_s[tt][j] = rj;
-      k_s[tt][j] = kj;
-      w_s[tt][j] = expf(to_f32(wb[t * ws.t]));
-      v_s[tt][j] = to_f32(vb[t * vs.t]);
-      float x = rj * uj * kj;
+      float x = 0.f;
+      if (row_in) {
+        const float ri = to_f32(rb[t * rs.t]);
+        const float ki = to_f32(kb[t * ks.t]);
+        r_s[tt][tid] = ri;
+        k_s[tt][tid] = ki;
+        w_s[tt][tid] = expf(to_f32(wb[t * ws.t]));
+        x = ri * ui * ki;
+      }
+      if (v_in) v_s[tt][tid] = to_f32(vb[t * vs.t]);
 #pragma unroll
-      for (int off = (HD < 32 ? HD : 32) / 2; off > 0; off >>= 1) {
+      for (int off = kRed / 2; off > 0; off >>= 1) {
         x += __shfl_xor_sync(mask, x, off);
       }
       if (lane == 0) part[tt][warp] = x;
     }
     __syncthreads();
-    for (int tt = j; tt < n; tt += HD) {
+    for (int tt = tid; tt < n; tt += Gm::kThreads) {
       float c = 0.f;
 #pragma unroll
-      for (int w = 0; w < Gm::kWarps; ++w) c += part[tt][w];
+      for (int wi = 0; wi < Gm::kWarps; ++wi) c += part[tt][wi];
       c_s[tt] = c;
     }
     __syncthreads();
     for (int tt = 0; tt < n; ++tt) {
-      const float vj = v_s[tt][j];
-      const float4* r4 = reinterpret_cast<const float4*>(r_s[tt]);
-      const float4* k4 = reinterpret_cast<const float4*>(k_s[tt]);
-      const float4* w4 = reinterpret_cast<const float4*>(w_s[tt]);
+      const float vj = v_s[tt][jl];
+      const float4* r4 = reinterpret_cast<const float4*>(r_s[tt] + g * RPT);
+      const float4* k4 = reinterpret_cast<const float4*>(k_s[tt] + g * RPT);
+      const float4* w4 = reinterpret_cast<const float4*>(w_s[tt] + g * RPT);
       float o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
 #pragma unroll
-      for (int i4 = 0; i4 < HD / 4; ++i4) {
+      for (int i4 = 0; i4 < RPT / 4; ++i4) {
         const float4 ri = r4[i4], ki = k4[i4], wi = w4[i4];
         const int i = 4 * i4;
         o0 += ri.x * Sc[i];
@@ -132,22 +170,42 @@ __global__ void __launch_bounds__(HD)
         Sc[i + 2] = wi.z * Sc[i + 2] + ki.z * vj;
         Sc[i + 3] = wi.w * Sc[i + 3] + ki.w * vj;
       }
-      ob[(long long)(t0 + tt) * H * HD] = (o0 + o1) + (o2 + o3) + vj * c_s[tt];
+      float o = (o0 + o1) + (o2 + o3);
+      if (G == 2) o += __shfl_xor_sync(0xffffffffu, o, 1);
+      if (g == 0 && (!MASKED || j < hd)) {
+        ob[(long long)(t0 + tt) * H * hd] = o + vj * c_s[tt];
+      }
     }
     __syncthreads();  // the chunk is consumed before the next is staged
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HDP, bool MASKED>
 int launch(const void* r, const void* k, const void* v, const void* logw,
-           const float* u, float* out, int B, int T_len, int H, Strides rs,
-           Strides ks, Strides vs, Strides ws, cudaStream_t stream) {
-  const long long blocks = (long long)B * H;
+           const float* u, float* out, int B, int T_len, int H, int hd,
+           Strides rs, Strides ks, Strides vs, Strides ws,
+           cudaStream_t stream) {
+  using Gm = Geo<HDP>;
+  const long long blocks = (long long)B * H * Gm::NB;
   if (blocks > kMaxGrid) return (int)cudaErrorInvalidValue;
-  rwkv6_scan_kernel<T, HD><<<(unsigned)blocks, HD, 0, stream>>>(
+  rwkv6_scan_kernel<T, HDP, MASKED>
+      <<<(unsigned)blocks, Gm::kThreads, 0, stream>>>(
       (const T*)r, (const T*)k, (const T*)v, (const T*)logw, u, out, T_len, H,
-      rs, ks, vs, ws);
+      hd, rs, ks, vs, ws);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int HDP>
+int launch_hd(const void* r, const void* k, const void* v, const void* logw,
+              const float* u, float* out, int B, int T_len, int H, int hd,
+              Strides rs, Strides ks, Strides vs, Strides ws,
+              cudaStream_t s) {
+  if (hd == HDP) {
+    return launch<T, HDP, false>(r, k, v, logw, u, out, B, T_len, H, hd, rs,
+                                 ks, vs, ws, s);
+  }
+  return launch<T, HDP, true>(r, k, v, logw, u, out, B, T_len, H, hd, rs, ks,
+                              vs, ws, s);
 }
 
 template <typename T>
@@ -155,22 +213,28 @@ int dispatch_hd(int hd, const void* r, const void* k, const void* v,
                 const void* logw, const float* u, float* out, int B, int T_len,
                 int H, Strides rs, Strides ks, Strides vs, Strides ws,
                 cudaStream_t s) {
-  switch (hd) {
-    case 16:
-      return launch<T, 16>(r, k, v, logw, u, out, B, T_len, H, rs, ks, vs, ws,
-                           s);
-    case 32:
-      return launch<T, 32>(r, k, v, logw, u, out, B, T_len, H, rs, ks, vs, ws,
-                           s);
-    case 64:
-      return launch<T, 64>(r, k, v, logw, u, out, B, T_len, H, rs, ks, vs, ws,
-                           s);
-    case 128:
-      return launch<T, 128>(r, k, v, logw, u, out, B, T_len, H, rs, ks, vs,
-                            ws, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (hd < 1) return (int)cudaErrorInvalidValue;
+  if (hd <= 16) {
+    return launch_hd<T, 16>(r, k, v, logw, u, out, B, T_len, H, hd, rs, ks,
+                            vs, ws, s);
   }
+  if (hd <= 32) {
+    return launch_hd<T, 32>(r, k, v, logw, u, out, B, T_len, H, hd, rs, ks,
+                            vs, ws, s);
+  }
+  if (hd <= 64) {
+    return launch_hd<T, 64>(r, k, v, logw, u, out, B, T_len, H, hd, rs, ks,
+                            vs, ws, s);
+  }
+  if (hd <= 128) {
+    return launch_hd<T, 128>(r, k, v, logw, u, out, B, T_len, H, hd, rs, ks,
+                             vs, ws, s);
+  }
+  if (hd <= 256) {
+    return launch_hd<T, 256>(r, k, v, logw, u, out, B, T_len, H, hd, rs, ks,
+                             vs, ws, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -178,7 +242,7 @@ int dispatch_hd(int hd, const void* r, const void* k, const void* v,
 // r, k, v, logw: (B, T, H, hd) with element strides (sb, st, sh) each and
 // last stride 1; u: (H, hd) f32 contiguous; out: (B, T, H, hd) f32
 // contiguous.  dtype (of r, k, v, logw): 0 = float32, 1 = bfloat16.
-// hd in {16, 32, 64, 128}.
+// 1 <= hd <= 256.
 extern "C" int rwkv6_scan(const void* r, const void* k, const void* v,
                           const void* logw, const float* u, float* out, int B,
                           int T_len, int H, int hd, int dtype, long long r_sb,

@@ -16,8 +16,13 @@ PyTorch's current stream or raises.  The kernel reads the operands
 through their strides (the last one must be 1), so (B, H, S, hd)
 transposed views need no copy.  `bq` and `bk` are `repro`'s TPU block
 sizes: S must be a multiple of both, as there, but the CUDA kernel uses
-its own 64 × 64 tiles.  No autograd: an operand that requires grad is
-refused.  Launches are counted in `launch_counts()`.
+its own tiles (64 q rows; 64 keys, or 32 in f32 and above hd = 128).
+Both dtypes run on the tensor cores: bf16 `mma` with p split in three
+bf16 parts, and f32 in 3×TF32 (`csrc/flash_attention.cu`).  The kernel
+takes any hd up to `MAX_HEAD_DIM` = 256, padded in shared memory;
+`repro`'s takes any hd, and a larger one raises here.  No autograd: an
+operand that requires grad is refused.  Launches are counted in
+`launch_counts()`.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from ._cuda_lib import (DTYPE_CODE, LL, CudaLibrary, F, I, P,
                         check_operands)
 from .ref import flash_attention_ref
 
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_HEAD_DIM = 256
 _LIB = CudaLibrary("flash_attention", {
     # q, k, v, o, B, S, H, hd, dtype, 3 strides each of q, k, v,
     # scale, causal, window
@@ -62,9 +67,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be >= 0 (0: none), got {window}")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash-attention kernel takes head dims "
-                         f"{KERNEL_HEAD_DIMS}, got {hd}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"the flash-attention kernel takes head dims up "
+                         f"to {MAX_HEAD_DIM}, got {hd}")
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     _LIB.launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),

@@ -37,8 +37,12 @@ register no backward, so an operand that requires grad is refused.
 
 Each kernel's launches are counted in `launch_counts()`, bumped only
 where a wrapper launches it; the comm-fused kernels count apart from the
-plain ones (`*_comm`), and `ring_laplacian_matvec` apart from
-`circulant_mix_matvec`.  `reset_launch_counts` zeroes them all.
+plain ones (`*_comm`), `ring_laplacian_matvec` apart from
+`circulant_mix_matvec`, and the compressed sparse gather's row-tiled
+kernel (`sparse_mix_matvec_halo_comm_rows`) apart from its column slab
+(`sparse_mix_matvec_halo_comm`).  `reset_launch_counts` zeroes them all.  Every
+launch goes through `_cuda_lib.CudaLibrary`, the port's one ctypes
+launch path.
 
 Row tiles and the shared-memory planner
 ---------------------------------------
@@ -70,51 +74,65 @@ sequences (`structure.offsets`), so the extents never come from the
 card; their signed (k,) device tables are built once per graph and
 device and cached.  Results do not depend on bn: plain outputs, fused
 payloads and fused outputs equal the full-operand kernels' bit for bit.
+
+The compressed sparse gather on the halo tier does not tile rows where
+it can help it: an irregular graph's neighbors lie anywhere in the
+operand, so a row tile would decode each neighbor value where it is
+gathered, k hashes per element.  `plan_slab_cols` instead gives each
+block a column slab of c columns over all n rows in shared memory
+(c = 8 at n = 4096), decoded once, one hash per element; the row-tiled
+kernel runs only where no slab fits (n > 33,536 in f32).  The choice is
+by shape alone and bn keeps its checks either way; `smem_budget` lowers
+the budget to drive every route at a small n.
 """
 from __future__ import annotations
 
-import ctypes
+import contextlib
 import functools
 
 import torch
 
-from . import _build
+from ._cuda_lib import DTYPE_CODE as _DTYPE_CODE
+from ._cuda_lib import CudaLibrary
+from ._cuda_lib import F as _F
+from ._cuda_lib import I as _I
+from ._cuda_lib import P as _P
+from ._cuda_lib import U32 as _U
 from .ref import (check_halo_tile, circulant_mix_fused_ref,
                   circulant_mix_halo_ref, circulant_mix_ref, halo_extents,
                   neumann_step_fused_ref, neumann_step_ref,
                   signed_offsets, sparse_mix_fused_ref, sparse_mix_halo_ref,
                   sparse_mix_padded_ref)
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 KERNEL_COMMS = ("int8", "int4", "int8+ef", "int4+ef")
 
-_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-    ctypes.c_uint32
 # wire operands of the comm-fused kernels: zp, scale, seed, levels
 _WIRE = (_P, _P, _U, _F)
-_SIGNATURES = {
-    "circulant_mix": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _P),
-    "sparse_mix": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+# every entry point's arguments before the stream, which `CudaLibrary`
+# appends
+_LIB = CudaLibrary("mixing_matvec", {
+    "circulant_mix": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _I),
+    "sparse_mix": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
     "circulant_neumann": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P,
-                          _F, _P),
+                          _F),
     "circulant_mix_comm": (_P, _P, _P, _P, *_WIRE, _I, _I, _F, _I, _P, _P,
-                           _I, _P),
-    "sparse_mix_comm": (_P, _P, _P, _P, *_WIRE, _P, _P, _P, _I, _I, _I, _I,
-                        _P),
+                           _I),
+    "sparse_mix_comm": (_P, _P, _P, _P, *_WIRE, _P, _P, _P, _I, _I, _I,
+                        _I),
     "circulant_neumann_comm": (_P, _P, _P, _P, _P, *_WIRE, _I, _I, _F, _I,
-                               _P, _P, _F, _P),
-    # ..., bn, h_lo, h_hi, smem bytes, stream
+                               _P, _P, _F),
+    # ..., bn, h_lo, h_hi, smem bytes
     "circulant_mix_halo": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _I, _I,
-                           _I, _I, _P),
+                           _I, _I),
     "circulant_mix_halo_comm": (_P, _P, _P, _P, *_WIRE, _I, _I, _F, _I, _P,
-                                _P, _I, _I, _I, _I, _I, _P),
-    # ..., bn, smem bytes, stream
-    "sparse_mix_halo": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _P),
+                                _P, _I, _I, _I, _I, _I),
+    # ..., bn, smem bytes
+    "sparse_mix_halo": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
+    # ..., bn, slab columns (0: the row-tiled kernel), smem bytes
     "sparse_mix_halo_comm": (_P, _P, *_WIRE, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _P),
-}
+                             _I, _I),
+})
 
 # launches per kernel, under the names of chip_smoke's kernel list
 _LAUNCHES = dict.fromkeys((
@@ -122,7 +140,8 @@ _LAUNCHES = dict.fromkeys((
     "circulant_mix_matvec_comm", "sparse_mix_matvec_comm",
     "circulant_neumann_step_comm", "ring_laplacian_matvec",
     "circulant_mix_matvec_halo", "circulant_mix_matvec_halo_comm",
-    "sparse_mix_matvec_halo", "sparse_mix_matvec_halo_comm"), 0)
+    "sparse_mix_matvec_halo", "sparse_mix_matvec_halo_comm",
+    "sparse_mix_matvec_halo_comm_rows"), 0)
 
 
 def launch_counts() -> dict[str, int]:
@@ -135,25 +154,10 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
-def _kernel(name: str):
-    lib = _build.load("mixing_matvec")
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = list(_SIGNATURES[name])
-        fn.restype = ctypes.c_int
-        lib.mixing_error_string.argtypes = [ctypes.c_int]
-        lib.mixing_error_string.restype = ctypes.c_char_p
-    return fn, lib
-
-
 def _launch(name: str, counter: str, dev: torch.device, *args) -> None:
-    fn, lib = _kernel(name)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*args, _P(stream))
-    if rc != 0:
-        msg = lib.mixing_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+    """Launch entry point `name` on `dev`'s current stream (raising when
+    the launch is refused) and count it under `counter`."""
+    _LIB.launch(name, dev, *args)
     _LAUNCHES[counter] += 1
 
 
@@ -493,6 +497,49 @@ def plan_row_tile(n: int, *, h_lo: int = 0, h_hi: int = 0,
     return ("xla", None) if bn is None else ("halo", bn)
 
 
+# The compressed sparse gather's column slab (`sparse_mix_slab_comm_kernel`
+# in csrc/mixing_matvec.cu): block s holds columns [s·c, s·c + c) of all
+# n rows, decoded, beside its warps' neighbor-table stage: 16 warps × 2
+# buffers × (16 rows × 20 slots at c = 8, else 32 rows × 12 slots) ×
+# (index + weight).  The stage starts at the slab's size rounded up to 16
+# bytes, where its 16-byte copies land aligned whatever n and c.
+SLAB_COLS = (8, 4, 2, 1)
+
+
+def slab_smem_bytes(n: int, cols: int) -> int:
+    """Shared memory of a slab launch: the (n, cols) f32 slab, rounded up
+    to 16 bytes, and the table stage."""
+    rows, slots = (16, 20) if cols == 8 else (32, 12)
+    return -(-n * cols * 4 // 16) * 16 + 16 * 2 * rows * slots * 8
+
+
+def plan_slab_cols(n: int) -> int | None:
+    """The slab width c for the compressed sparse gather at n agents:
+    the widest of `SLAB_COLS` whose slab fits `SMEM_BUDGET_BYTES` (read
+    at the call) — 8 at n = 4096 (one 32-byte sector per row) — or None
+    above n = 33,536, where not even c = 1 fits and the row-tiled kernel
+    runs."""
+    for c in SLAB_COLS:
+        if slab_smem_bytes(n, c) <= SMEM_BUDGET_BYTES:
+            return c
+    return None
+
+
+@contextlib.contextmanager
+def smem_budget(nbytes: int):
+    """Plan against `nbytes` of shared memory inside the block, restoring
+    the budget on exit: a lower budget drives, at a small n, the routes
+    the planner gives a larger one (the slab at c = 4, 2, 1, the
+    row-tiled compressed gather).  Launches still check their own size
+    against what a block may use."""
+    global SMEM_BUDGET_BYTES
+    saved, SMEM_BUDGET_BYTES = SMEM_BUDGET_BYTES, int(nbytes)
+    try:
+        yield
+    finally:
+        SMEM_BUDGET_BYTES = saved
+
+
 def _halo_smem(n: int, bn, h_lo: int, h_hi: int, itemsize: int,
                blocks: int, rows: int) -> int:
     """Check the row tile and size the launch's shared memory: `rows`
@@ -575,7 +622,15 @@ def sparse_mix_matvec_halo(y: torch.Tensor, w_self: torch.Tensor,
     block staging its own rows in shared memory and gathering neighbor
     rows from device memory.  Tables as in `sparse_mix_matvec`; bn | n.
     ``comm="int8" | "int4"`` fuses the quantizer; error feedback is
-    refused, as `repro` refuses it (no payload write-back here)."""
+    refused, as `repro` refuses it (no payload write-back here).
+
+    With ``comm`` the planner chooses the kernel by shape: where a column
+    slab fits (`plan_slab_cols`, n ≤ 33,536 in f32) the slab kernel runs,
+    which decodes each element once into shared memory and gathers every
+    neighbor from there, whatever bn; above that the row-tiled kernel,
+    which decodes each neighbor value where it is gathered (k hashes per
+    element).  bn keeps `repro`'s meaning and checks either way, and both
+    kernels' outputs equal the full-operand kernel's bit for bit."""
     fused = parse_kernel_comm(comm)
     if fused is not None and fused[1]:
         raise ValueError("the sparse halo kernel does not lower '+ef' "
@@ -607,8 +662,13 @@ def sparse_mix_matvec_halo(y: torch.Tensor, w_self: torch.Tensor,
                 y.data_ptr(), out.data_ptr(), *tables, _DTYPE_CODE[y.dtype],
                 int(bool(laplacian)), bn, smem)
         return out
-    _launch("sparse_mix_halo_comm", "sparse_mix_matvec_halo_comm", y.device,
+    cols = plan_slab_cols(n)
+    if cols is not None:
+        smem = slab_smem_bytes(n, cols)
+    _launch("sparse_mix_halo_comm", "sparse_mix_matvec_halo_comm"
+            if cols is not None else "sparse_mix_matvec_halo_comm_rows",
+            y.device,
             y.data_ptr(), out.data_ptr(), zp.data_ptr(), scale.data_ptr(),
             seed & 0xFFFFFFFF, float(2 ** fused[0] - 1), *tables,
-            int(bool(laplacian)), bn, smem)
+            int(bool(laplacian)), bn, cols or 0, smem)
     return out

@@ -20,9 +20,9 @@ are its path (`repro` defaults to off because its CPU path is the
 oracle).  `kernel_mode(enabled)` sets it for a `with` block and restores
 the previous state on exit, exception or not; `use_kernels(enabled)` is
 the imperative form for whole-process scripts; `kernels_enabled()` reads
-it.  It governs these three entry points only: `MixingOp` launches its
-kernels on CUDA tensors whatever the switch says.  A CUDA kernel has no
-interpret mode, so `repro`'s `interpret` flag and
+it.  It also governs `MixingOp`'s "auto" backend, read at each gossip as
+`repro` reads `pallas_enabled()` (`repro_torch.topology.ops`).  A CUDA
+kernel has no interpret mode, so `repro`'s `interpret` flag and
 `REPRO_PALLAS_INTERPRET` have no counterpart.
 
 With the switch on, a CPU tensor runs the kernel's plain version (the
@@ -32,7 +32,9 @@ because the caller asked for that.  No route falls back when a build or
 a launch fails.
 
 These entry points take tensors and no parameters (the RWKV `u` is an
-input), so `repro_torch.interop` has nothing to convert for them.
+input), so `repro_torch.interop` has nothing to convert for them.  Each
+runs inside `repro_torch.strict_f32`: TF32 is off for the oracles'
+matmuls, and the caller's flags are back on return.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import contextlib
 
 import torch
 
+from .._device import strict_f32
 from . import ref
 from .flash_attention import flash_attention
 from .mixing_matvec import ring_laplacian_matvec
@@ -74,6 +77,7 @@ def kernel_mode(enabled: bool):
         _ENABLED = saved
 
 
+@strict_f32()
 def ring_laplacian(y: torch.Tensor, w_self: float, w_edge: float
                    ) -> torch.Tensor:
     """(I − W)·Y for ring W; y (n, d)."""
@@ -84,6 +88,7 @@ def ring_laplacian(y: torch.Tensor, w_self: float, w_edge: float
     return ref.ring_laplacian_ref(y, w_self, w_edge)
 
 
+@strict_f32()
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0) -> torch.Tensor:
     """Softmax attention on (B, S, H, hd), the same head count."""
@@ -92,6 +97,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return ref.attention_ref(q, k, v, causal=causal, window=window)
 
 
+@strict_f32()
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64
         ) -> torch.Tensor:

@@ -11,8 +11,9 @@ CUDA kernel does not otherwise use.
 Dispatch is by device: a CPU tensor runs the plain version
 (`ref.rwkv6_scan_ref`); a CUDA tensor launches the kernel on PyTorch's
 current stream or raises.  The kernel reads the operands through their
-strides (the last one must be 1).  No autograd.  Launches are counted in
-`launch_counts()`.
+strides (the last one must be 1).  The kernel takes any hd up to
+`MAX_HEAD_DIM` = 256 (`repro`'s takes any hd; a larger one raises here).
+No autograd.  Launches are counted in `launch_counts()`.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 from ._cuda_lib import DTYPE_CODE, LL, CudaLibrary, I, P, check_operands
 from .ref import rwkv6_scan_ref
 
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+MAX_HEAD_DIM = 256
 _LIB = CudaLibrary("rwkv6_scan", {
     # r, k, v, logw, u, out, B, T, H, hd, dtype, 3 strides each of
     # r, k, v, logw
@@ -56,9 +57,9 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"T = {T} must be a multiple of chunk = {chunk}")
     if r.device.type == "cpu":
         return rwkv6_scan_ref(r, k, v, logw, u, chunk=chunk)
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the WKV-scan kernel takes head dims "
-                         f"{KERNEL_HEAD_DIMS}, got {hd}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"the WKV-scan kernel takes head dims up to "
+                         f"{MAX_HEAD_DIM}, got {hd}")
     u32 = u.to(torch.float32).contiguous()
     out = torch.empty((B, T, H, hd), dtype=torch.float32, device=r.device)
     strides = [s for t in (r, k, v, logw) for s in t.stride()[:3]]

@@ -16,7 +16,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, strict_f32
 from .spec import SolverSpec, mixing_kwargs, validate_spec
 
 _QUEUED_METHODS = "ROADMAP queue 1 item 6 (baselines)"
@@ -49,6 +49,7 @@ def _as_state(a, shape, device) -> torch.Tensor | None:
     return t.contiguous()
 
 
+@strict_f32()
 def solve(problem, network, spec: SolverSpec, *, x0=None, y0=None,
           seed: int = 0, metrics_fn: Callable | None = None,
           device=None, recorder=None) -> SolveResult:
@@ -62,6 +63,8 @@ def solve(problem, network, spec: SolverSpec, *, x0=None, y0=None,
               and the gossip channels' random streams.
     device:   where the run happens — CUDA unless the caller names
               another; raises without a card.
+    Runs inside `strict_f32`: the caller's TF32 flags are unchanged on
+    return.
     """
     validate_spec(spec)
     dev = resolve_device(device)

@@ -10,23 +10,33 @@ MixingOp backends (resolved once, at construction)
 --------------------------------------------------
   * "dense"          — `torch.matmul(W, Y)`; any W (complete graphs).
   * "circulant"      — shift-invariant W (ring, 2k-regular circulant):
-                       the `circulant_mix_matvec` CUDA kernel, and the
-                       fused `circulant_neumann_step` kernel for DIHGP.
+                       rolls of Y in plain PyTorch, or the
+                       `circulant_mix_matvec` CUDA kernel and the fused
+                       `circulant_neumann_step` kernel for DIHGP.
   * "sparse_gather"  — irregular sparse W (Erdős–Rényi, star): the
-                       per-row gather kernel `sparse_mix_matvec` over
-                       padded (n, k_max) tables on near-regular degree
-                       distributions (n·k_max ≤ 2·nnz — ER), CSR
-                       `index_add_` in plain PyTorch on skewed ones
-                       (star: k_max = n−1 but nnz = 2(n−1)).
+                       per-row gather over padded (n, k_max) tables on
+                       near-regular degree distributions (n·k_max ≤
+                       2·nnz — ER), in plain PyTorch or the
+                       `sparse_mix_matvec` kernel; CSR `index_add_` in
+                       plain PyTorch on skewed ones (star: k_max = n−1
+                       but nnz = 2(n−1)).
   * "auto"           — circulant when shift-invariant and 2(k+1) ≤ n;
                        else sparse_gather when nnz + n < n²; else dense.
 
-"circulant_pallas" and "sparse_gather_pallas" (the names of `repro`'s
-Pallas tiers) are accepted as aliases of "circulant" and
-"sparse_gather".  On a CUDA tensor those tiers always launch the port's
-kernels; the kernels mask the ragged edge, so `repro`'s (8, 128) shape
-constraints and their fallbacks have no counterpart here.  On a CPU
-tensor the kernel wrappers run their plain PyTorch versions.
+Which tier a gossip runs is `repro`'s rule (`repro.topology.ops
+.MixingOp._resolve`), read at each call: "auto" takes the kernels on
+its circulant or padded-gather tier while the kernel switch
+`repro_torch.kernels.ops.kernels_enabled()` is on (on by default), and
+never on a skewed graph's CSR path; an explicitly requested
+"circulant" or "sparse_gather" stays on the plain PyTorch path, which
+autograd differentiates (the kernels have no backward); the names of
+`repro`'s Pallas tiers, "circulant_pallas" and "sparse_gather_pallas",
+always take the kernels (`backend` then reads "circulant" /
+"sparse_gather"; `requested` keeps the name asked for).  The kernels
+mask the ragged edge, so `repro`'s (8, 128) tile constraints and their
+fallbacks have no counterpart here: "auto" takes the kernels at any
+shape.  On a CPU tensor the kernel wrappers run their plain PyTorch
+versions.  Every gossip runs inside `repro_torch.strict_f32`.
 
 Row tiles
 ---------
@@ -79,7 +89,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, strict_f32
 from ..kernels.mixing_matvec import (circulant_mix_matvec,
                                      circulant_mix_matvec_halo,
                                      circulant_neumann_step,
@@ -87,6 +97,8 @@ from ..kernels.mixing_matvec import (circulant_mix_matvec,
                                      plan_blocks, plan_row_tile,
                                      sparse_mix_matvec,
                                      sparse_mix_matvec_halo)
+from ..kernels.ops import kernels_enabled
+from ..kernels.ref import circulant_mix_ref, sparse_mix_padded_ref
 from ..kernels.ref import neumann_update as _neumann_update
 from ..kernels.ref import sparse_mix_ref
 from .graphs import (circulant_graph, complete_graph, erdos_renyi_graph,
@@ -186,10 +198,12 @@ class MixingOp:
     """Topology-aware executor for W·Y, (I−W)·Y and the fused DIHGP
     Neumann step on stacked per-agent states (see module docstring).
 
-    The backend is resolved once, at construction.  The circulant and
-    padded-gather tiers launch CUDA kernels without a backward, so the
-    operator is not differentiable there; the algorithm never
-    differentiates through a gossip."""
+    The backend is resolved once, at construction; whether a gossip
+    takes the kernel tier is read at the call (`_kernel_tier`).  The
+    kernels have no backward, so the operator is differentiable on the
+    plain tiers only: "dense", an explicit "circulant" or
+    "sparse_gather", and "auto" with the kernel switch off.  The
+    algorithm never differentiates through a gossip."""
 
     def __init__(self, W, *, backend: str = "auto", name: str = "network",
                  dtype: str = "f32", comm: str = "identity", device=None):
@@ -198,6 +212,7 @@ class MixingOp:
             raise ValueError(f"unknown mixing backend {backend!r}; "
                              f"expected one of {BACKENDS}")
         self.device = resolve_device(device)
+        self.requested = backend
         W_np = np.asarray(W.detach().cpu() if isinstance(W, torch.Tensor)
                           else W, dtype=np.float64)
         self.W = torch.as_tensor(W_np, dtype=torch.float32,
@@ -265,11 +280,22 @@ class MixingOp:
                 f"backend={self.backend}, neighbors={k}, "
                 f"dtype={self.dtype})")
 
-    @property
     def _kernel_tier(self) -> bool:
-        """The circulant or padded-gather tier: the CUDA kernels."""
-        return self.backend == "circulant" or (
-            self.backend == "sparse_gather" and self._sp_use_padded)
+        """Whether this gossip runs the CUDA kernels (their plain
+        versions on a CPU tensor), by `repro`'s `_resolve`: a
+        `*_pallas` backend always; "auto" on the circulant or
+        padded-gather tier while the kernel switch is on, read now;
+        an explicit "circulant" or "sparse_gather", "dense" and the
+        skewed graphs' CSR path never."""
+        if self.backend not in ("circulant", "sparse_gather"):
+            return False
+        if self.requested.endswith("_pallas"):
+            return True
+        if self.requested != "auto":
+            return False
+        if self.backend == "sparse_gather" and not self._sp_use_padded:
+            return False
+        return kernels_enabled()
 
     def _stripe_plan(self, flat: torch.Tensor, *, blocks: int,
                      circulant: bool):
@@ -286,10 +312,12 @@ class MixingOp:
 
     # -- primitives --------------------------------------------------------
 
+    @strict_f32()
     def mix(self, y: torch.Tensor) -> torch.Tensor:
         """(W ⊗ I) y on stacked y of shape (n, ...)."""
         return self._apply(y, laplacian=False)
 
+    @strict_f32()
     def laplacian(self, y: torch.Tensor) -> torch.Tensor:
         """((I − W) ⊗ I) y."""
         return self._apply(y, laplacian=True)
@@ -303,11 +331,30 @@ class MixingOp:
             # accumulates the rounded values in f32
             flat = flat.to(self.storage_dtype)
         bn = None
-        if self._kernel_tier:
+        kernel = self._kernel_tier()
+        if kernel:
             _, bn = self._stripe_plan(
                 flat, blocks=plan_blocks(False),
                 circulant=self.backend == "circulant")
-        if self.backend == "circulant" and bn is not None:
+        if not kernel:
+            acc = flat if self.storage_dtype is None else flat.float()
+            if self.backend == "dense":
+                out = torch.matmul(self.W.to(acc.dtype), acc)
+                if laplacian:
+                    out = acc - out
+            elif self.backend == "circulant":
+                s = self.structure
+                out = circulant_mix_ref(acc, s.w_self, s.offsets,
+                                        s.weights, laplacian)
+            elif self._sp_use_padded:
+                out = sparse_mix_padded_ref(acc, self._sp_wself,
+                                            self._sp_idx, self._sp_wts,
+                                            laplacian)
+            else:
+                out = sparse_mix_ref(acc, self._sp_wself, self._sp_row,
+                                     self._sp_col, self._sp_val,
+                                     laplacian=laplacian)
+        elif self.backend == "circulant" and bn is not None:
             s = self.structure
             out = circulant_mix_matvec_halo(flat.contiguous(),
                                             w_self=s.w_self,
@@ -320,30 +367,21 @@ class MixingOp:
                                        offsets=self._circ_off,
                                        weights=self._circ_w,
                                        laplacian=laplacian)
-        elif self._kernel_tier and bn is not None:
+        elif bn is not None:
             out = sparse_mix_matvec_halo(flat.contiguous(), self._sp_wself,
                                          self._sp_idx, self._sp_wts,
                                          laplacian=laplacian, bn=bn)
-        elif self._kernel_tier:
+        else:
             out = sparse_mix_matvec(flat.contiguous(), self._sp_wself,
                                     self._sp_idx, self._sp_wts,
                                     laplacian=laplacian)
-        else:
-            acc = flat if self.storage_dtype is None else flat.float()
-            if self.backend == "dense":
-                out = torch.matmul(self.W.to(acc.dtype), acc)
-                if laplacian:
-                    out = acc - out
-            else:
-                out = sparse_mix_ref(acc, self._sp_wself, self._sp_row,
-                                     self._sp_col, self._sp_val,
-                                     laplacian=laplacian)
         if self.storage_dtype is not None:
             # round the result back through storage precision so every
             # backend returns identically-quantized values
             out = out.to(self.storage_dtype)
         return out.to(out_dtype).reshape(y.shape)
 
+    @strict_f32()
     def neumann_step(self, h: torch.Tensor, hvp_h: torch.Tensor,
                      p: torch.Tensor, d_scalar: torch.Tensor,
                      beta: float) -> torch.Tensor:
@@ -351,7 +389,8 @@ class MixingOp:
 
         d_scalar: per-agent D̃ diagonal, broadcastable against h as
         (n,) + (1,)*…; beta: a Python number."""
-        if self.backend == "circulant" and self.storage_dtype is None:
+        if self.backend == "circulant" and self.storage_dtype is None \
+                and self._kernel_tier():
             flat = h.reshape(h.shape[0], -1).contiguous()
             out = circulant_neumann_step(
                 flat, hvp_h.reshape(flat.shape).contiguous(),
@@ -360,8 +399,9 @@ class MixingOp:
                 w_self=self.structure.w_self, offsets=self._circ_off,
                 weights=self._circ_w, beta=float(beta))
             return out.reshape(h.shape)
-        # sparse / dense / bf16-storage tiers compose the same algebra
-        # from the backend mix (only the W·h term is storage-quantized)
+        # the plain, sparse, dense and bf16-storage tiers compose the
+        # same algebra from the backend mix (only the W·h term is
+        # storage-quantized)
         return _neumann_update(self._apply(h, laplacian=False), h, hvp_h,
                                p, d_scalar, beta)
 
@@ -385,7 +425,7 @@ class MixingOp:
         sparse gather with EF on the halo tier (no payload write-back
         there)."""
         if not (self.comm.fusable and self.storage_dtype is None
-                and flat.dtype == torch.float32 and self._kernel_tier):
+                and flat.dtype == torch.float32 and self._kernel_tier()):
             return None
         ef = self.comm.ef
         circulant = self.backend == "circulant"
@@ -470,14 +510,17 @@ class MixingOp:
         mixed = mixed + self._diag[expand].to(y.dtype) * (y - y_hat)
         return (y - mixed) if laplacian else mixed, st
 
+    @strict_f32()
     def mix_c(self, y: torch.Tensor, st):
         """(W ⊗ I) y through the gossip channel -> (out, state)."""
         return self._apply_c(y, st, laplacian=False)
 
+    @strict_f32()
     def laplacian_c(self, y: torch.Tensor, st):
         """((I − W) ⊗ I) y through the gossip channel."""
         return self._apply_c(y, st, laplacian=True)
 
+    @strict_f32()
     def neumann_step_c(self, h, hvp_h, p, d_scalar, beta: float, st):
         """Fused DIHGP step with the W·h gossip on the channel.  The
         identity wire keeps the plain fused step; a fusable quantizer

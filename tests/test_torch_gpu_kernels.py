@@ -597,3 +597,97 @@ def test_fused_kernels_match_the_plain_versions_on_tiny_and_nan_rows(
                 w_out = w
             torch.testing.assert_close(g, w_out, rtol=0, atol=1e-5,
                                        equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
+# The compressed sparse gather's column slab (n ≤ 33,536): one hash per
+# element, the neighbors gathered from shared memory.  Its outputs equal
+# the plain version's bit for bit, NaN codes and tiny rows included.
+# ---------------------------------------------------------------------------
+
+def _bits_equal(got, want):
+    """Bitwise, with NaN at the same places (a NaN's payload aside)."""
+    nan = got.isnan()
+    assert torch.equal(nan, want.isnan())
+    assert torch.equal(got.view(torch.int32)[~nan],
+                       want.view(torch.int32)[~nan])
+
+
+@pytest.mark.parametrize("route", [8, 4, 2, 1, None])
+@pytest.mark.parametrize("n,bn,d", [(4096, 64, 157000), (4096, 64, 2010),
+                                    (4096, 64, 1001), (4121, 1, 2010),
+                                    (4121, 1, 1001)])
+@pytest.mark.parametrize("comm", ["int8", "int4"])
+def test_sparse_halo_comm_every_route_bitwise(cuda, route, n, bn, d, comm):
+    """Every route of the compressed sparse gather: the slab at the
+    planner's c = 8 (the main path's ER gossip, n = 4096, r = 0.004,
+    k = 36, at d1 and d2), then, under a lower planner budget
+    (`smem_budget`), the slab at c = 4, 2, 1 and the row-tiled kernel
+    (None), which the planner gives n > 33,536.  d = 1001 is no multiple
+    of the slab width (element-wise staging, a ragged last slab); n =
+    4121 (odd, bn = 1; k = 36, so the table stage takes 16-byte copies)
+    puts the slab's end off 16 bytes at c = 2 and 1, where the stage
+    must still start aligned.  Bitwise against the plain version, NaN
+    codes and tiny rows included, and counted under the route's own
+    name."""
+    tabs = _er_tables(n, cuda, r=0.004)
+    y = _randn((n, d), torch.float32, "cpu", seed=d)
+    y[1] = torch.linspace(0, 3e-40, d)
+    y[2] = torch.linspace(0, 2e-38, d)
+    y[5, 7] = float("nan")
+    y = y.to(cuda)
+    bits, _, zp, sc, _ = _wire(y, comm, cuda)
+    if route == 8:
+        budget = mm.SMEM_BUDGET_BYTES
+    elif route is None:
+        budget = mm.slab_smem_bytes(n, 1) - 1
+    else:
+        budget = mm.slab_smem_bytes(n, route)
+    counter = ("sparse_mix_matvec_halo_comm" if route is not None
+               else "sparse_mix_matvec_halo_comm_rows")
+    for lap in (False, True):
+        want = ref.sparse_mix_halo_ref(y, *tabs, zp, sc, 5, laplacian=lap,
+                                       bn=bn, bits=bits)
+        mm.reset_launch_counts()
+        with mm.smem_budget(budget):
+            assert mm.plan_slab_cols(n) == route
+            got = mm.sparse_mix_matvec_halo(y, *tabs, zp, sc, 5,
+                                            laplacian=lap, bn=bn, comm=comm)
+        torch.cuda.synchronize()
+        counts = mm.launch_counts()
+        assert counts == {**dict.fromkeys(counts, 0), counter: 1}
+        _bits_equal(got, want)
+        del got, want
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("kind,backend", [("ring", "circulant"),
+                                          ("erdos_renyi", "sparse_gather")])
+def test_explicit_backends_launch_nothing_and_backpropagate(cuda, kind,
+                                                            backend):
+    """An explicit XLA-named backend runs the plain PyTorch path on the
+    card, whatever the switch: no kernel launches, and autograd runs
+    through the gossip; "auto" with the switch off does the same, and
+    with it on launches the kernels."""
+    from repro_torch.kernels import ops as kops
+    net = make_network(kind, 16, r=0.5, seed=0)
+    W = torch.as_tensor(net.W, dtype=torch.float32, device=cuda)
+    g = _randn((16, 40), torch.float32, cuda, seed=1)
+    h, hvp, p = (_randn((16, 40), torch.float32, cuda, seed=s)
+                 for s in (2, 3, 4))
+    dsc = torch.full((16, 1), 2.0, device=cuda)
+    for op, switch in ((make_mixing_op(net, backend, device=cuda), True),
+                       (make_mixing_op(net, device=cuda), False)):
+        with kops.kernel_mode(switch):
+            mm.reset_launch_counts()
+            y = _randn((16, 40), torch.float32, cuda).requires_grad_()
+            (op.mix(y) * g).sum().backward()
+            op.laplacian(y.detach())
+            op.neumann_step(h, hvp, p, dsc, 0.1)
+            torch.cuda.synchronize()
+            assert sum(mm.launch_counts().values()) == 0
+            torch.testing.assert_close(y.grad, W.T @ g, atol=1e-5, rtol=1e-5)
+    op = make_mixing_op(net, device=cuda)
+    mm.reset_launch_counts()
+    op.mix(h)
+    assert sum(mm.launch_counts().values()) == 1

@@ -178,6 +178,8 @@ def test_ops_route_and_switch_on_the_card(cuda):
 
 
 def test_launch_errors_raise(cuda):
+    """A dtype code or a head dim the C entry points refuse fails the
+    launch; the wrappers refuse hd > 256, the kernels' one limit."""
     q = torch.zeros((1, 128, 1, 64), device=cuda)
     out = torch.empty_like(q)
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -185,8 +187,87 @@ def test_launch_errors_raise(cuda):
                         q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 128,
                         1, 64, 7, *(0,) * 9, 0.125, 1, 0)
     with pytest.raises(RuntimeError, match="launch failed"):
+        tfa._LIB.launch("flash_attention", q.device, q.data_ptr(),
+                        q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 128,
+                        1, 264, 0, *(0,) * 9, 0.125, 1, 0)
+    with pytest.raises(RuntimeError, match="launch failed"):
         twkv._LIB.launch("rwkv6_scan", q.device, *(q.data_ptr(),) * 5,
-                         out.data_ptr(), 1, 128, 1, 48, 0, *(0,) * 12)
-    with pytest.raises(ValueError, match="head dims"):
-        z = torch.zeros((1, 128, 1, 48), device=cuda)
+                         out.data_ptr(), 1, 128, 1, 300, 0, *(0,) * 12)
+    z = torch.zeros((1, 128, 1, 264), device=cuda)
+    with pytest.raises(ValueError, match="up to 256"):
         tfa.flash_attention(z, z, z)
+    with pytest.raises(ValueError, match="up to 256"):
+        twkv.rwkv6_scan(z, z, z, z, torch.zeros((1, 264), device=cuda))
+
+
+# -- head dims outside the powers of two (padded in shared memory) -------
+
+HEAD_DIMS = [24, 80, 96, 256]
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 32),
+                                           (False, 0), (False, 40)])
+def test_flash_attention_kernel_any_head_dim(cuda, hd, dtype, causal,
+                                             window):
+    q, k, v = (_randn((2, 256, 3, hd), dtype, cuda, seed)
+               for seed in (hd, hd + 1, hd + 2))
+    before = tfa.launch_counts()["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS + [5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_any_head_dim_ragged_strided(cuda, hd,
+                                                            dtype):
+    """S = 160 (a ragged last q and kv tile, bq = bk = 32 as `repro`
+    allows), a window, and (B, H, S, hd) views read through their strides,
+    whose rows are not whole 16-byte chunks at hd = 5 (the element-wise
+    staging) — against the plain version and the contiguous launch."""
+    q, k, v = (_randn((2, 3, 160, hd), dtype, cuda, seed).transpose(1, 2)
+               for seed in (7, 8, 9))
+    got = tfa.flash_attention(q, k, v, causal=True, window=48, bq=32, bk=32)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=48)
+    _close(got, want, ATTN_TOL[dtype])
+    assert torch.equal(got, tfa.flash_attention(
+        *(a.contiguous() for a in (q, k, v)), causal=True, window=48, bq=32,
+        bk=32))
+
+
+@pytest.mark.parametrize("hd", [24, 96, 130, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_kernel_any_head_dim(cuda, hd, dtype):
+    """Masked rows and columns past hd (hd < the template's 16, 32, 64,
+    128 or 256), and above 128 the columns of S split over two blocks."""
+    r, k, v, logw, u = _wkv_inputs(2, 96, 3, hd, dtype, cuda, seed=hd)
+    before = twkv.launch_counts()["rwkv6_scan"]
+    got = twkv.rwkv6_scan(r, k, v, logw, u, chunk=32)
+    torch.cuda.synchronize()
+    assert twkv.launch_counts()["rwkv6_scan"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == r.shape
+    _close(got, ref.rwkv6_scan_ref(r, k, v, logw, u), WKV_TOL)
+
+
+def test_entry_points_leave_the_tf32_flags(cuda, monkeypatch):
+    """`ops.attention`, `ops.wkv` and `solve` run inside strict_f32 on the
+    card and hand the caller's flags back."""
+    from repro_torch.core.problems import quadratic_bilevel
+    from repro_torch.solve import SolverSpec, solve
+    from repro_torch.topology import make_network
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    q = _randn((1, 128, 2, 64), torch.float32, cuda, 1)
+    ops.attention(q, q, q)
+    ops.wkv(*_wkv_inputs(1, 64, 2, 32, torch.float32, cuda, seed=2))
+    prob = quadratic_bilevel(8, 4, 4, device="cuda")
+    solve(prob, make_network("ring", 8), SolverSpec(K=1, M=1, U=1),
+          device="cuda")
+    torch.cuda.synchronize()
+    assert torch.backends.cuda.matmul.allow_tf32
+    assert torch.backends.cudnn.allow_tf32

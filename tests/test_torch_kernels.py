@@ -138,7 +138,8 @@ def test_cpu_wrappers_run_the_plain_versions_without_launching():
             "sparse_mix_matvec_comm", "circulant_neumann_step_comm",
             "ring_laplacian_matvec", "circulant_mix_matvec_halo",
             "circulant_mix_matvec_halo_comm", "sparse_mix_matvec_halo",
-            "sparse_mix_matvec_halo_comm"} == set(counts)
+            "sparse_mix_matvec_halo_comm",
+            "sparse_mix_matvec_halo_comm_rows"} == set(counts)
 
 
 def test_wrappers_refuse_bad_operands():
