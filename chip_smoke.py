@@ -15,13 +15,15 @@ Phases, in order (any failure exits non-zero before the last line):
                the bytes/operations bound: the plain circulant, sparse-
                gather and Neumann kernels, their comm-fused twins
                (int8/int4 ± error feedback; payload bitwise) and the
-               ring Laplacian; then the row-tiled halo kernels at
-               n = 4096 (plain and fused, at the planner's row tile and
-               two others, bitwise against the full-operand kernels) and
-               every route of the compressed sparse gather (the column
-               slab at c = 8, 4, 2, 1 and the row-tiled kernel, driven
-               by a lower shared-memory budget; bitwise against the
-               full-operand kernel and the plain version);
+               ring Laplacian; then the halo kernels at n = 4096: the
+               circulant ones (plain on its staged ring, and fused) at
+               the planner's row tile and two others, bitwise against
+               the full-operand kernels, and every route of the plain
+               and the compressed sparse gathers (the column slab at
+               each width, c = 8/4/2/1 f32, 16/8/4/2 bf16, and the
+               row-tiled kernel, driven by a lower shared-memory budget;
+               bitwise against the full-operand kernel and the plain
+               version; the plain slab also without its row plan);
   4. main    — `repro_torch.solve` on the paper's §6.2 hyper-
                representation MLP at its published widths (d=784,
                hidden=200: d1=157,000, d2=2,010; n=16 agents) on a ring
@@ -412,10 +414,19 @@ def kernel_phase(torch, results: dict) -> None:
         return wire_operands(torch, gen, n, d, comm, extra)
 
     # -- circulant_mix_matvec, comm-fused --------------------------------
+    def csr_pair(W):
+        """CSR W and I − W on the card: `torch.sparse.mm`'s operands, the
+        library yardstick of a mix (for a comm-fused kernel, of the
+        uncompressed one)."""
+        W = torch.as_tensor(W, dtype=torch.float32, device=dev)
+        return (W.to_sparse_csr(),
+                (torch.eye(W.shape[0], device=dev) - W).to_sparse_csr())
+
     print("kernel circulant_mix_matvec_comm (ring, int8/int4 ± EF)")
     for n, d in shapes + [(128, D1)]:
         s, tabs = ring_case(n)
         k = len(s.offsets)
+        csr = csr_pair(make_network("ring", n).W)
         for comm in COMMS:
             bits, ef, pool = wire_pool(n, d, comm)
             for lap in (False, True):
@@ -438,19 +449,24 @@ def kernel_phase(torch, results: dict) -> None:
                 dev_ms = device_ms(torch, launch, pool,
                                    "circulant_mix_comm_kernel")
                 plain = cuda_ms(torch, plain_fn, pool, iters=20)
+                A = csr[int(lap)]
+                lib = cuda_ms(torch, lambda t: torch.sparse.mm(A, t[0]),
+                              pool)
                 b_ms, b_by = fused_bound(n, d, k, ef, lap, 8 * k)
                 print(f"    ms={ms:.5f} device_ms={dev_ms:.5f} "
-                      f"plain_ms={plain:.5f} library_ms=n/a "
+                      f"plain_ms={plain:.5f} "
+                      f"library_ms(sparse.mm CSR)={lib:.5f} "
                       f"bound_ms={b_ms:.5f} ({b_by})")
                 record("circulant_mix_matvec_comm", (n, d, comm, lap),
                        dict(err=err, ms=ms, dev=dev_ms, plain=plain,
-                            lib=None, bound=b_ms, by=b_by))
+                            lib=lib, bound=b_ms, by=b_by))
 
     # -- sparse_mix_matvec, comm-fused -----------------------------------
     print("kernel sparse_mix_matvec_comm (Erdős–Rényi r=0.5, int8/int4 ± "
           "EF)")
     for n, d in shapes + [(128, D1)]:
         net, sp, (w_self, nbr, wts) = er_case(n)
+        csr = csr_pair(net.W)
         for comm in COMMS:
             bits, ef, pool = wire_pool(n, d, comm)
             for lap in (False, True):
@@ -472,16 +488,20 @@ def kernel_phase(torch, results: dict) -> None:
                 dev_ms = device_ms(torch, launch, pool,
                                    "sparse_mix_comm_kernel")
                 plain = cuda_ms(torch, plain_fn, pool, iters=20)
+                A = csr[int(lap)]
+                lib = cuda_ms(torch, lambda t: torch.sparse.mm(A, t[0]),
+                              pool)
                 # what this graph needs: its nonzeros' weights and
                 # indices and the diagonal, the mix's 2 FLOP per nonzero
                 b_ms, b_by = fused_bound(n, d, sp.nnz / n, ef, lap,
                                          sp.nnz * 8 + n * 4)
                 print(f"    ms={ms:.5f} device_ms={dev_ms:.5f} "
-                      f"plain_ms={plain:.5f} library_ms=n/a "
+                      f"plain_ms={plain:.5f} "
+                      f"library_ms(sparse.mm CSR)={lib:.5f} "
                       f"bound_ms={b_ms:.5f} ({b_by})")
                 record("sparse_mix_matvec_comm", (n, d, comm, lap),
                        dict(err=err, ms=ms, dev=dev_ms, plain=plain,
-                            lib=None, bound=b_ms, by=b_by))
+                            lib=lib, bound=b_ms, by=b_by))
 
     # -- circulant_neumann_step, comm-fused (no EF) ----------------------
     print("kernel circulant_neumann_step_comm (ring, Eq. 14, int8/int4)")
@@ -673,6 +693,12 @@ def halo_kernel_phase(torch, results: dict) -> None:
                         if dt == torch.float32 else None,
                         bound(2 * n * d_ * item + 8 * k,
                               (2 * (k + 1) + lap) * n * d_), err, planned)
+                rows = h_lo + planned + h_hi
+                stages = mm.halo_stages(rows, itemsize=item)
+                print(f"    the ring: {stages} stages of "
+                      f"{mm.halo_smem_bytes(rows, itemsize=item)} bytes")
+                results["circulant_mix_matvec_halo"][
+                    (n, d_, dname, lap)]["stages"] = stages
             del pool
 
     # -- circulant_mix_matvec_halo, comm-fused ---------------------------
@@ -720,58 +746,16 @@ def halo_kernel_phase(torch, results: dict) -> None:
                         fused_bound(n, d_, k, ef, lap, 8 * k), err, planned)
             del pool
 
-    # -- sparse_mix_matvec_halo ------------------------------------------
-    print(f"kernel sparse_mix_matvec_halo (Erdős–Rényi n={n} r={ER_R_LARGE}"
-          f" k={sp.k}, row tiles)")
-    for d_ in (D1, D2):
-        for dname, dt in dtypes:
-            item = torch.tensor([], dtype=dt).element_size()
-            pool = operand_pool(torch, lambda: torch.randn(
-                (n, d_), generator=gen, device=dev).to(dt), n * d_ * item)
-            planned = mm.pick_halo_bn(n, itemsize=item)
-            for lap in (False, True):
-                y = pool[0]
-                want = ref.sparse_mix_padded_ref(y.float(), *er_tabs,
-                                                 lap).to(dt)
-                full = mm.sparse_mix_matvec(y, *er_tabs, laplacian=lap)
-                err = 0.0
-                for bn in tiles(planned):
-                    got = mm.sparse_mix_matvec_halo(y, *er_tabs,
-                                                    laplacian=lap, bn=bn)
-                    torch.cuda.synchronize()
-                    tag = f"({n}, {d_}) {dname} laplacian={lap} bn={bn}"
-                    bitwise(tag, got, full)
-                    err = max(err, check(tag, got, want, dname))
-                del got, full, want
-                if lap != (d_ == D1):
-                    continue
-
-                def launch(t, lap=lap):
-                    return mm.sparse_mix_matvec_halo(t, *er_tabs,
-                                                     laplacian=lap,
-                                                     bn=planned)
-                A = csr["er"][int(lap)]
-                timings("sparse_mix_matvec_halo", (n, d_, dname, lap),
-                        launch, lambda t, lap=lap: ref.sparse_mix_padded_ref(
-                            t.float(), *er_tabs, lap).to(t.dtype), pool,
-                        "sparse_mix_halo_kernel",
-                        lambda t, lap=lap: mm.sparse_mix_matvec(
-                            t, *er_tabs, laplacian=lap), "sparse_mix_kernel",
-                        (lambda t: torch.sparse.mm(A, t))
-                        if dt == torch.float32 else None,
-                        bound(2 * n * d_ * item + sp.nnz * 8 + n * 4,
-                              (2 * (sp.nnz + n) + lap * n) * d_), err,
-                        planned)
-            del pool
-
-    # -- sparse_mix_matvec_halo, comm-fused (no EF) ----------------------
-    # every route of the planner, driven at n = 4096 by a lower budget
-    # (`smem_budget`): the slab at the planner's c = 8, then 4, 2 and 1,
-    # and the row-tiled kernel (None), which it gives n > 33,536; each
-    # launch bitwise against the full-operand kernel and the plain version
-    routes = [(c, mm.slab_smem_bytes(n, c)) for c in mm.SLAB_COLS]
-    routes.append((None, mm.slab_smem_bytes(n, 1) - 1))
-    assert mm.plan_slab_cols(n) == routes[0][0]
+    # the sparse gathers' routes, driven at n = 4096 by a lower budget
+    # (`smem_budget`): the slab at the planner's width, then the three
+    # narrower ones, and the row-tiled kernel (None), which the planner
+    # gives n > 33,536
+    def slab_routes(item):
+        widths = mm.slab_cols_for(item)
+        routes = [(c, mm.slab_smem_bytes(n, c, item)) for c in widths]
+        routes.append((None, mm.slab_smem_bytes(n, widths[-1], item) - 1))
+        assert mm.plan_slab_cols(n, item) == widths[0]
+        return routes
 
     def route_name(cols, bn):
         return f"slab c={cols}" if cols else f"row tiles bn={bn}"
@@ -781,6 +765,131 @@ def halo_kernel_phase(torch, results: dict) -> None:
             with mm.smem_budget(budget):
                 return fn(t)
         return launch
+
+    # -- sparse_mix_matvec_halo ------------------------------------------
+    # every route with MixingOp's row plan (degree order, padded slots from
+    # registers), each launch bitwise against the full-operand kernel and
+    # the plain version; the planner's slab also without the plan and with
+    # the real degrees in natural order, so that each step of the walk has
+    # its own time
+    plan = tuple(torch.as_tensor(a, device=dev)
+                 for a in mm.sparse_row_plan(sp.neighbors, sp.weights))
+    walks = (("no row plan", None),
+             ("natural order, padded slots from registers",
+              (torch.arange(n, dtype=torch.int32, device=dev), plan[1])))
+    tnames = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
+    print(f"kernel sparse_mix_matvec_halo (Erdős–Rényi n={n} r={ER_R_LARGE}"
+          f" k={sp.k}, mean degree {sp.nnz / n:.2f}; routes: "
+          f"{', '.join(route_name(c, 'b') for c, _ in slab_routes(4))})")
+    for d_ in (D1, D2):
+        for dname, dt in dtypes:
+            item = torch.tensor([], dtype=dt).element_size()
+            pool = operand_pool(torch, lambda: torch.randn(
+                (n, d_), generator=gen, device=dev).to(dt), n * d_ * item)
+            planned = mm.pick_halo_bn(n, itemsize=item)
+            routes = slab_routes(item)
+            top = routes[0][0]
+
+            def symbol(cols, dt=dt):
+                return (f"sparse_mix_slab_kernel<{tnames[dt]}, {cols}>"
+                        if cols else "sparse_mix_halo_kernel")
+            for lap in (False, True):
+                y = pool[0]
+                want = ref.sparse_mix_padded_ref(y.float(), *er_tabs,
+                                                 lap).to(dt)
+                full = mm.sparse_mix_matvec(y, *er_tabs, laplacian=lap)
+                err = {}
+                for cols, budget in routes:
+                    # the row tiles that fit the lowered budget
+                    for bn in [planned] if cols else [
+                            b for b in tiles(planned)
+                            if mm.halo_smem_bytes(b, itemsize=item)
+                            <= budget]:
+                        with mm.smem_budget(budget):
+                            assert mm.plan_slab_cols(n, item) == cols
+                            got = mm.sparse_mix_matvec_halo(
+                                y, *er_tabs, laplacian=lap, bn=bn,
+                                row_plan=plan)
+                        torch.cuda.synchronize()
+                        tag = (f"({n}, {d_}) {dname} laplacian={lap} "
+                               f"{route_name(cols, bn)}")
+                        bitwise(tag, got, full)
+                        bitwise(tag, got, want, "the plain version")
+                        err[cols] = max(err.get(cols, 0.0),
+                                        check(tag, got, want, dname))
+                        del got
+                for label, walk in walks:
+                    got = mm.sparse_mix_matvec_halo(
+                        y, *er_tabs, laplacian=lap, bn=planned,
+                        row_plan=walk)
+                    torch.cuda.synchronize()
+                    tag = (f"({n}, {d_}) {dname} laplacian={lap} "
+                           f"{route_name(top, planned)}, {label}")
+                    bitwise(tag, got, full)
+                    del got
+                del full, want
+                if lap != (d_ == D1):
+                    continue        # time (I−W)·X at d1 and W·Y at d2
+
+                def launch(t, lap=lap, walk=plan):
+                    return mm.sparse_mix_matvec_halo(t, *er_tabs,
+                                                     laplacian=lap,
+                                                     bn=planned,
+                                                     row_plan=walk)
+                A = csr["er"][int(lap)]
+                key = (n, d_, dname, lap)
+                timings("sparse_mix_matvec_halo", key,
+                        launch, lambda t, lap=lap: ref.sparse_mix_padded_ref(
+                            t.float(), *er_tabs, lap).to(t.dtype), pool,
+                        symbol(top),
+                        lambda t, lap=lap: mm.sparse_mix_matvec(
+                            t, *er_tabs, laplacian=lap), "sparse_mix_kernel",
+                        (lambda t: torch.sparse.mm(A, t))
+                        if dt == torch.float32 else None,
+                        bound(2 * n * d_ * item + sp.nnz * 8 + n * 4,
+                              (2 * (sp.nnz + n) + lap * n) * d_), err[top],
+                        planned)
+                # the walk's steps and the other routes: ms and device ms
+                # on the same operands (plain, library and bound as the
+                # row above; a route's ms includes the budget switch, a
+                # few µs on the host)
+                row = results["sparse_mix_matvec_halo"][key]
+                row.update(slab_cols=top, routes=[], walk={})
+                big = d_ == D1
+                it, warm = (5, 1) if big else (50, 5)
+                for label, walk in walks:
+                    go = functools.partial(launch, walk=walk)
+                    ms = cuda_ms(torch, go, pool, iters=it, warmup=warm)
+                    dev_ms = device_ms(torch, go, pool, symbol(top),
+                                       iters=it)
+                    print(f"    {route_name(top, planned)}, {label}: "
+                          f"ms={ms:.5f} device_ms={dev_ms:.5f}")
+                    row["walk"][label] = dict(ms=ms, device_ms=dev_ms)
+                for cols, budget in routes[1:]:
+                    go = on_route(budget, launch)
+                    ms = cuda_ms(torch, go, pool, iters=it, warmup=warm)
+                    dev_ms = device_ms(torch, go, pool, symbol(cols),
+                                       iters=it)
+                    print(f"    {route_name(cols, planned)}: ms={ms:.5f} "
+                          f"device_ms={dev_ms:.5f}")
+                    if cols:
+                        row["routes"].append(dict(
+                            slab_cols=cols, max_abs_err=err[cols], ms=ms,
+                            device_ms=dev_ms, bitwise=True))
+                    else:
+                        results.setdefault(
+                            "sparse_mix_matvec_halo_rows", {})[key] = dict(
+                            err=err[cols], ms=ms, dev=dev_ms,
+                            plain=row["plain"], lib=row["lib"],
+                            bound=row["bound"], by=row["by"],
+                            full_dev=row["full_dev"], bn=planned)
+            del pool
+
+    # -- sparse_mix_matvec_halo, comm-fused (no EF) ----------------------
+    # every route (the slab at c = 8, 4, 2, 1 and the row-tiled kernel),
+    # each launch bitwise against the full-operand kernel and the plain
+    # version
+    routes = slab_routes(4)
 
     print(f"kernel sparse_mix_matvec_halo_comm (Erdős–Rényi n={n}, "
           f"int8/int4; routes: "
@@ -1632,7 +1741,7 @@ def plain_versions():
                                           bits=bits, **kw)
 
     def sparse_halo(y, w_self, nbr, wts, zp=None, scale=None, seed=None, *,
-                    laplacian=False, bn, comm=None):
+                    laplacian=False, bn, comm=None, row_plan=None):
         bits = None if comm in (None, "identity") else int(comm[3])
         return ref.sparse_mix_halo_ref(y, w_self, nbr, wts, zp, scale, seed,
                                        laplacian=laplacian, bn=bn, bits=bits)
@@ -1682,7 +1791,8 @@ def profile_run(torch, run) -> float | None:
         print(f"    {us:10.1f} us  x{count:<5d} {key[:90]}")
     for us, count, key in rows:
         if any(tag in key for tag in ("_mix_kernel", "_neumann_kernel",
-                                      "_comm_kernel", "_halo_kernel")):
+                                      "_comm_kernel", "_halo_kernel",
+                                      "_slab_kernel")):
             print(f"  port kernel: {us:.1f} us device in {count} launches "
                   f"({us / count:.2f} us each) {key[:70]}")
     return busy_us
@@ -1781,9 +1891,9 @@ def main() -> int:
     # Neumann steps: the d2 launch they run at; the halo kernels: the
     # (4096, d1) gossip of the large-network path); ring_laplacian_matvec
     # is not on the main path and reports its (16, d1) check, the
-    # row-tiled compressed sparse gather (n > 33,536) its (4096, d1)
-    # launch under a lower budget, and the slab's entry its c = 4, 2, 1
-    # routes
+    # row-tiled sparse gathers (n > 33,536) their (4096, d1) launches
+    # under a lower budget, and the slabs' entries their narrower routes
+    # (and the plain slab the steps of its walk)
     src = "src/repro/kernels/mixing_matvec.py"
     pick = {
         "circulant_mix_matvec": ((N_AGENTS, D1, "float32", True), 274),
@@ -1798,11 +1908,13 @@ def main() -> int:
         "circulant_mix_matvec_halo_comm": ((N_LARGE, D1, "int8+ef", True),
                                            439),
         "sparse_mix_matvec_halo": ((N_LARGE, D1, "float32", True), 739),
+        "sparse_mix_matvec_halo_rows": ((N_LARGE, D1, "float32", True), 739),
         "sparse_mix_matvec_halo_comm": ((N_LARGE, D1, "int8", True), 739),
         "sparse_mix_matvec_halo_comm_rows": ((N_LARGE, D1, "int8", True),
                                              739),
     }
-    off_path = ("ring_laplacian_matvec", "sparse_mix_matvec_halo_comm_rows")
+    off_path = ("ring_laplacian_matvec", "sparse_mix_matvec_halo_rows",
+                "sparse_mix_matvec_halo_comm_rows")
     kernels = []
     for name, (key, line) in pick.items():
         row = results[name][key]
@@ -1822,7 +1934,8 @@ def main() -> int:
             "on_main_path": name not in off_path,
             **({"bn": row["bn"]} if "bn" in row else {}),
             **({"slab_cols": row["slab_cols"], "routes": row["routes"]}
-               if "routes" in row else {})})
+               if "routes" in row else {}),
+            **({key: row[key] for key in ("walk", "stages") if key in row})})
     # the kernels.ops path's two kernels: not on DAGM's main path; their
     # launches come from the ops path's run, each row (times and error)
     # from its check at qwen3-4b (attention, bf16) and rwkv6-7b (wkv)

@@ -18,6 +18,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(in ? 4 : 0));
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 8 : 0));
+}
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(

@@ -363,49 +363,243 @@ __device__ __forceinline__ int wrap_row(int r, int n) {
   return r < 0 ? r + n : (r >= n ? r - n : r);
 }
 
+// Vector helpers of the redesigned halo kernels.  A row piece of N values
+// of T (4, 8 or 16 bytes) moves as one access; values are widened to f32
+// exactly (a bf16 is the high half of its f32) and narrowed with
+// store_f32's rounding (round to nearest even).
+template <int V>
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           bool in) {
+  if constexpr (V == 16) {
+    cp_async16(dst, src, in);
+  } else if constexpr (V == 8) {
+    cp_async8(dst, src, in);
+  } else if constexpr (V == 4) {
+    cp_async4(dst, src, in);
+  } else {  // 2 bytes, a bf16 row with an odd stride: no cp.async this size
+    *static_cast<unsigned short*>(dst) =
+        in ? *static_cast<const unsigned short*>(src) : (unsigned short)0;
+  }
+}
+
+// N values of T at p (shared memory, aligned to their N * sizeof(T)
+// bytes), widened to f32.
+template <typename T, int N>
+__device__ __forceinline__ void lds_vec(const T* p, float* v) {
+  constexpr int B = N * (int)sizeof(T);
+  static_assert(B == 4 || B == 8 || B == 16, "one 4-, 8- or 16-byte load");
+  uint32_t w[B / 4];
+  if constexpr (B == 16) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+  } else if constexpr (B == 8) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    w[0] = x.x, w[1] = x.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < B / 4; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      v[i] = __uint_as_float(w[i]);
+    } else {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+}
+
+// N values (narrowed to T) stored at dst in pieces of V bytes; a piece
+// whose first column is at or past `valid` is not stored (the ragged
+// edge: every piece lies wholly inside or outside the row when V divides
+// the row's bytes).
+template <typename T, int N, int V>
+__device__ __forceinline__ void stg_vec(T* dst, const float* o, int valid) {
+  constexpr int B = N * (int)sizeof(T), E = V / (int)sizeof(T);
+  static_assert(V <= B && B % V == 0 && E >= 1, "pieces of the vector");
+  uint32_t w[B / 4];
+#pragma unroll
+  for (int i = 0; i < B / 4; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      w[i] = __float_as_uint(o[i]);
+    } else {
+      w[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16(o[2 * i])) |
+             (uint32_t)__bfloat16_as_ushort(__float2bfloat16(o[2 * i + 1]))
+                 << 16;
+    }
+  }
+  char* at = reinterpret_cast<char*>(dst);
+#pragma unroll
+  for (int p = 0; p < B / V; ++p) {
+    if (p * E >= valid) break;
+    if constexpr (V == 16) {
+      *reinterpret_cast<uint4*>(at + 16 * p) =
+          make_uint4(w[4 * p], w[4 * p + 1], w[4 * p + 2], w[4 * p + 3]);
+    } else if constexpr (V == 8) {
+      *reinterpret_cast<uint2*>(at + 8 * p) =
+          make_uint2(w[2 * p], w[2 * p + 1]);
+    } else if constexpr (V == 4) {
+      *reinterpret_cast<uint32_t*>(at + 4 * p) = w[p];
+    } else {
+      *reinterpret_cast<unsigned short*>(at + 2 * p) =
+          (unsigned short)(w[p / 2] >> (16 * (p % 2)));
+    }
+  }
+}
+
+// The widest access of at most `max` bytes (16, 8, 4 or 2) that every row
+// of a (rows, d) operand of `itemsize`-byte values at `a` (and `b`)
+// starts on.
+int vec_bytes(const void* a, const void* b, int d, int itemsize, int max) {
+  const uintptr_t bits =
+      (uintptr_t)a | (uintptr_t)b | (uintptr_t)((size_t)d * itemsize);
+  int v = max;
+  while (v > itemsize && bits % v) v /= 2;
+  return v;
+}
+
+// Wait until at most `pending` of this thread's commit groups (0, 1 or 2)
+// are in flight.
+__device__ __forceinline__ void cp_async_wait_upto(int pending) {
+  if (pending <= 0) {
+    cp_async_wait<0>();
+  } else if (pending == 1) {
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<2>();
+  }
+}
+
+constexpr int kHaloStages = 3;  // the ring's stages at the planner's bn
+
+// `nrows` rows of y from `src_row` on, columns [col0, col0 + kHaloBd),
+// into consecutive kHaloBd-wide rows of shared memory, V bytes per copy;
+// columns past d are zero-filled.
+template <typename T, int V>
+__device__ __forceinline__ void halo_copy_rows(T* dst,
+                                               const T* __restrict__ y,
+                                               int src_row, int nrows, int d,
+                                               int col0) {
+  constexpr int E = V / (int)sizeof(T);  // values per copy
+  constexpr int CPR = kHaloBd / E;       // copies per staged row
+  for (int e = threadIdx.x; e < nrows * CPR; e += kHaloThreads) {
+    const int r = e / CPR, c = (e % CPR) * E, j = col0 + c;
+    const bool in = j < d;
+    copy_async<V>(dst + (size_t)r * kHaloBd + c,
+                  y + (size_t)(src_row + r) * d + (in ? j : 0), in);
+  }
+}
+
 // Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec_halo (plain
 // path, _circ_halo_body).
-// Bound: bytes, as circulant_mix_kernel: one read of Y plus the halo rows
-// (h_lo + h_hi of every bn, 2/128 on the ring at bn = 128) and one write.
-// Design: the block stages its (h_lo + bn + h_hi, 128) tile in shared
-// memory with coalesced row reads, synchronizes, and every thread mixes
-// output elements from the tile: each staged element is read from device
-// memory once however many neighbors use it, where the full-operand
-// kernel reads it k + 1 times (through L2).
-template <typename T>
-__global__ void circulant_mix_halo_kernel(const T* __restrict__ y,
-                                          T* __restrict__ out, int n, int d,
-                                          int bn, int h_lo, int h_hi,
-                                          float w_self, int k,
-                                          const int* __restrict__ soff,
-                                          const float* __restrict__ wts,
-                                          int laplacian) {
+// Bound: bytes: one read of Y plus the halo rows (h_lo + h_hi of every
+// bn, 2/128 on the ring at bn = 128) and one write; 1.54 ms at (4096,
+// 157000) f32 at 3.35 TB/s.
+// Design: a ring of `stages` (h_lo + bn + h_hi, 128) tiles in shared
+// memory.  Block (bi, by) owns the rows [bi*bn, bi*bn + bn) and walks the
+// column tiles by, by + gridDim.y, ...; the launch sizes gridDim.y so that
+// the blocks just fill the card.  While tile t is mixed, tiles t+1 ..
+// t+stages-1 are in flight as cp.async copies of V bytes (16 where d, the
+// pointers and the tile allow, else 8, 4, or 2-byte loads for a bf16 row
+// of odd d); the low halo, the body and the high halo are three copies
+// of contiguous rows, as repro's three _ext_copy DMAs (each wraps mod n
+// as a whole: h_lo, h_hi <= bn and bn | n).  A thread mixes a 16-byte
+// vector of the tile (4 f32 or 8 bf16 columns) for R rows at a time, so
+// each offset and weight is read once per R * VW outputs, and stores it
+// with V-byte stores, masked past d.  Accumulation is `term` in offset
+// order, w_self*y_i first and y_i - acc for the Laplacian: the output is
+// bitwise circulant_mix_kernel's for every bn.
+template <typename T, int V>
+__global__ void __launch_bounds__(kHaloThreads)
+    circulant_mix_halo_kernel(const T* __restrict__ y, T* __restrict__ out,
+                              int n, int d, int bn, int h_lo, int h_hi,
+                              float w_self, int k,
+                              const int* __restrict__ soff,
+                              const float* __restrict__ wts, int laplacian,
+                              int stages) {
+  constexpr int VW = 16 / (int)sizeof(T);   // columns a thread mixes
+  constexpr int TPR = kHaloBd / VW;         // threads per tile row
+  constexpr int RP = kHaloThreads / TPR;    // rows mixed side by side
+  constexpr int R = 4;                      // rows per thread and pass
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ext = reinterpret_cast<T*>(smem_raw);
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  const size_t tile = (size_t)(h_lo + bn + h_hi) * kHaloBd;
   const int row0 = blockIdx.x * bn;
-  const int ex = h_lo + bn + h_hi;
   const int ncol = (d + kHaloBd - 1) / kHaloBd;
-  for (int ct = blockIdx.y; ct < ncol; ct += gridDim.y) {
-    const int col0 = ct * kHaloBd;
-    for (int t = threadIdx.x; t < ex * kHaloBd; t += blockDim.x) {
-      const int j = col0 + t % kHaloBd;
-      const int r = wrap_row(row0 - h_lo + t / kHaloBd, n);
-      if (j < d) ext[t] = y[(size_t)r * d + j];
+  const int ntile = (int)blockIdx.y < ncol
+                        ? (ncol - 1 - (int)blockIdx.y) / (int)gridDim.y + 1
+                        : 0;
+  const int lo_src = row0 >= h_lo ? row0 - h_lo : row0 - h_lo + n;
+  const int hi_src = row0 + bn < n ? row0 + bn : row0 + bn - n;
+  auto load = [&](int t) {  // tile t of this block, one commit group
+    if (t < ntile) {
+      T* st = ring + (size_t)(t % stages) * tile;
+      const int col0 = ((int)blockIdx.y + t * (int)gridDim.y) * kHaloBd;
+      halo_copy_rows<T, V>(st, y, lo_src, h_lo, d, col0);
+      halo_copy_rows<T, V>(st + (size_t)h_lo * kHaloBd, y, row0, bn, d,
+                           col0);
+      halo_copy_rows<T, V>(st + (size_t)(h_lo + bn) * kHaloBd, y, hi_src,
+                           h_hi, d, col0);
     }
-    __syncthreads();
-    for (int t = threadIdx.x; t < bn * kHaloBd; t += blockDim.x) {
-      const int r = t / kHaloBd, c = t % kHaloBd, j = col0 + c;
-      if (j >= d) continue;
-      const float yi = load_f32(ext, (size_t)(h_lo + r) * kHaloBd + c);
-      float acc = __fmul_rn(w_self, yi);
-      for (int q = 0; q < k; ++q) {
-        const int e = h_lo + r + __ldg(soff + q);
-        acc = term(acc, __ldg(wts + q), load_f32(ext, (size_t)e * kHaloBd + c));
+    cp_async_commit();
+  };
+  for (int t = 0; t + 1 < stages; ++t) load(t);
+  const int cg = threadIdx.x % TPR, rl = threadIdx.x / TPR;
+  for (int t = 0; t < ntile; ++t) {
+    __syncthreads();  // tile t - 1 (the stage refilled below) is mixed
+    load(t + stages - 1);
+    cp_async_wait_upto(stages - 1);  // this thread's copies of tile t landed
+    __syncthreads();                 // and every thread's
+    const T* st = ring + (size_t)(t % stages) * tile;
+    const int col0 = ((int)blockIdx.y + t * (int)gridDim.y) * kHaloBd;
+    const int c = cg * VW, j0 = col0 + c;
+    if (j0 >= d) continue;
+    for (int r0 = rl; r0 < bn; r0 += RP * R) {
+      float acc[R][VW];
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const int r = r0 + rr * RP;
+        if (r < bn) {
+          lds_vec<T, VW>(st + (size_t)(h_lo + r) * kHaloBd + c, acc[rr]);
+#pragma unroll
+          for (int v = 0; v < VW; ++v) {
+            acc[rr][v] = __fmul_rn(w_self, acc[rr][v]);
+          }
+        }
       }
-      if (laplacian) acc = __fsub_rn(yi, acc);
-      store_f32(out, (size_t)(row0 + r) * d + j, acc);
+      for (int q = 0; q < k; ++q) {
+        const int s = __ldg(soff + q);
+        const float wq = __ldg(wts + q);
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+          const int r = r0 + rr * RP;
+          if (r < bn) {
+            float x[VW];
+            lds_vec<T, VW>(st + (size_t)(h_lo + r + s) * kHaloBd + c, x);
+#pragma unroll
+            for (int v = 0; v < VW; ++v) {
+              acc[rr][v] = term(acc[rr][v], wq, x[v]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const int r = r0 + rr * RP;
+        if (r < bn) {
+          if (laplacian) {
+            float yi[VW];
+            lds_vec<T, VW>(st + (size_t)(h_lo + r) * kHaloBd + c, yi);
+#pragma unroll
+            for (int v = 0; v < VW; ++v) {
+              acc[rr][v] = __fsub_rn(yi[v], acc[rr][v]);
+            }
+          }
+          stg_vec<T, VW, V>(out + (size_t)(row0 + r) * d + j0, acc[rr],
+                            d - j0);
+        }
+      }
     }
-    __syncthreads();
   }
 }
 
@@ -595,9 +789,17 @@ __host__ __device__ inline size_t slab_floats(int n, int cols) {
   return ((size_t)n * cols + 3) / 4 * 4;
 }
 
-int slab_smem_bytes(int n, int cols) {
-  const long long b = (long long)slab_floats(n, cols) * 4 +
-                      slab_stage_bytes(cols);
+// The same in bytes, for a slab row of `row_bytes` (either dtype).
+__host__ __device__ inline size_t slab_bytes(int n, int row_bytes) {
+  return ((size_t)n * row_bytes + 15) / 16 * 16;
+}
+
+// Shared memory of a slab launch: the (n, cols) slab of `itemsize`-byte
+// values and the table stage of the f32 slab as wide in bytes (the plain
+// slab's bf16 rows of 2*cols bytes take the f32 geometry of cols/2).
+int slab_smem_bytes(int n, int cols, int itemsize = 4) {
+  const long long b = (long long)slab_bytes(n, cols * itemsize) +
+                      slab_stage_bytes(cols * itemsize / 4);
   return b > kSmemOptIn ? -1 : (int)b;
 }
 
@@ -796,19 +998,268 @@ __global__ void __launch_bounds__(kSlabThreads)
   }
 }
 
-// Dynamic shared memory of a halo launch: `rows` staged rows of kHaloBd
-// elements of `itemsize` bytes (the Python planner's halo_smem_bytes).
-int halo_smem_bytes(int rows, int itemsize) {
-  return rows * kHaloBd * itemsize;
+// Replaces repro/kernels/mixing_matvec.py:sparse_mix_matvec_halo (plain
+// path, _sparse_halo_body): the identity gossip on Erdos-Renyi graphs at
+// n = 4096, f32 and bf16.
+// Bound: bytes, 1.54 ms at (4096, 157000) f32 (y read once, out written
+// once, 3.35 TB/s).  The work gathers, per element, the row's real
+// neighbors (nnz / n = 18.3 on average at r = 0.004) out of k = 36 padded
+// slots.
+// Design: sparse_mix_slab_comm_kernel's column slab without the decode,
+// and with padded slots served from registers.  (1) Block s copies the
+// (n, C) slab of y, columns [s*C, s*C + C) of every row (32 bytes of a
+// row at the planner's C = 8 f32 or C = 16 bf16), into shared memory with
+// cp.async of cw bytes (16 where d and the pointer allow; 8, 4, or 2-byte
+// loads for a bf16 row of odd d), zero past d.  (2) Each warp takes RPW
+// output rows per pass, LPR lanes per row and VW columns per lane, and
+// walks the rows in the row plan's order: rows sorted by their real
+// degree, so the rows of a pass need about as many slots each.  The warp
+// gathers its rows' first slots up to the most real slots among them
+// (deg, rounded up to a group of four), chunk by chunk of KC table slots
+// (20 at C*sizeof(T) = 32 bytes: most passes of the Erdos-Renyi graph
+// need one chunk), each chunk's indices and weights copied into the
+// warp's other stage buffer by cp.async while this chunk gathers, four
+// slots at a time: one 16-byte read of indices and one of weights, and
+// per slot one read of VW values from the slab.  A padded slot of row i
+// holds (index i, weight +0.0) after the row's real slots
+// (topology/structure.py), so inside that range it is gathered as the
+// table says, and past it, where its term is term(acc, +0.0f, y_i) with
+// y_i already in the lane's registers, the k - done padded terms are
+// applied with no load.  Same values in the same order: the output is
+// bitwise the full-operand kernel's and the plain version's for every
+// input, NaN, +-inf and -0 included.  Without a plan (order, deg null)
+// the rows go in natural order and every slot is gathered.  The self term
+// y_i is read from the slab; the output is written once, sw bytes per
+// store, masked past d.  What bounds it at (4096, 157000): shared-memory
+// wavefronts, about 8 per 16-byte slab read of a warp (4 random 32-byte
+// rows per quarter-warp share 4 bank groups) and 2 per slot for the
+// table, over the ~20 slots a pass gathers.
+template <typename T, int RB, int CW>
+__device__ __forceinline__ void stage_slab(T* slab, const T* __restrict__ y,
+                                           int n, int d, int c0) {
+  constexpr int CPR = RB / CW;              // copies per slab row
+  constexpr int E = CW / (int)sizeof(T);    // values per copy
+  for (int e = threadIdx.x; e < n * CPR; e += kSlabThreads) {
+    const int r = e / CPR, j = c0 + (e % CPR) * E;
+    copy_async<CW>(reinterpret_cast<char*>(slab) + (size_t)e * CW,
+                   y + (size_t)r * d + (j < d ? j : 0), j < d);
+  }
 }
 
-// The launch geometry of a halo kernel, or false when the wrapper's tile
-// or shared-memory size is not one the kernel takes.
+template <typename T, int C>
+__global__ void __launch_bounds__(kSlabThreads)
+    sparse_mix_slab_kernel(const T* __restrict__ y, T* __restrict__ out,
+                           const float* __restrict__ w_self,
+                           const int* __restrict__ nbr,
+                           const float* __restrict__ wts,
+                           const int* __restrict__ order,
+                           const int* __restrict__ deg, int n, int d, int k,
+                           int cw, int sw, int laplacian) {
+  constexpr int RB = C * (int)sizeof(T);    // bytes of a slab row
+  constexpr int FC = RB / 4;                // the f32 slab width of RB
+  constexpr int VB = RB < 16 ? RB : 16;     // bytes a lane reads per row
+  constexpr int VW = VB / (int)sizeof(T);   // columns per lane
+  constexpr int LPR = RB / VB;              // lanes per row
+  constexpr int RPW = slab_rows_per_warp(FC);
+  // the comm slab's stage buffers, every column a slot: a chunk of KC
+  // slots per staged row (20 for 32-byte slab rows, else 12)
+  constexpr int KS = slab_slots(FC) + 4, KC = KS;
+  constexpr int P4 = KC / 4;                // 16-byte pieces per staged row
+  constexpr int NP = RPW * P4;              // pieces per buffer
+  constexpr int NE = RPW * KC;              // 4-byte entries per buffer
+  static_assert(RPW * LPR == 32 && KC % 4 == 0 && NE % 32 == 0,
+                "warp geometry");
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* slab = reinterpret_cast<T*>(smem_raw);  // (n, C)
+  int* tab_s = reinterpret_cast<int*>(smem_raw + slab_bytes(n, RB));
+  const int nslab = (d + C - 1) / C;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int* nb_s = tab_s + warp * 2 * RPW * KS;  // 2 x (RPW, KS)
+  float* wt_s = reinterpret_cast<float*>(tab_s + kSlabWarps * 2 * RPW * KS) +
+                warp * 2 * RPW * KS;        // 2 x (RPW, KS)
+  const int rsub = lane / LPR;              // this lane's row in the pass
+  const int cl = (lane % LPR) * VW;         // its first column in the slab
+  const int row_step = kSlabWarps * RPW;
+  const int npass =
+      n > warp * RPW ? (n - warp * RPW + row_step - 1) / row_step : 0;
+  const bool vec_tab = k % 4 == 0 && ((size_t)nbr & 15) == 0 &&
+                       ((size_t)wts & 15) == 0;
+
+  // A pass's rows: lane l holds walk position warp*RPW + p*row_step +
+  // l % RPW, its row (-1 past n), the row's real slots and its diagonal.
+  // The warp gathers to the most real slots of its rows: a row with fewer
+  // takes its padded slots in that range from the table, as the
+  // full-operand kernel does, and the rest from registers.
+  struct PassRow {
+    int row, deg;
+    float ws;
+  };
+  auto pass_row = [&](int p) {
+    const int pos = warp * RPW + p * row_step + lane % RPW;
+    PassRow pr{-1, 0, 0.f};
+    if (pos < n) {
+      pr.row = order ? order[pos] : pos;
+      pr.deg = deg ? deg[pr.row] : k;
+      pr.ws = w_self[pr.row];
+    }
+    return pr;
+  };
+  // async copy of chunk ch of a pass's table rows into stage buffer buf
+  auto stage = [&](const PassRow& pr, int ch, int buf) {
+    int* nb = nb_s + buf * RPW * KS;
+    float* wt = wt_s + buf * RPW * KS;
+    if (vec_tab) {  // piece e: slots 4*(e % P4).. of staged row e / P4
+#pragma unroll
+      for (int m = 0; m < (NP + 31) / 32; ++m) {
+        const int e = lane + 32 * m, rs = min(e / P4, RPW - 1);
+        const int r = __shfl_sync(kAll, pr.row, rs);
+        const int q = ch * KC + 4 * (e % P4);
+        const bool in = e < NP && r >= 0 && q < k;
+        const size_t at = in ? (size_t)r * k + q : 0;
+        if (e < NP) {
+          cp_async16(nb + rs * KS + 4 * (e % P4), nbr + at, in);
+          cp_async16(wt + rs * KS + 4 * (e % P4), wts + at, in);
+        }
+      }
+    } else {  // entry e: slot e % KC of staged row e / KC
+#pragma unroll
+      for (int m = 0; m < NE / 32; ++m) {
+        const int e = lane + 32 * m, rs = e / KC;
+        const int r = __shfl_sync(kAll, pr.row, rs);
+        const int q = ch * KC + e % KC;
+        const bool in = r >= 0 && q < k;
+        const size_t at = in ? (size_t)r * k + q : 0;
+        cp_async4(nb + rs * KS + e % KC, nbr + at, in);
+        cp_async4(wt + rs * KS + e % KC, wts + at, in);
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int s = blockIdx.x; s < nslab; s += gridDim.x) {
+    const int c0 = s * C;
+    // (1) stage the (n, C) slab of y
+    if (cw == 16) {
+      if constexpr (RB >= 16) stage_slab<T, RB, 16>(slab, y, n, d, c0);
+    } else if (cw == 8) {
+      if constexpr (RB >= 8) stage_slab<T, RB, 8>(slab, y, n, d, c0);
+    } else if (cw == 4) {
+      stage_slab<T, RB, 4>(slab, y, n, d, c0);
+    } else {
+      if constexpr (sizeof(T) == 2) stage_slab<T, RB, 2>(slab, y, n, d, c0);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // (2) the mix, pass by pass of the walk
+    PassRow cur{-1, 0, 0.f}, nxt{-1, 0, 0.f};
+    if (npass > 0) {
+      cur = pass_row(0);
+      if (npass > 1) nxt = pass_row(1);
+      stage(cur, 0, 0);
+    }
+    int buf = 0;
+    for (int p = 0; p < npass; ++p) {
+      const int i = __shfl_sync(kAll, cur.row, rsub);
+      const float wsi = __shfl_sync(kAll, cur.ws, rsub);
+      const int gmax = __reduce_max_sync(kAll, cur.deg);
+      const int nch = gmax > 0 ? (gmax + KC - 1) / KC : 1;
+      float yi[VW], acc[VW];
+      if (i >= 0) {
+        lds_vec<T, VW>(slab + (size_t)i * C + cl, yi);
+      } else {
+#pragma unroll
+        for (int v = 0; v < VW; ++v) yi[v] = 0.f;
+      }
+#pragma unroll
+      for (int v = 0; v < VW; ++v) acc[v] = __fmul_rn(wsi, yi[v]);
+      int done = 0;  // slots gathered, the same for every lane
+      for (int ch = 0; ch < nch; ++ch, buf ^= 1) {
+        if (ch + 1 < nch) {  // the next chunk's tables load meanwhile
+          stage(cur, ch + 1, buf ^ 1);
+          cp_async_wait<1>();
+        } else if (p + 1 < npass) {  // or the next pass's first
+          stage(nxt, 0, buf ^ 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncwarp();
+        const int* nb = nb_s + buf * RPW * KS + rsub * KS;
+        const float* wt = wt_s + buf * RPW * KS + rsub * KS;
+        // the warp's slots of this chunk, in groups of four, each the
+        // table's term in table order (a padded slot's staged index is
+        // the row itself); a slot past k (zero-filled) adds nothing
+        const int q0 = ch * KC, ng = (min(KC, gmax - q0) + 3) / 4;
+        for (int g = 0; g < ng; ++g) {
+          const int4 ix = *reinterpret_cast<const int4*>(nb + 4 * g);
+          const float4 wv = *reinterpret_cast<const float4*>(wt + 4 * g);
+          const int idx[4] = {ix.x, ix.y, ix.z, ix.w};
+          const float wq[4] = {wv.x, wv.y, wv.z, wv.w};
+          float x[4][VW];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            lds_vec<T, VW>(slab + (size_t)idx[e] * C + cl, x[e]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (q0 + 4 * g + e < k) {
+#pragma unroll
+              for (int v = 0; v < VW; ++v) {
+                acc[v] = term(acc[v], wq[e], x[e][v]);
+              }
+            }
+          }
+        }
+        done = min(k, q0 + 4 * ng);
+        __syncwarp();  // this buffer is read before it is refilled
+      }
+      if (i >= 0) {
+        // the remaining padded slots, from registers: (index i, +0.0)
+        for (int t = done; t < k; ++t) {
+#pragma unroll
+          for (int v = 0; v < VW; ++v) acc[v] = term(acc[v], 0.0f, yi[v]);
+        }
+        if (laplacian) {
+#pragma unroll
+          for (int v = 0; v < VW; ++v) acc[v] = __fsub_rn(yi[v], acc[v]);
+        }
+        const int j0 = c0 + cl;
+        T* o = out + (size_t)i * d + j0;
+        if (j0 < d) {
+          if (sw >= VB) {
+            stg_vec<T, VW, VB>(o, acc, d - j0);
+          } else if (sw == 8) {
+            if constexpr (VB > 8) stg_vec<T, VW, 8>(o, acc, d - j0);
+          } else if (sw == 4) {
+            if constexpr (VB > 4) stg_vec<T, VW, 4>(o, acc, d - j0);
+          } else {
+            if constexpr (sizeof(T) == 2) stg_vec<T, VW, 2>(o, acc, d - j0);
+          }
+        }
+      }
+      cur = nxt;
+      if (p + 2 < npass) nxt = pass_row(p + 2);
+    }
+    __syncthreads();  // the slab is consumed before the next is staged
+  }
+}
+
+// Dynamic shared memory of a halo launch: `stages` buffers of `rows`
+// staged rows of kHaloBd elements of `itemsize` bytes (the Python
+// planner's halo_smem_bytes with blocks = stages).
+int halo_smem_bytes(int rows, int itemsize, int stages = 1) {
+  return stages * rows * kHaloBd * itemsize;
+}
+
+// The launch geometry of a halo kernel, or false when the wrapper's tile,
+// stage count or shared-memory size is not one the kernel takes.
 bool halo_launch(int n, int d, int bn, int h_lo, int h_hi, int itemsize,
-                 int smem_bytes, dim3* grid) {
+                 int stages, int smem_bytes, dim3* grid) {
   if (bn < 1 || n % bn || h_lo < 0 || h_hi < 0 || h_lo > bn || h_hi > bn ||
-      smem_bytes > kSmemOptIn ||
-      smem_bytes != halo_smem_bytes(h_lo + bn + h_hi, itemsize)) {
+      stages < 1 || stages > kHaloStages || smem_bytes > kSmemOptIn ||
+      smem_bytes != halo_smem_bytes(h_lo + bn + h_hi, itemsize, stages)) {
     return false;
   }
   const int ncol = (d + kHaloBd - 1) / kHaloBd;
@@ -951,34 +1402,62 @@ extern "C" int circulant_neumann_comm(const float* h, const float* hvp,
 // [-h_lo, h_hi]; weights (k,) f32; bn | n; smem_bytes as halo_smem_bytes
 // for the rows the kernel stages (the extended tile on the circulant, the
 // own rows on the sparse gather).
+// The staged circulant kernel for (T, V): its shared memory opted in, and
+// gridDim.y cut to the column tiles that, beside the grid's n/bn row
+// tiles, fill the card once (each block then walks several tiles).
+template <typename T, int V>
+int launch_circ_halo(const void* y, void* out, int n, int d, float w_self,
+                     int k, const int* soff, const float* weights,
+                     int laplacian, int bn, int h_lo, int h_hi, int stages,
+                     int smem_bytes, dim3 grid, cudaStream_t s) {
+  const auto kernel = circulant_mix_halo_kernel<T, V>;
+  cudaError_t err = allow_smem(kernel, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kHaloThreads, smem_bytes)) != cudaSuccess) {
+    return (int)err;
+  }
+  const int fill = sms * (per_sm > 0 ? per_sm : 1) / (int)grid.x;
+  grid.y = fill < 1 ? 1 : (fill < (int)grid.y ? fill : grid.y);
+  kernel<<<grid, kHaloThreads, smem_bytes, s>>>(
+      (const T*)y, (T*)out, n, d, bn, h_lo, h_hi, w_self, k, soff, weights,
+      laplacian, stages);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int circulant_mix_halo(const void* y, void* out, int n, int d,
                                   int dtype, float w_self, int k,
                                   const int* soff, const float* weights,
                                   int laplacian, int bn, int h_lo, int h_hi,
-                                  int smem_bytes, void* stream) {
+                                  int stages, int smem_bytes, void* stream) {
   dim3 grid;
   if ((dtype != 0 && dtype != 1) ||
-      !halo_launch(n, d, bn, h_lo, h_hi, dtype == 0 ? 4 : 2, smem_bytes,
-                   &grid)) {
+      !halo_launch(n, d, bn, h_lo, h_hi, dtype == 0 ? 4 : 2, stages,
+                   smem_bytes, &grid)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
+  const auto args = [&](auto launch) {
+    return launch(y, out, n, d, w_self, k, soff, weights, laplacian, bn,
+                  h_lo, h_hi, stages, smem_bytes, grid, s);
+  };
   if (dtype == 0) {
-    err = allow_smem(circulant_mix_halo_kernel<float>, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    circulant_mix_halo_kernel<float><<<grid, kHaloThreads, smem_bytes, s>>>(
-        (const float*)y, (float*)out, n, d, bn, h_lo, h_hi, w_self, k, soff,
-        weights, laplacian);
-  } else {
-    err = allow_smem(circulant_mix_halo_kernel<__nv_bfloat16>, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    circulant_mix_halo_kernel<__nv_bfloat16>
-        <<<grid, kHaloThreads, smem_bytes, s>>>(
-            (const __nv_bfloat16*)y, (__nv_bfloat16*)out, n, d, bn, h_lo,
-            h_hi, w_self, k, soff, weights, laplacian);
+    switch (vec_bytes(y, out, d, 4, 16)) {
+      case 16: return args(launch_circ_halo<float, 16>);
+      case 8: return args(launch_circ_halo<float, 8>);
+      default: return args(launch_circ_halo<float, 4>);
+    }
   }
-  return (int)cudaGetLastError();
+  switch (vec_bytes(y, out, d, 2, 16)) {
+    case 16: return args(launch_circ_halo<__nv_bfloat16, 16>);
+    case 8: return args(launch_circ_halo<__nv_bfloat16, 8>);
+    case 4: return args(launch_circ_halo<__nv_bfloat16, 4>);
+    default: return args(launch_circ_halo<__nv_bfloat16, 2>);
+  }
 }
 
 extern "C" int circulant_mix_halo_comm(
@@ -989,7 +1468,7 @@ extern "C" int circulant_mix_halo_comm(
     int smem_bytes, void* stream) {
   dim3 grid;
   if ((hat == nullptr) != (pay == nullptr) ||
-      !halo_launch(n, d, bn, h_lo, h_hi, 4, smem_bytes, &grid)) {
+      !halo_launch(n, d, bn, h_lo, h_hi, 4, 1, smem_bytes, &grid)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaError_t err = allow_smem(circulant_mix_halo_comm_kernel,
@@ -1002,16 +1481,72 @@ extern "C" int circulant_mix_halo_comm(
   return (int)cudaGetLastError();
 }
 
+template <typename T, int C>
+int launch_plain_slab(const void* y, void* out, const float* w_self,
+                      const int* nbr, const float* wts, const int* order,
+                      const int* deg, int n, int d, int k, int laplacian,
+                      int smem_bytes, cudaStream_t s) {
+  const auto kernel = sparse_mix_slab_kernel<T, C>;
+  const cudaError_t err = allow_smem(kernel, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int RB = C * (int)sizeof(T), VB = RB < 16 ? RB : 16;
+  const int cw = vec_bytes(y, y, d, (int)sizeof(T), VB);
+  const int sw = vec_bytes(out, out, d, (int)sizeof(T), VB);
+  const int nslab = (d + C - 1) / C;
+  kernel<<<nslab, kSlabThreads, smem_bytes, s>>>(
+      (const T*)y, (T*)out, w_self, nbr, wts, order, deg, n, d, k, cw, sw,
+      laplacian);
+  return (int)cudaGetLastError();
+}
+
+// slab_cols: the plain slab's width C (1, 2, 4, 8 for f32; 2, 4, 8, 16
+// for bf16) and smem_bytes slab_smem_bytes(n, C, itemsize) for
+// sparse_mix_slab_kernel, with the row plan (order, deg: (n,) int32 on
+// the device, or both null for the natural order and deg = k); 0 for the
+// row-tiled kernel, with smem_bytes for its (bn, 128) tile (no plan).
+// bn | n either way (the wrapper keeps repro's checks).
 extern "C" int sparse_mix_halo(const void* y, void* out, const float* w_self,
-                               const int* nbr, const float* wts, int n,
+                               const int* nbr, const float* wts,
+                               const int* order, const int* deg, int n,
                                int d, int k, int dtype, int laplacian,
-                               int bn, int smem_bytes, void* stream) {
-  dim3 grid;
-  if ((dtype != 0 && dtype != 1) ||
-      !halo_launch(n, d, bn, 0, 0, dtype == 0 ? 4 : 2, smem_bytes, &grid)) {
+                               int bn, int slab_cols, int smem_bytes,
+                               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int itemsize = dtype == 0 ? 4 : 2;
+  if ((dtype != 0 && dtype != 1) || (order == nullptr) != (deg == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t s = (cudaStream_t)stream;
+  if (slab_cols != 0) {
+    if (bn < 1 || n % bn ||
+        smem_bytes != slab_smem_bytes(n, slab_cols, itemsize)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const auto args = [&](auto launch) {
+      return launch(y, out, w_self, nbr, wts, order, deg, n, d, k,
+                    laplacian, smem_bytes, s);
+    };
+    if (dtype == 0) {
+      switch (slab_cols) {
+        case 8: return args(launch_plain_slab<float, 8>);
+        case 4: return args(launch_plain_slab<float, 4>);
+        case 2: return args(launch_plain_slab<float, 2>);
+        case 1: return args(launch_plain_slab<float, 1>);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
+    switch (slab_cols) {
+      case 16: return args(launch_plain_slab<__nv_bfloat16, 16>);
+      case 8: return args(launch_plain_slab<__nv_bfloat16, 8>);
+      case 4: return args(launch_plain_slab<__nv_bfloat16, 4>);
+      case 2: return args(launch_plain_slab<__nv_bfloat16, 2>);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  dim3 grid;
+  if (order != nullptr ||
+      !halo_launch(n, d, bn, 0, 0, itemsize, 1, smem_bytes, &grid)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err;
   if (dtype == 0) {
     err = allow_smem(sparse_mix_halo_kernel<float>, smem_bytes);
@@ -1078,7 +1613,7 @@ extern "C" int sparse_mix_halo_comm(const float* y, float* out,
     }
   }
   dim3 grid;
-  if (!halo_launch(n, d, bn, 0, 0, 4, smem_bytes, &grid)) {
+  if (!halo_launch(n, d, bn, 0, 0, 4, 1, smem_bytes, &grid)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaError_t err = allow_smem(sparse_mix_halo_comm_kernel,

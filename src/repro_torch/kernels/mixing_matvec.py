@@ -38,9 +38,10 @@ register no backward, so an operand that requires grad is refused.
 Each kernel's launches are counted in `launch_counts()`, bumped only
 where a wrapper launches it; the comm-fused kernels count apart from the
 plain ones (`*_comm`), `ring_laplacian_matvec` apart from
-`circulant_mix_matvec`, and the compressed sparse gather's row-tiled
-kernel (`sparse_mix_matvec_halo_comm_rows`) apart from its column slab
-(`sparse_mix_matvec_halo_comm`).  `reset_launch_counts` zeroes them all.  Every
+`circulant_mix_matvec`, and the sparse halo gathers' row-tiled kernels
+(`sparse_mix_matvec_halo_rows`, `sparse_mix_matvec_halo_comm_rows`) apart
+from their column slabs (`sparse_mix_matvec_halo`,
+`sparse_mix_matvec_halo_comm`).  `reset_launch_counts` zeroes them all.  Every
 launch goes through `_cuda_lib.CudaLibrary`, the port's one ctypes
 launch path.
 
@@ -65,31 +66,38 @@ the budget (and drops the TPU's sublane rule):
     mix and 64 for the fused ones;
   * else no tile: `MixingOp` runs the full-operand kernel.
 
-The halo kernels need less than the planner counts (one staged tile per
-block), and each wrapper sizes its launch with the same
+The halo kernels need no more than the planner counts: the plain
+circulant kernel stages its tiles on a ring of `halo_stages` buffers (3
+at the planner's bn, fewer where a wider tile is asked for), the others
+one tile per block.  Each wrapper sizes its launch with the same
 `halo_smem_bytes`, asserts that it lies within the plan for its bn, and
-the C entry point recomputes it and refuses a launch that disagrees.
+the C entry point recomputes it from the stage count and refuses a
+launch that disagrees.
 The halo wrappers take the circulant offsets and weights as host
 sequences (`structure.offsets`), so the extents never come from the
 card; their signed (k,) device tables are built once per graph and
 device and cached.  Results do not depend on bn: plain outputs, fused
 payloads and fused outputs equal the full-operand kernels' bit for bit.
 
-The compressed sparse gather on the halo tier does not tile rows where
-it can help it: an irregular graph's neighbors lie anywhere in the
-operand, so a row tile would decode each neighbor value where it is
-gathered, k hashes per element.  `plan_slab_cols` instead gives each
-block a column slab of c columns over all n rows in shared memory
-(c = 8 at n = 4096), decoded once, one hash per element; the row-tiled
-kernel runs only where no slab fits (n > 33,536 in f32).  The choice is
-by shape alone and bn keeps its checks either way; `smem_budget` lowers
-the budget to drive every route at a small n.
+The sparse gathers on the halo tier do not tile rows where they can
+help it: an irregular graph's neighbors lie anywhere in the operand, so
+a row tile gathers each neighbor value from device memory (and, with
+``comm``, decodes it there, k hashes per element).  `plan_slab_cols`
+instead gives each block a column slab of c columns over all n rows in
+shared memory (32 bytes of a row: c = 8 f32, 16 bf16 at n = 4096),
+gathered from there (and decoded once, one hash per element); the
+row-tiled kernels run only where no slab fits (n > 33,536 in f32).  The
+plain slab takes a row plan (`sparse_row_plan`: the rows in degree
+order, each row's real slots), which `MixingOp` builds once per graph.
+The choice is by shape alone and bn keeps its checks either way;
+`smem_budget` lowers the budget to drive every route at a small n.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
 
+import numpy as np
 import torch
 
 from ._cuda_lib import DTYPE_CODE as _DTYPE_CODE
@@ -122,13 +130,16 @@ _LIB = CudaLibrary("mixing_matvec", {
                         _I),
     "circulant_neumann_comm": (_P, _P, _P, _P, _P, *_WIRE, _I, _I, _F, _I,
                                _P, _P, _F),
-    # ..., bn, h_lo, h_hi, smem bytes
+    # ..., bn, h_lo, h_hi, stages, smem bytes
     "circulant_mix_halo": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _I, _I,
-                           _I, _I),
+                           _I, _I, _I),
+    # ..., bn, h_lo, h_hi, smem bytes
     "circulant_mix_halo_comm": (_P, _P, _P, _P, *_WIRE, _I, _I, _F, _I, _P,
                                 _P, _I, _I, _I, _I, _I),
-    # ..., bn, smem bytes
-    "sparse_mix_halo": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
+    # ..., row plan (order, deg), n, d, k, dtype, laplacian, bn, slab
+    # columns (0: the row-tiled kernel), smem bytes
+    "sparse_mix_halo": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _I),
     # ..., bn, slab columns (0: the row-tiled kernel), smem bytes
     "sparse_mix_halo_comm": (_P, _P, *_WIRE, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I),
@@ -140,8 +151,8 @@ _LAUNCHES = dict.fromkeys((
     "circulant_mix_matvec_comm", "sparse_mix_matvec_comm",
     "circulant_neumann_step_comm", "ring_laplacian_matvec",
     "circulant_mix_matvec_halo", "circulant_mix_matvec_halo_comm",
-    "sparse_mix_matvec_halo", "sparse_mix_matvec_halo_comm",
-    "sparse_mix_matvec_halo_comm_rows"), 0)
+    "sparse_mix_matvec_halo", "sparse_mix_matvec_halo_rows",
+    "sparse_mix_matvec_halo_comm", "sparse_mix_matvec_halo_comm_rows"), 0)
 
 
 def launch_counts() -> dict[str, int]:
@@ -463,6 +474,19 @@ def halo_smem_bytes(rows: int, *, itemsize: int = 4,
     return rows * HALO_BD * itemsize * blocks
 
 
+HALO_STAGES = 3
+
+
+def halo_stages(rows: int, *, itemsize: int = 4) -> int:
+    """The staged circulant kernel's ring: the most buffers of a
+    (rows, HALO_BD) tile, up to `HALO_STAGES`, within
+    `SMEM_BUDGET_BYTES` (read at the call); 3 at the planner's bn, whose
+    plan counts 3 live buffers (`plan_blocks(False)`); 0 when not even
+    one fits."""
+    return min(HALO_STAGES, SMEM_BUDGET_BYTES
+               // halo_smem_bytes(rows, itemsize=itemsize))
+
+
 def stripe_smem_bytes(n: int, *, itemsize: int = 4, blocks: int = 3) -> int:
     """A full (n, HALO_BD) column stripe's live buffers (`repro`'s
     `stripe_vmem_bytes`)."""
@@ -497,32 +521,63 @@ def plan_row_tile(n: int, *, h_lo: int = 0, h_hi: int = 0,
     return ("xla", None) if bn is None else ("halo", bn)
 
 
-# The compressed sparse gather's column slab (`sparse_mix_slab_comm_kernel`
-# in csrc/mixing_matvec.cu): block s holds columns [s·c, s·c + c) of all
-# n rows, decoded, beside its warps' neighbor-table stage: 16 warps × 2
-# buffers × (16 rows × 20 slots at c = 8, else 32 rows × 12 slots) ×
+# The sparse gathers' column slab (`sparse_mix_slab_kernel`, plain, f32
+# and bf16, and `sparse_mix_slab_comm_kernel`, compressed, f32; in
+# csrc/mixing_matvec.cu): block s holds columns [s·c, s·c + c) of all n
+# rows beside its warps' neighbor-table stage: 16 warps × 2 buffers × (16
+# rows × 20 slots for 32-byte slab rows, else 32 rows × 12 slots) ×
 # (index + weight).  The stage starts at the slab's size rounded up to 16
-# bytes, where its 16-byte copies land aligned whatever n and c.
-SLAB_COLS = (8, 4, 2, 1)
+# bytes, where its 16-byte copies land aligned whatever n and c.  The
+# slab row's width in bytes picks the geometry, so a bf16 slab of c
+# columns is laid out as the f32 slab of c/2.
+SLAB_ROW_BYTES = (32, 16, 8, 4)
+SLAB_COLS = tuple(b // 4 for b in SLAB_ROW_BYTES)     # f32: 8, 4, 2, 1
 
 
-def slab_smem_bytes(n: int, cols: int) -> int:
-    """Shared memory of a slab launch: the (n, cols) f32 slab, rounded up
-    to 16 bytes, and the table stage."""
-    rows, slots = (16, 20) if cols == 8 else (32, 12)
-    return -(-n * cols * 4 // 16) * 16 + 16 * 2 * rows * slots * 8
+def slab_cols_for(itemsize: int = 4) -> tuple[int, ...]:
+    """The slab widths c, widest first, for `itemsize`-byte values:
+    (8, 4, 2, 1) for f32, (16, 8, 4, 2) for bf16."""
+    return tuple(b // itemsize for b in SLAB_ROW_BYTES)
 
 
-def plan_slab_cols(n: int) -> int | None:
-    """The slab width c for the compressed sparse gather at n agents:
-    the widest of `SLAB_COLS` whose slab fits `SMEM_BUDGET_BYTES` (read
-    at the call) — 8 at n = 4096 (one 32-byte sector per row) — or None
-    above n = 33,536, where not even c = 1 fits and the row-tiled kernel
+def slab_smem_bytes(n: int, cols: int, itemsize: int = 4) -> int:
+    """Shared memory of a slab launch: the (n, cols) slab of `itemsize`-
+    byte values, rounded up to 16 bytes, and the table stage."""
+    rows, slots = (16, 20) if cols * itemsize == 32 else (32, 12)
+    return -(-n * cols * itemsize // 16) * 16 + 16 * 2 * rows * slots * 8
+
+
+def plan_slab_cols(n: int, itemsize: int = 4) -> int | None:
+    """The slab width c for a sparse gather of `itemsize`-byte values at
+    n agents: the widest of `slab_cols_for(itemsize)` whose slab fits
+    `SMEM_BUDGET_BYTES` (read at the call) — 8 for f32 and 16 for bf16 at
+    n = 4096 (32 bytes of every row, one sector) — or None above n =
+    33,536, where not even a 4-byte row fits and the row-tiled kernel
     runs."""
-    for c in SLAB_COLS:
-        if slab_smem_bytes(n, c) <= SMEM_BUDGET_BYTES:
+    for c in slab_cols_for(itemsize):
+        if slab_smem_bytes(n, c, itemsize) <= SMEM_BUDGET_BYTES:
             return c
     return None
+
+
+def sparse_row_plan(neighbors, weights) -> tuple[np.ndarray, np.ndarray]:
+    """The plain slab's row plan from padded (n, k) host tables: (order,
+    deg), (n,) int32 each.  deg[i] counts row i's slots before its
+    trailing run of padded slots — index i and weight bits exactly +0.0,
+    as `structure.sparse_structure` pads — so the kernel gathers row i's
+    real slots and applies the padded terms after them from registers; a
+    row with no such run has deg = k.  order: the rows sorted by deg
+    (stable), the order the kernel's warps walk them in."""
+    nbr = np.asarray(neighbors)
+    w = np.ascontiguousarray(weights, dtype=np.float32)
+    if nbr.ndim != 2 or nbr.shape != w.shape:
+        raise ValueError(f"neighbors and weights must both be (n, k); got "
+                         f"{nbr.shape} and {w.shape}")
+    n, k = nbr.shape
+    pad = (nbr == np.arange(n)[:, None]) & (w.view(np.uint32) == 0)
+    run = np.where(pad.all(axis=1), k, np.argmin(pad[:, ::-1], axis=1))
+    deg = (k - run).astype(np.int32)
+    return np.argsort(deg, kind="stable").astype(np.int32), deg
 
 
 @contextlib.contextmanager
@@ -541,19 +596,23 @@ def smem_budget(nbytes: int):
 
 
 def _halo_smem(n: int, bn, h_lo: int, h_hi: int, itemsize: int,
-               blocks: int, rows: int) -> int:
-    """Check the row tile and size the launch's shared memory: `rows`
-    staged rows, within what a block may use and within the plan's
-    `blocks` buffers for this bn."""
+               blocks: int, rows: int, ring: bool = False
+               ) -> tuple[int, int]:
+    """Check the row tile and size the launch's shared memory: (stages,
+    bytes) of `rows` staged rows — one buffer, or with `ring` the staged
+    circulant kernel's `halo_stages` — within what a block may use and
+    within the plan's `blocks` buffers for this bn."""
     check_halo_tile(n, bn, h_lo, h_hi)
     smem = halo_smem_bytes(rows, itemsize=itemsize)
     if smem > SMEM_BUDGET_BYTES:
         raise ValueError(f"bn={bn}: the {rows}-row tile needs {smem} B of "
                          f"shared memory, over the {SMEM_BUDGET_BYTES} B a "
                          f"block may use (pick_halo_bn sizes bn)")
+    stages = halo_stages(rows, itemsize=itemsize) if ring else 1
+    smem *= stages
     assert smem <= halo_smem_bytes(h_lo + bn + h_hi, itemsize=itemsize,
                                    blocks=blocks)
-    return smem
+    return stages, smem
 
 
 @functools.lru_cache(maxsize=64)
@@ -587,8 +646,11 @@ def circulant_mix_matvec_halo(y: torch.Tensor, zp=None, scale=None,
     bits, ef = fused if fused is not None else (None, False)
     if fused is not None:
         _check_wire(y, zp, scale, seed, hat, ef)
-    smem = _halo_smem(n, bn, h_lo, h_hi, y.element_size(),
-                      plan_blocks(fused is not None, ef), h_lo + bn + h_hi)
+    # the plain kernel stages its tiles on a ring, the fused one a single
+    # tile
+    stages, smem = _halo_smem(n, bn, h_lo, h_hi, y.element_size(),
+                              plan_blocks(fused is not None, ef),
+                              h_lo + bn + h_hi, ring=fused is None)
     kw = dict(w_self=float(w_self), offsets=offsets, weights=weights,
               laplacian=laplacian, bn=bn)
     if y.device.type == "cpu":
@@ -599,17 +661,17 @@ def circulant_mix_matvec_halo(y: torch.Tensor, zp=None, scale=None,
     soff, w = _signed_tables(n, offsets, weights, y.device)
     out = torch.empty_like(y)
     geometry = (len(offsets), soff.data_ptr(), w.data_ptr(),
-                int(bool(laplacian)), bn, h_lo, h_hi, smem)
+                int(bool(laplacian)), bn, h_lo, h_hi)
     if fused is None:
         _launch("circulant_mix_halo", "circulant_mix_matvec_halo", y.device,
                 y.data_ptr(), out.data_ptr(), n, d, _DTYPE_CODE[y.dtype],
-                float(w_self), *geometry)
+                float(w_self), *geometry, stages, smem)
         return out
     pay = torch.empty_like(y) if ef else None
     _launch("circulant_mix_halo_comm", "circulant_mix_matvec_halo_comm",
             y.device, y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
             zp.data_ptr(), scale.data_ptr(), seed & 0xFFFFFFFF,
-            float(2 ** bits - 1), n, d, float(w_self), *geometry)
+            float(2 ** bits - 1), n, d, float(w_self), *geometry, smem)
     return (out, pay) if ef else out
 
 
@@ -617,35 +679,56 @@ def sparse_mix_matvec_halo(y: torch.Tensor, w_self: torch.Tensor,
                            neighbors: torch.Tensor, weights: torch.Tensor,
                            zp=None, scale=None, seed=None, *,
                            laplacian: bool = False, bn: int,
-                           comm: str | None = None) -> torch.Tensor:
-    """Row-tiled twin of `sparse_mix_matvec`: grid (n/bn, d/128), each
-    block staging its own rows in shared memory and gathering neighbor
-    rows from device memory.  Tables as in `sparse_mix_matvec`; bn | n.
-    ``comm="int8" | "int4"`` fuses the quantizer; error feedback is
-    refused, as `repro` refuses it (no payload write-back here).
+                           comm: str | None = None,
+                           row_plan=None) -> torch.Tensor:
+    """Halo-tier twin of `sparse_mix_matvec` for large n.  Tables as in
+    `sparse_mix_matvec`; bn | n.  ``comm="int8" | "int4"`` fuses the
+    quantizer; error feedback is refused, as `repro` refuses it (no
+    payload write-back here).
 
-    With ``comm`` the planner chooses the kernel by shape: where a column
-    slab fits (`plan_slab_cols`, n ≤ 33,536 in f32) the slab kernel runs,
-    which decodes each element once into shared memory and gathers every
-    neighbor from there, whatever bn; above that the row-tiled kernel,
-    which decodes each neighbor value where it is gathered (k hashes per
-    element).  bn keeps `repro`'s meaning and checks either way, and both
-    kernels' outputs equal the full-operand kernel's bit for bit."""
+    The planner chooses the kernel by shape: where a column slab fits
+    (`plan_slab_cols`, n ≤ 33,536 in f32) a slab kernel runs, which holds
+    c columns of every row in shared memory and gathers every neighbor
+    from there, whatever bn (with ``comm`` it decodes each element once);
+    above that the row-tiled kernel, grid (n/bn, d/128), each block
+    staging its own rows and gathering neighbor rows from device memory
+    (with ``comm`` decoding each neighbor value where it is gathered, k
+    hashes per element).  The two routes count apart:
+    `sparse_mix_matvec_halo[_comm]` the slab, `..._rows` the row tiles.
+
+    row_plan: (order, deg), (n,) int32 each on y's device, from
+    `sparse_row_plan` on the same tables (plain gather only).  The plain
+    slab then walks the rows in `order`, a warp gathering its rows' slots
+    up to the most real slots among them and applying the padded slots
+    (i, +0.0) past that from registers; without it, rows go in natural
+    order and every slot is gathered.  The row-tiled kernel takes no
+    plan.  A
+    plan from other tables gives wrong sums (it is not checked on the
+    card: that would synchronize).  bn keeps `repro`'s meaning and checks
+    on every route, and every route's output equals the full-operand
+    kernel's bit for bit."""
     fused = parse_kernel_comm(comm)
     if fused is not None and fused[1]:
         raise ValueError("the sparse halo kernel does not lower '+ef' "
                          "comm; use the full-operand kernel or compose "
                          "the compressor with the plain mix")
+    if fused is not None and row_plan is not None:
+        raise ValueError("row_plan drives the plain gather; the compressed "
+                         "slab walks rows in natural order")
     _check_state("y", y)
     n, d = y.shape
     k = neighbors.shape[1] if neighbors.dim() == 2 else -1
     _check_table("w_self", w_self, (n,), torch.float32, y.device)
     _check_table("neighbors", neighbors, (n, k), torch.int32, y.device)
     _check_table("weights", weights, (n, k), torch.float32, y.device)
+    if row_plan is not None:
+        order, deg = row_plan
+        _check_table("row_plan order", order, (n,), torch.int32, y.device)
+        _check_table("row_plan deg", deg, (n,), torch.int32, y.device)
     if fused is not None:
         _check_wire(y, zp, scale, seed, None, False)
-    smem = _halo_smem(n, bn, 0, 0, y.element_size(),
-                      plan_blocks(fused is not None), bn)
+    _, smem = _halo_smem(n, bn, 0, 0, y.element_size(),
+                         plan_blocks(fused is not None), bn)
     if y.device.type == "cpu":
         if fused is None:
             return sparse_mix_halo_ref(y.float(), w_self, neighbors,
@@ -655,20 +738,23 @@ def sparse_mix_matvec_halo(y: torch.Tensor, w_self: torch.Tensor,
                                    seed, laplacian=laplacian, bn=bn,
                                    bits=fused[0])
     out = torch.empty_like(y)
-    tables = (w_self.data_ptr(), neighbors.data_ptr(), weights.data_ptr(),
-              n, d, k)
-    if fused is None:
-        _launch("sparse_mix_halo", "sparse_mix_matvec_halo", y.device,
-                y.data_ptr(), out.data_ptr(), *tables, _DTYPE_CODE[y.dtype],
-                int(bool(laplacian)), bn, smem)
-        return out
-    cols = plan_slab_cols(n)
+    tables = (w_self.data_ptr(), neighbors.data_ptr(), weights.data_ptr())
+    cols = plan_slab_cols(n, y.element_size())
     if cols is not None:
-        smem = slab_smem_bytes(n, cols)
+        smem = slab_smem_bytes(n, cols, y.element_size())
+    if fused is None:
+        plan = (None, None) if row_plan is None or cols is None \
+            else (order.data_ptr(), deg.data_ptr())
+        _launch("sparse_mix_halo", "sparse_mix_matvec_halo"
+                if cols is not None else "sparse_mix_matvec_halo_rows",
+                y.device, y.data_ptr(), out.data_ptr(), *tables, *plan, n,
+                d, k, _DTYPE_CODE[y.dtype], int(bool(laplacian)), bn,
+                cols or 0, smem)
+        return out
     _launch("sparse_mix_halo_comm", "sparse_mix_matvec_halo_comm"
             if cols is not None else "sparse_mix_matvec_halo_comm_rows",
             y.device,
             y.data_ptr(), out.data_ptr(), zp.data_ptr(), scale.data_ptr(),
-            seed & 0xFFFFFFFF, float(2 ** fused[0] - 1), *tables,
+            seed & 0xFFFFFFFF, float(2 ** fused[0] - 1), *tables, n, d, k,
             int(bool(laplacian)), bn, cols or 0, smem)
     return out

@@ -96,7 +96,8 @@ from ..kernels.mixing_matvec import (circulant_mix_matvec,
                                      circulant_tables, halo_extents,
                                      plan_blocks, plan_row_tile,
                                      sparse_mix_matvec,
-                                     sparse_mix_matvec_halo)
+                                     sparse_mix_matvec_halo,
+                                     sparse_row_plan)
 from ..kernels.ops import kernels_enabled
 from ..kernels.ref import circulant_mix_ref, sparse_mix_padded_ref
 from ..kernels.ref import neumann_update as _neumann_update
@@ -255,6 +256,10 @@ class MixingOp:
             self._sp_wself = torch.as_tensor(sp.w_self, device=dev)
             self._sp_idx = torch.as_tensor(sp.neighbors, device=dev)
             self._sp_wts = torch.as_tensor(sp.weights, device=dev)
+            # the plain slab gather's walk: rows in degree order, each
+            # row's real slots (its padded ones come from registers)
+            self._sp_plan = tuple(torch.as_tensor(a, device=dev) for a in
+                                  sparse_row_plan(sp.neighbors, sp.weights))
             self._sp_row = torch.as_tensor(sp.row, dtype=torch.int64,
                                            device=dev)
             self._sp_col = torch.as_tensor(sp.col, dtype=torch.int64,
@@ -370,7 +375,8 @@ class MixingOp:
         elif bn is not None:
             out = sparse_mix_matvec_halo(flat.contiguous(), self._sp_wself,
                                          self._sp_idx, self._sp_wts,
-                                         laplacian=laplacian, bn=bn)
+                                         laplacian=laplacian, bn=bn,
+                                         row_plan=self._sp_plan)
         else:
             out = sparse_mix_matvec(flat.contiguous(), self._sp_wself,
                                     self._sp_idx, self._sp_wts,

@@ -12,6 +12,8 @@ ulp (2⁻⁷ relative to the largest output).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -658,6 +660,129 @@ def test_sparse_halo_comm_every_route_bitwise(cuda, route, n, bn, d, comm):
         assert counts == {**dict.fromkeys(counts, 0), counter: 1}
         _bits_equal(got, want)
         del got, want
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The plain sparse gather's column slab (`sparse_mix_slab_kernel`): rows in
+# the row plan's degree order, padded slots from registers.  Every route
+# equals the full-operand kernel and the plain version bit for bit, with
+# NaN, ±inf and −0 in the operand.
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _er_structure(n, r=0.004):
+    return sparse_structure(make_network("erdos_renyi", n, r=r, seed=0).W)
+
+
+@functools.lru_cache(maxsize=None)
+def _circulant_structure(n, offsets):
+    return circulant_structure(make_network("circulant", n,
+                                            offsets=offsets).W)
+
+
+def _special_rows(y):
+    """NaN, ±inf and −0 in a few rows of a CPU operand (before the cast
+    to its dtype, which keeps each)."""
+    y[3, :4] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                             -0.0])
+    y[7] = -0.0
+    y[11, 1::3] = float("inf")
+    return y
+
+
+@pytest.mark.parametrize("route", [0, 1, 2, 3, None])
+@pytest.mark.parametrize("n,bn,d", [(4096, 64, 157000), (4096, 64, 2010),
+                                    (4096, 64, 1001), (4121, 1, 2010),
+                                    (4121, 1, 1001)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("planned", [True, False])
+def test_sparse_halo_plain_every_route_bitwise(cuda, route, n, bn, d, dtype,
+                                               planned):
+    """Every route of the plain sparse gather: the slab at the planner's
+    width (c = 8 f32, 16 bf16: the main path's ER gossip at n = 4096, r =
+    0.004, k = 36, at d1 and d2), then, under a lower planner budget
+    (`smem_budget`), the three narrower slabs (route 1-3 of
+    `slab_cols_for`) and the row-tiled kernel (None), which the planner
+    gives n > 33,536; each with and without the row plan (degree order,
+    padded slots from registers; without it every slot is gathered in
+    natural order).  d = 2010 takes 8-byte (f32) or 4-byte (bf16) copies,
+    d = 1001 4-byte (f32) or 2-byte loads (bf16) and a ragged last slab;
+    n = 4121 is odd (bn = 1, k = 36).  Bitwise against the full-operand
+    kernel and the plain version, NaN, ±inf and −0 included, counted
+    under the route's own name."""
+    sp = _er_structure(n)
+    tabs = [torch.as_tensor(a, device=cuda)
+            for a in (sp.w_self, sp.neighbors, sp.weights)]
+    plan = tuple(torch.as_tensor(a, device=cuda) for a in
+                 mm.sparse_row_plan(sp.neighbors, sp.weights)) \
+        if planned else None
+    y = _special_rows(_randn((n, d), torch.float32, "cpu", seed=d))
+    y = y.to(cuda).to(dtype)
+    item = y.element_size()
+    widths = mm.slab_cols_for(item)
+    if route == 0:
+        budget = mm.SMEM_BUDGET_BYTES
+    elif route is None:
+        budget = mm.slab_smem_bytes(n, widths[-1], item) - 1
+    else:
+        budget = mm.slab_smem_bytes(n, widths[route], item)
+    cols = None if route is None else widths[route]
+    counter = ("sparse_mix_matvec_halo" if route is not None
+               else "sparse_mix_matvec_halo_rows")
+    for lap in (False, True):
+        full = mm.sparse_mix_matvec(y, *tabs, laplacian=lap)
+        want = ref.sparse_mix_padded_ref(y.float(), *tabs, lap).to(dtype)
+        mm.reset_launch_counts()
+        with mm.smem_budget(budget):
+            assert mm.plan_slab_cols(n, item) == cols
+            got = mm.sparse_mix_matvec_halo(y, *tabs, laplacian=lap, bn=bn,
+                                            row_plan=plan)
+        torch.cuda.synchronize()
+        counts = mm.launch_counts()
+        assert counts == {**dict.fromkeys(counts, 0), counter: 1}
+        assert got.dtype == dtype
+        _bits_equal(got.float(), full.float())
+        _bits_equal(got.float(), want.float())
+        del got, full, want
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offsets", [(1,), tuple(range(1, 10))])
+@pytest.mark.parametrize("d", [160, 2010, 1001, 157000])
+@pytest.mark.parametrize("tile", ["bn", "bn/2", "2bn"])
+def test_circulant_halo_staged_ring_bitwise(cuda, dtype, offsets, d, tile):
+    """The staged circulant kernel at n = 4096 on the ring and on a
+    circulant with 18 offsets (halo 9 each side), at the planner's bn,
+    half and twice it (a 1-stage ring: twice the tile leaves room for one
+    buffer): d = 160 takes 16-byte copies and a ragged column tile, d =
+    2010 8-byte (f32) or 4-byte (bf16) rows, d = 1001 4-byte (f32) or
+    2-byte (bf16) rows, d = 157000 the main path's 16-byte ones.  Bitwise
+    against the full-operand kernel, counted once per launch."""
+    n = 4096
+    s = _circulant_structure(n, offsets)
+    h_lo, h_hi = mm.halo_extents(s.offsets, n)
+    y = _special_rows(_randn((n, d), torch.float32, "cpu", seed=d))
+    y = y.to(cuda).to(dtype)
+    item = y.element_size()
+    planned = mm.pick_halo_bn(n, h_lo=h_lo, h_hi=h_hi, itemsize=item)
+    bn = {"bn": planned, "bn/2": planned // 2, "2bn": 2 * planned}[tile]
+    stages = mm.halo_stages(h_lo + bn + h_hi, itemsize=item)
+    assert stages == (1 if tile == "2bn" else 3)
+    for lap in (False, True):
+        full = mm.circulant_mix_matvec(y, laplacian=lap, **_tables(s, cuda))
+        mm.reset_launch_counts()
+        got = mm.circulant_mix_matvec_halo(y, w_self=s.w_self,
+                                           offsets=s.offsets,
+                                           weights=s.weights, laplacian=lap,
+                                           bn=bn)
+        torch.cuda.synchronize()
+        counts = mm.launch_counts()
+        assert counts == {**dict.fromkeys(counts, 0),
+                          "circulant_mix_matvec_halo": 1}
+        _bits_equal(got.float(), full.float())
+        del got, full
         torch.cuda.empty_cache()
 
 

@@ -138,7 +138,7 @@ def test_cpu_wrappers_run_the_plain_versions_without_launching():
             "sparse_mix_matvec_comm", "circulant_neumann_step_comm",
             "ring_laplacian_matvec", "circulant_mix_matvec_halo",
             "circulant_mix_matvec_halo_comm", "sparse_mix_matvec_halo",
-            "sparse_mix_matvec_halo_comm",
+            "sparse_mix_matvec_halo_rows", "sparse_mix_matvec_halo_comm",
             "sparse_mix_matvec_halo_comm_rows"} == set(counts)
 
 
