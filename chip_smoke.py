@@ -15,9 +15,13 @@ Phases, in order (any failure exits non-zero before the last line):
                the bytes/operations bound: the plain circulant, sparse-
                gather and Neumann kernels, their comm-fused twins
                (int8/int4 ± error feedback; payload bitwise) and the
-               ring Laplacian; then the halo kernels at n = 4096: the
-               circulant ones (plain on its staged ring, and fused) at
-               the planner's row tile and two others, bitwise against
+               ring Laplacian; the sparse gather's column stripe also at
+               the paper's Fig. 2 size (100, d1) and, at n = 16, on every
+               stripe width and its unstaged kernel (bitwise, through a
+               lower shared-memory budget), the unstaged kernel timed;
+               then the halo kernels at n = 4096: the circulant ones
+               (plain and fused, each on its staged ring) at the
+               planner's row tile and two others, bitwise against
                the full-operand kernels, and every route of the plain
                and the compressed sparse gathers (the column slab at
                each width, c = 8/4/2/1 f32, 16/8/4/2 bf16, and the
@@ -36,6 +40,11 @@ Phases, in order (any failure exits non-zero before the last line):
                with the same run on the card through the kernels' plain
                versions, and with the CPU run within the algorithm's own
                seed-to-seed spread (see E2E_NORM_REL);
+  4b. fig2   — the same solve on an Erdős–Rényi graph of 100 agents
+               (r = 0.5, the paper's Fig. 2 size; K = 3, identity wire),
+               every gossip through the sparse gather's column stripe:
+               exact launch counts, bitwise equal to the same solve through
+               the plain versions, seconds per round;
   5. large   — the same solve on n = 4096 agents (K = 3), where the
                shared-memory planner sends every gossip through the halo
                kernels (the compressed Erdős–Rényi gossip through the
@@ -101,6 +110,9 @@ K, M, U = 5, 5, 3
 # the large-network path: one (4096, 157000) f32 state is 2.57 GB; an
 # Erdős–Rényi graph with mean degree ~18 (k_max 36, the padded gather)
 N_LARGE, K_LARGE, ER_R_LARGE = 4096, 3, 0.004
+# the network size of the paper's Fig. 2 (a random graph of 100 agents),
+# where the full-operand sparse gather stages its whole 128-column stripe
+N_FIG2 = 100
 
 # tolerances: the kernels round each product and sum on its own, in
 # their plain versions' order (no FMA contraction), so outputs are
@@ -220,6 +232,16 @@ def check_fused(name, got, want, ef: bool) -> float:
     return check(name, got, want, "float32")
 
 
+def bitwise(tag, got, full, what="the full-operand kernel") -> None:
+    """Every element of got (a tensor, or a tuple: output and payload)
+    equal to full's."""
+    pairs = zip(got, full) if isinstance(got, tuple) else [(got, full)]
+    diff = sum(int((g != f).sum().item()) for g, f in pairs)
+    print(f"  {tag}: elements differing from {what} {diff} (bitwise)")
+    if diff:
+        raise AssertionError(f"{tag}: not bitwise equal to {what}")
+
+
 def wire_operands(torch, gen, n, d, comm, extra=0):
     """(bits, ef, pool): operands of one comm-fused launch, y (and hat),
     its row metadata, plus `extra` more (n, d) operands (the Neumann
@@ -328,8 +350,14 @@ def kernel_phase(torch, results: dict) -> None:
                             lib=lib, bound=b_ms, by=b_by))
 
     # -- sparse_mix_matvec ---------------------------------------------
-    print("kernel sparse_mix_matvec (Erdős–Rényi r=0.5 W·Y and (I−W)·Y)")
-    for n, d in shapes + [(128, D1)]:
+    # the column stripe at the planner's width (128 f32 / 256 bf16 columns
+    # at these n), timed at the main path's shapes, at (128, d1) and at
+    # the paper's Fig. 2 network size (100, d1); at n = 16 every stripe
+    # width and the unstaged kernel, reached through a lower planner
+    # budget, held bitwise; the unstaged kernel (n > 14,528) also timed
+    print("kernel sparse_mix_matvec (Erdős–Rényi r=0.5 W·Y and (I−W)·Y; "
+          "column stripe, and the unstaged kernel past it)")
+    for n, d in shapes + [(128, D1), (100, D1)]:
         net, sp, (w_self, nbr, wts) = er_case(n)
         csr = torch.as_tensor(net.W, dtype=torch.float32,
                               device=dev).to_sparse_csr()
@@ -339,6 +367,10 @@ def kernel_phase(torch, results: dict) -> None:
             item = torch.tensor([], dtype=dt).element_size()
             pool = operand_pool(torch, lambda: torch.randn(
                 (n, d), generator=gen, device=dev).to(dt), n * d * item)
+            widths = mm.stripe_cols_for(item)
+            unstaged = mm.stripe_bytes(n, widths[-1], item) - 1
+            routes = [(c, mm.stripe_bytes(n, c, item)) for c in widths
+                      ] + [(None, unstaged)] if n == N_AGENTS else []
             for lap in (False, True):
                 y = pool[0]
                 got = mm.sparse_mix_matvec(y, w_self, nbr, wts,
@@ -346,13 +378,29 @@ def kernel_phase(torch, results: dict) -> None:
                 want = ref.sparse_mix_padded_ref(y.float(), w_self, nbr,
                                                  wts, lap).to(dt)
                 torch.cuda.synchronize()
-                tag = f"({n}, {d}) {dname} laplacian={lap} k={sp.k}"
+                tag = (f"({n}, {d}) {dname} laplacian={lap} k={sp.k} "
+                       f"stripe c={mm.plan_stripe_cols(n, item)}")
                 err = check(tag, got, want, dname)
+                bitwise(tag, got, want, "the plain version")
+                errs = {}
+                for cols, budget in routes:
+                    with mm.smem_budget(budget):
+                        assert mm.plan_stripe_cols(n, item) == cols
+                        got = mm.sparse_mix_matvec(y, w_self, nbr, wts,
+                                                   laplacian=lap)
+                    torch.cuda.synchronize()
+                    tag = (f"({n}, {d}) {dname} laplacian={lap} " + (
+                        f"stripe c={cols}" if cols else "unstaged"))
+                    bitwise(tag, got, want, "the plain version")
+                    errs[cols] = check(tag, got, want, dname)
+                del got
+
                 def launch(t):
                     return mm.sparse_mix_matvec(t, w_self, nbr, wts,
                                                 laplacian=lap)
                 ms = cuda_ms(torch, launch, pool)
-                dev_ms = device_ms(torch, launch, pool, "sparse_mix_kernel")
+                dev_ms = device_ms(torch, launch, pool,
+                                   "sparse_mix_stripe_kernel")
                 plain = cuda_ms(torch, lambda t: ref.sparse_mix_padded_ref(
                     t.float(), w_self, nbr, wts, lap).to(dt), pool,
                     iters=50)
@@ -371,9 +419,33 @@ def kernel_phase(torch, results: dict) -> None:
                       f"library_ms(sparse.mm CSR)="
                       f"{'n/a' if lib is None else f'{lib:.5f}'} "
                       f"bound_ms={b_ms:.5f} ({b_by})")
-                record("sparse_mix_matvec", (n, d, dname, lap),
-                       dict(err=err, ms=ms, dev=dev_ms, plain=plain,
-                            lib=lib, bound=b_ms, by=b_by))
+                row = dict(err=err, ms=ms, dev=dev_ms, plain=plain, lib=lib,
+                           bound=b_ms, by=b_by,
+                           stripe_cols=mm.plan_stripe_cols(n, item))
+                record("sparse_mix_matvec", (n, d, dname, lap), row)
+                if dt != torch.float32:
+                    continue
+                # the unstaged kernel on the same operands (plain, library
+                # and bound as the stripe's row; ms includes the budget
+                # switch, a few µs on the host)
+                def go(t):
+                    with mm.smem_budget(unstaged):
+                        return launch(t)
+                if None not in errs:
+                    with mm.smem_budget(unstaged):
+                        got = launch(y)
+                    torch.cuda.synchronize()
+                    tag = f"({n}, {d}) {dname} laplacian={lap} unstaged"
+                    bitwise(tag, got, want, "the plain version")
+                    errs[None] = check(tag, got, want, dname)
+                    del got
+                ms = cuda_ms(torch, go, pool, iters=50)
+                dev_ms = device_ms(torch, go, pool,
+                                   "sparse_mix_unstaged_kernel")
+                print(f"    unstaged: ms={ms:.5f} device_ms={dev_ms:.5f}")
+                record("sparse_mix_matvec_unstaged", (n, d, dname, lap),
+                       dict(row, err=errs[None], ms=ms, dev=dev_ms,
+                            stripe_cols=None))
 
     # -- circulant_neumann_step ----------------------------------------
     print("kernel circulant_neumann_step (ring, Eq. 14)")
@@ -627,13 +699,6 @@ def halo_kernel_phase(torch, results: dict) -> None:
     def tiles(planned):
         return [planned, planned // 2, planned * 2]
 
-    def bitwise(tag, got, full, what="the full-operand kernel"):
-        pairs = zip(got, full) if isinstance(got, tuple) else [(got, full)]
-        diff = sum(int((g != f).sum().item()) for g, f in pairs)
-        print(f"  {tag}: elements differing from {what} {diff} (bitwise)")
-        if diff:
-            raise AssertionError(f"{tag}: not bitwise equal to {what}")
-
     def timings(kname, key, launch, plain_fn, pool, symbol, full_fn,
                 full_symbol, lib_fn, b, err, bn):
         big = key[1] == D1
@@ -744,6 +809,13 @@ def halo_kernel_phase(torch, results: dict) -> None:
                             **tabs), "circulant_mix_comm_kernel",
                         lambda t: torch.sparse.mm(A, t[0]),
                         fused_bound(n, d_, k, ef, lap, 8 * k), err, planned)
+                rows = h_lo + planned + h_hi
+                stages = mm.halo_comm_stages(rows, ef=ef)
+                print(f"    the ring: {stages} stages of "
+                      f"{1 + ef} x {mm.halo_smem_bytes(rows)} bytes and "
+                      f"the decoded tile")
+                results["circulant_mix_matvec_halo_comm"][
+                    (n, d_, comm, lap)]["stages"] = stages
             del pool
 
     # the sparse gathers' routes, driven at n = 4096 by a lower budget
@@ -843,7 +915,8 @@ def halo_kernel_phase(torch, results: dict) -> None:
                             t.float(), *er_tabs, lap).to(t.dtype), pool,
                         symbol(top),
                         lambda t, lap=lap: mm.sparse_mix_matvec(
-                            t, *er_tabs, laplacian=lap), "sparse_mix_kernel",
+                            t, *er_tabs, laplacian=lap),
+                        "sparse_mix_stripe_kernel",
                         (lambda t: torch.sparse.mm(A, t))
                         if dt == torch.float32 else None,
                         bound(2 * n * d_ * item + sp.nnz * 8 + n * 4,
@@ -1081,6 +1154,99 @@ def main_path_phase(torch, counts_out: dict) -> None:
             raise AssertionError(f"{label}: ledger bytes disagree")
         busy[label] = profile_run(torch, lambda: run("cuda"))
     idle_shares(busy, time_in_turns(torch, timed), K)
+
+
+def fig2_network_phase(torch, counts_out: dict) -> None:
+    """The §6.2 solve on an Erdős–Rényi graph of N_FIG2 agents (r = 0.5,
+    the network size of the paper's Fig. 2), K = K_LARGE rounds on the
+    identity wire: every gossip goes through the full-operand sparse
+    gather's column stripe.  Exact launch counts, exact ledger bytes,
+    finite metrics, equality bit for bit with the same solve on the card
+    through the plain versions, and seconds per round (median of three
+    runs after a warm-up run)."""
+    import numpy as np
+
+    from repro_torch.core.problems import hyper_representation
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solve import ScheduleSpec, SolverSpec, solve
+    from repro_torch.topology import make_network
+
+    n = N_FIG2
+    prob = hyper_representation(n, d=D_IN, hidden=HIDDEN,
+                                n_classes=N_CLASSES, m_per=M_PER, seed=0,
+                                device="cuda")
+    x0 = np.broadcast_to(
+        0.3 * np.random.default_rng(42).standard_normal(D1),
+        (n, D1)).astype(np.float32)
+    y0 = (0.01 * np.random.default_rng(0).standard_normal(
+        (n, D2))).astype(np.float32)
+    net = make_network("erdos_renyi", n, r=0.5, seed=0)
+    spec = SolverSpec(method="dagm", K=K_LARGE, M=M, U=U,
+                      dihgp="matrix_free",
+                      schedule=ScheduleSpec(alpha=0.1, beta=0.1))
+    print(f"fig2: solve(hyper_representation n={n} d1={D1} d2={D2}, "
+          f"{net.name} r=0.5, K={K_LARGE} M={M} U={U} dihgp=matrix_free, "
+          f"comm=identity)")
+
+    def run():
+        return solve(prob, net, spec, x0=x0, y0=y0, seed=0, device="cuda")
+    run()
+    torch.cuda.synchronize()                         # warm-up run
+    reset_launch_counts()
+    res = run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = {**dict.fromkeys(counts, 0),
+                "sparse_mix_matvec": K_LARGE * (M + U + 1)}
+    print(f"  launches {counts} expected {expected}")
+    if counts != expected:
+        raise AssertionError(f"fig2: launch counts {counts} != {expected}")
+    for name, c in counts.items():
+        counts_out[name] = counts_out.get(name, 0) + c
+    for key, val in res.metrics.items():
+        if val.shape != (K_LARGE,) or not torch.isfinite(val).all():
+            raise AssertionError(f"fig2: metric {key} not finite (K,): "
+                                 f"{val}")
+    for name, t, shape in (("x", res.x, (n, D1)), ("y", res.y, (n, D2))):
+        if tuple(t.shape) != shape or not torch.isfinite(t).all():
+            raise AssertionError(f"fig2: final {name} bad")
+    print("  metrics", {k: [round(float(v), 6) for v in val.cpu()]
+                        for k, val in res.metrics.items()})
+    preview = spec.comm_ledger(D1, D2).total_bytes
+    print(f"  ledger total_bytes={res.ledger.total_bytes} (spec preview "
+          f"{preview})")
+    if res.ledger.total_bytes != preview:
+        raise AssertionError("fig2: ledger bytes disagree")
+    with plain_versions():
+        plain = run()
+    for name in ("x", "y"):
+        got, want = getattr(res, name), getattr(plain, name)
+        diff = int((got != want).sum().item())
+        print(f"  vs the card's plain versions {name}: elements differing "
+              f"{diff} (bitwise)")
+        if diff:
+            raise AssertionError(f"fig2: {name} differs from the run "
+                                 f"through the plain versions")
+    for key, val in res.metrics.items():
+        if not torch.equal(val, plain.metrics[key]):
+            raise AssertionError(f"fig2: metric {key} differs from the run "
+                                 f"through the plain versions")
+    del res, plain
+    seconds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        seconds.append((time.perf_counter() - t0) / K_LARGE)
+    print(f"  seconds per round median {median(seconds):.6f} all "
+          f"{' '.join(f'{t:.6f}' for t in seconds)} (host clock, {K_LARGE} "
+          f"rounds per run, after a warm-up run)")
+    busy = profile_run(torch, run)
+    if busy is not None:
+        wall = median(seconds) * K_LARGE * 1e6
+        print(f"  device busy {busy:.1f} us of {wall:.1f} us unprofiled "
+              f"(idle share {1 - busy / wall:.4f})")
 
 
 def large_network_phase(torch, counts_out: dict) -> None:
@@ -1792,7 +1958,8 @@ def profile_run(torch, run) -> float | None:
     for us, count, key in rows:
         if any(tag in key for tag in ("_mix_kernel", "_neumann_kernel",
                                       "_comm_kernel", "_halo_kernel",
-                                      "_slab_kernel")):
+                                      "_slab_kernel", "_stripe_kernel",
+                                      "_unstaged_kernel")):
             print(f"  port kernel: {us:.1f} us device in {count} launches "
                   f"({us / count:.2f} us each) {key[:70]}")
     return busy_us
@@ -1819,6 +1986,7 @@ def tensor_core_instructions(lib) -> dict:
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -1879,6 +2047,7 @@ def main() -> int:
         for phase, args in ((kernel_phase, results),
                             (halo_kernel_phase, results),
                             (main_path_phase, counts),
+                            (fig2_network_phase, counts),
                             (large_network_phase, counts),
                             (routes_phase, routes),
                             (ops_kernel_phase, ops_out)):
@@ -1891,13 +2060,17 @@ def main() -> int:
     # Neumann steps: the d2 launch they run at; the halo kernels: the
     # (4096, d1) gossip of the large-network path); ring_laplacian_matvec
     # is not on the main path and reports its (16, d1) check, the
-    # row-tiled sparse gathers (n > 33,536) their (4096, d1) launches
-    # under a lower budget, and the slabs' entries their narrower routes
-    # (and the plain slab the steps of its walk)
+    # unstaged full-operand sparse gather (n > 14,528) its (16, d1)
+    # launch under a lower budget, the row-tiled sparse gathers (n >
+    # 33,536) their (4096, d1) launches under a lower budget, and the
+    # slabs' entries their narrower routes (and the plain slab the steps
+    # of its walk)
     src = "src/repro/kernels/mixing_matvec.py"
     pick = {
         "circulant_mix_matvec": ((N_AGENTS, D1, "float32", True), 274),
         "sparse_mix_matvec": ((N_AGENTS, D1, "float32", True), 598),
+        "sparse_mix_matvec_unstaged": ((N_AGENTS, D1, "float32", True),
+                                       598),
         "circulant_neumann_step": ((N_AGENTS, D2, "float32", None), 852),
         "circulant_mix_matvec_comm": ((N_AGENTS, D1, "int8+ef", True),
                                       232),
@@ -1913,7 +2086,8 @@ def main() -> int:
         "sparse_mix_matvec_halo_comm_rows": ((N_LARGE, D1, "int8", True),
                                              739),
     }
-    off_path = ("ring_laplacian_matvec", "sparse_mix_matvec_halo_rows",
+    off_path = ("ring_laplacian_matvec", "sparse_mix_matvec_unstaged",
+                "sparse_mix_matvec_halo_rows",
                 "sparse_mix_matvec_halo_comm_rows")
     kernels = []
     for name, (key, line) in pick.items():
@@ -1935,7 +2109,8 @@ def main() -> int:
             **({"bn": row["bn"]} if "bn" in row else {}),
             **({"slab_cols": row["slab_cols"], "routes": row["routes"]}
                if "routes" in row else {}),
-            **({key: row[key] for key in ("walk", "stages") if key in row})})
+            **({key: row[key] for key in ("walk", "stages", "stripe_cols")
+                if key in row})})
     # the kernels.ops path's two kernels: not on DAGM's main path; their
     # launches come from the ops path's run, each row (times and error)
     # from its check at qwen3-4b (attention, bf16) and rwkv6-7b (wkv)
@@ -1957,6 +2132,7 @@ def main() -> int:
             "library_ms": row["lib"],
             "shape": row["shape"], "dtype": row["dtype"],
             "case": case, "on_main_path": False})
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

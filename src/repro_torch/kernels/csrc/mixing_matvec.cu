@@ -108,20 +108,23 @@ __global__ void circulant_mix_kernel(const T* __restrict__ y,
 }
 
 // Replaces repro/kernels/mixing_matvec.py:sparse_mix_matvec (plain path,
-// _sparse_body).
+// _sparse_body) where no column stripe fits in shared memory
+// (sparse_mix_stripe_kernel below): n > 14,528 rows.
 // Bound: bytes, as circulant_mix (2(k+1) FLOP per element; the (n, k)
-// tables are a few hundred bytes next to Y).
+// tables are small next to Y).
 // Design: the same thread layout.  A block works on one row i, so all
 // its threads read the same k indices and weights (one broadcast each)
-// and then k coalesced neighbor-row segments.  Padded slots point at
-// row i with weight 0 and add 0, as in repro's padded reference.
+// and then k coalesced neighbor-row segments from device memory (k reads
+// of Y, from L2 where Y fits there).  Padded slots point at row i with
+// weight 0 and add 0, as in repro's padded reference.
 template <typename T>
-__global__ void sparse_mix_kernel(const T* __restrict__ y,
-                                  T* __restrict__ out,
-                                  const float* __restrict__ w_self,
-                                  const int* __restrict__ nbr,
-                                  const float* __restrict__ wts, int n,
-                                  int d, int k, int laplacian) {
+__global__ void sparse_mix_unstaged_kernel(const T* __restrict__ y,
+                                           T* __restrict__ out,
+                                           const float* __restrict__ w_self,
+                                           const int* __restrict__ nbr,
+                                           const float* __restrict__ wts,
+                                           int n, int d, int k,
+                                           int laplacian) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= d) return;
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
@@ -278,10 +281,10 @@ __global__ void circulant_mix_comm_kernel(const float* __restrict__ y,
 // (_sparse_fused_body).
 // Bound: as circulant_mix_comm_kernel.  Each gathered row is decoded with
 // its own source row's zp/scale, as the wire carries it.
-// Design: sparse_mix_kernel's layout; as in the circulant kernel each
-// thread recomputes its k neighbors' decoded values, so the kernel does k
-// hashes per element where the work needs one: at ER's k = 13 that
-// integer work, not the bytes, sets its time.
+// Design: sparse_mix_unstaged_kernel's layout; as in the circulant kernel
+// each thread recomputes its k neighbors' decoded values, so the kernel
+// does k hashes per element where the work needs one: at ER's k = 13
+// that integer work, not the bytes, sets its time.
 __global__ void sparse_mix_comm_kernel(const float* __restrict__ y,
                                        float* __restrict__ out,
                                        float* __restrict__ pay,
@@ -475,14 +478,14 @@ constexpr int kHaloStages = 3;  // the ring's stages at the planner's bn
 // `nrows` rows of y from `src_row` on, columns [col0, col0 + kHaloBd),
 // into consecutive kHaloBd-wide rows of shared memory, V bytes per copy;
 // columns past d are zero-filled.
-template <typename T, int V>
+template <typename T, int V, int NT = kHaloThreads>
 __device__ __forceinline__ void halo_copy_rows(T* dst,
                                                const T* __restrict__ y,
                                                int src_row, int nrows, int d,
                                                int col0) {
   constexpr int E = V / (int)sizeof(T);  // values per copy
   constexpr int CPR = kHaloBd / E;       // copies per staged row
-  for (int e = threadIdx.x; e < nrows * CPR; e += kHaloThreads) {
+  for (int e = threadIdx.x; e < nrows * CPR; e += NT) {
     const int r = e / CPR, c = (e % CPR) * E, j = col0 + c;
     const bool in = j < d;
     copy_async<V>(dst + (size_t)r * kHaloBd + c,
@@ -606,60 +609,180 @@ __global__ void __launch_bounds__(kHaloThreads)
 // Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec_halo with
 // comm= (_circ_halo_body, fused; repro's `pscr`).
 // Bound: bytes, as circulant_mix_comm_kernel (one read of y, and hat under
-// EF, one write of out, and the payload under EF), with the quantizer's
-// ~30 operations per element.
-// Design: the block quantizes its extended tile once into a shared
-// payload buffer, one hash per staged element: (h_lo + bn + h_hi) / bn
-// hashes per output element, 1.03 on the ring at bn = 64, where
-// circulant_mix_comm_kernel recomputes k hashes per element (+1 under EF
-// for the payload write): 2 on the ring, 3 with EF.  The mix then reads
-// its neighbors from that buffer; the self term reads the exact y from
-// device memory, and under EF the block writes its own rows' payload.
-// `decoded` is the full-operand kernels' quantizer, so payloads agree bit
-// for bit.
-__global__ void circulant_mix_halo_comm_kernel(
-    const float* __restrict__ y, float* __restrict__ out,
-    float* __restrict__ pay, int n, int d, int bn, int h_lo, int h_hi,
-    float w_self, int k, const int* __restrict__ soff,
-    const float* __restrict__ wts, Wire w, int laplacian) {
-  extern __shared__ __align__(16) float pext[];
-  const int row0 = blockIdx.x * bn;
+// EF, one write of out, and the payload under EF): 1.54 ms at (4096,
+// 157000) f32, 3.07 ms under EF, at 3.35 TB/s.  Besides, one hash per
+// staged element (~20 integer operations; (h_lo + bn + h_hi) / bn = 1.03
+// per output on the ring at bn = 64) and ~10 f32 operations, the divide,
+// the floor and the int-to-float convert on the slower units: on the
+// H100 this work takes about as long as the copies, and the ring
+// overlaps the two.
+// Design: circulant_mix_halo_kernel's ring.  Block (bi, by) owns the rows
+// [bi*bn, bi*bn + bn) and walks the column tiles by, by + gridDim.y, ...
+// (gridDim.y sized to fill the card); while tile t is quantized and mixed
+// the raw y tiles (h_lo + bn + h_hi, 128) of tiles t+1 .. t+stages-1, and
+// their hat tiles under EF, are in flight as cp.async copies of V bytes,
+// the low halo, the body and the high halo three copies of contiguous
+// rows.  (1) One pass quantizes the landed tile into one decoded tile
+// buffer: a thread takes 4 columns of a staged row, reads the row's zp and
+// scale once for them, and decodes each element once (hat +
+// roundtrip(y - hat) under EF), `decoded`'s arithmetic, so the payloads
+// agree bit for bit with the full-operand kernel's.  (2) The mix is the
+// plain kernel's: a thread mixes a 16-byte vector (4 columns) for R = 2
+// rows at a time (the block's 32 x 2 rows are the planner's bn = 64),
+// each offset and weight read once per R * 4 outputs, the
+// neighbors read from the decoded tile with 16-byte loads and the self
+// term and the Laplacian's y_i from the raw stage (y is read from device
+// memory once); accumulation is `term` in offset order, w_self*y_i first,
+// so the output is bitwise circulant_mix_comm_kernel's.  The output, and
+// under EF the payload (the decoded body rows), leave in V-byte stores,
+// masked past d.  Shared memory: `stages` raw tiles (twice that under EF)
+// and the decoded tile, within repro's plan of 4 live buffers (6 under
+// EF): 3 stages without EF and 2 with at the planner's bn
+// (halo_comm_stages in mixing_matvec.py).
+constexpr int kHaloCommEfStages = 2;
+// 32 warps: the shared memory at the planner's bn leaves room for one
+// block per SM, and the quantize pass, bound by instruction throughput and
+// latency, needs every warp it can get (fewer threads measured slower on
+// the H100).
+constexpr int kHaloCommThreads = 1024;
+
+template <int V>
+__global__ void __launch_bounds__(kHaloCommThreads)
+    circulant_mix_halo_comm_kernel(const float* __restrict__ y,
+                                   float* __restrict__ out,
+                                   float* __restrict__ pay, int n, int d,
+                                   int bn, int h_lo, int h_hi, float w_self,
+                                   int k, const int* __restrict__ soff,
+                                   const float* __restrict__ wts, Wire w,
+                                   int laplacian, int stages) {
+  constexpr int VW = 4;                       // columns a thread takes
+  constexpr int TPR = kHaloBd / VW;           // threads per tile row
+  constexpr int RP = kHaloCommThreads / TPR;  // rows side by side
+  constexpr int R = RP < 64 ? 64 / RP : 1;    // rows per thread and pass
+  extern __shared__ __align__(16) float smem_f[];
+  const bool ef = w.hat != nullptr;
   const int ex = h_lo + bn + h_hi;
+  const size_t tile = (size_t)ex * kHaloBd;
+  float* ring_y = smem_f;                              // stages x tile
+  float* ring_h = ring_y + (size_t)stages * tile;      // stages x tile (EF)
+  float* dec = ring_h + (ef ? (size_t)stages * tile : 0);  // one tile
+  const int row0 = blockIdx.x * bn;
   const int ncol = (d + kHaloBd - 1) / kHaloBd;
-  for (int ct = blockIdx.y; ct < ncol; ct += gridDim.y) {
-    const int col0 = ct * kHaloBd;
-    for (int t = threadIdx.x; t < ex * kHaloBd; t += blockDim.x) {
-      const int j = col0 + t % kHaloBd;
-      const int r = wrap_row(row0 - h_lo + t / kHaloBd, n);
-      if (j < d) pext[t] = decoded(y, w, r, j, d);
+  const int ntile = (int)blockIdx.y < ncol
+                        ? (ncol - 1 - (int)blockIdx.y) / (int)gridDim.y + 1
+                        : 0;
+  const int lo_src = row0 >= h_lo ? row0 - h_lo : row0 - h_lo + n;
+  const int hi_src = row0 + bn < n ? row0 + bn : row0 + bn - n;
+  auto copy_tile = [&](float* st, const float* __restrict__ src, int col0) {
+    constexpr int NT = kHaloCommThreads;
+    halo_copy_rows<float, V, NT>(st, src, lo_src, h_lo, d, col0);
+    halo_copy_rows<float, V, NT>(st + (size_t)h_lo * kHaloBd, src, row0, bn,
+                                 d, col0);
+    halo_copy_rows<float, V, NT>(st + (size_t)(h_lo + bn) * kHaloBd, src,
+                                 hi_src, h_hi, d, col0);
+  };
+  auto load = [&](int t) {  // tile t of this block, one commit group
+    if (t < ntile) {
+      const size_t at = (size_t)(t % stages) * tile;
+      const int col0 = ((int)blockIdx.y + t * (int)gridDim.y) * kHaloBd;
+      copy_tile(ring_y + at, y, col0);
+      if (ef) copy_tile(ring_h + at, w.hat, col0);
     }
-    __syncthreads();
-    for (int t = threadIdx.x; t < bn * kHaloBd; t += blockDim.x) {
-      const int r = t / kHaloBd, c = t % kHaloBd, j = col0 + c;
-      if (j >= d) continue;
-      const size_t at = (size_t)(row0 + r) * d + j;
-      const float yi = y[at];
-      float acc = __fmul_rn(w_self, yi);
-      for (int q = 0; q < k; ++q) {
-        const int e = h_lo + r + __ldg(soff + q);
-        acc = term(acc, __ldg(wts + q), pext[e * kHaloBd + c]);
+    cp_async_commit();
+  };
+  for (int t = 0; t + 1 < stages; ++t) load(t);
+  const int cg = threadIdx.x % TPR, rl = threadIdx.x / TPR;
+  const int c = cg * VW;
+  for (int t = 0; t < ntile; ++t) {
+    __syncthreads();  // tile t - 1 is mixed: its stage and `dec` are free
+    load(t + stages - 1);
+    cp_async_wait_upto(stages - 1);  // this thread's copies of tile t landed
+    __syncthreads();                 // and every thread's
+    const size_t at = (size_t)(t % stages) * tile;
+    const float* sy = ring_y + at;
+    const int col0 = ((int)blockIdx.y + t * (int)gridDim.y) * kHaloBd;
+    const int j0 = col0 + c;
+    // (1) the decoded tile, one hash per staged element (columns past d
+    // are zero-filled and decoded too, never stored)
+    for (int r = rl; r < ex; r += RP) {
+      const int g = wrap_row(row0 - h_lo + r, n);
+      const float zp = __ldg(w.zp + g), sc = __ldg(w.scale + g);
+      float x[VW], h[VW], q[VW];
+      lds_vec<float, VW>(sy + (size_t)r * kHaloBd + c, x);
+      if (ef) lds_vec<float, VW>(ring_h + at + (size_t)r * kHaloBd + c, h);
+#pragma unroll
+      for (int v = 0; v < VW; ++v) {
+        const float u = hash_uniform(w.smix, g, j0 + v);
+        const float dv =
+            roundtrip(ef ? __fsub_rn(x[v], h[v]) : x[v], zp, sc, u, w.levels);
+        q[v] = ef ? __fadd_rn(h[v], dv) : dv;
       }
-      if (laplacian) acc = __fsub_rn(yi, acc);
-      out[at] = acc;
-      if (pay) pay[at] = pext[(h_lo + r) * kHaloBd + c];
+      *reinterpret_cast<float4*>(dec + (size_t)r * kHaloBd + c) =
+          make_float4(q[0], q[1], q[2], q[3]);
     }
-    __syncthreads();
+    __syncthreads();  // the decoded tile is whole
+    if (j0 >= d) continue;
+    // (2) the mix
+    for (int r0 = rl; r0 < bn; r0 += RP * R) {
+      float yi[R][VW], acc[R][VW];
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const int r = r0 + rr * RP;
+        if (r < bn) {
+          lds_vec<float, VW>(sy + (size_t)(h_lo + r) * kHaloBd + c, yi[rr]);
+#pragma unroll
+          for (int v = 0; v < VW; ++v) {
+            acc[rr][v] = __fmul_rn(w_self, yi[rr][v]);
+          }
+        }
+      }
+      for (int q = 0; q < k; ++q) {
+        const int s = __ldg(soff + q);
+        const float wq = __ldg(wts + q);
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+          const int r = r0 + rr * RP;
+          if (r < bn) {
+            float x[VW];
+            lds_vec<float, VW>(dec + (size_t)(h_lo + r + s) * kHaloBd + c, x);
+#pragma unroll
+            for (int v = 0; v < VW; ++v) {
+              acc[rr][v] = term(acc[rr][v], wq, x[v]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const int r = r0 + rr * RP;
+        if (r < bn) {
+          if (laplacian) {
+#pragma unroll
+            for (int v = 0; v < VW; ++v) {
+              acc[rr][v] = __fsub_rn(yi[rr][v], acc[rr][v]);
+            }
+          }
+          const size_t o = (size_t)(row0 + r) * d + j0;
+          stg_vec<float, VW, V>(out + o, acc[rr], d - j0);
+          if (pay) {
+            float p[VW];
+            lds_vec<float, VW>(dec + (size_t)(h_lo + r) * kHaloBd + c, p);
+            stg_vec<float, VW, V>(pay + o, p, d - j0);
+          }
+        }
+      }
+    }
   }
 }
 
 // Replaces repro/kernels/mixing_matvec.py:sparse_mix_matvec_halo (plain
 // path, _sparse_halo_body).
-// Bound: bytes, as sparse_mix_kernel.
+// Bound: bytes, as sparse_mix_unstaged_kernel.
 // Design: the block stages its own (bn, 128) rows in shared memory (all
 // of them in flight at once), then each thread gathers its element's k
 // neighbor rows from device memory in table order, a warp reading 32
 // consecutive columns of one neighbor row; the padded tables' slots that
-// point at the row itself add 0, as in sparse_mix_kernel.
+// point at the row itself add 0, as in sparse_mix_unstaged_kernel.
 template <typename T>
 __global__ void sparse_mix_halo_kernel(const T* __restrict__ y,
                                        T* __restrict__ out,
@@ -1034,12 +1157,12 @@ __global__ void __launch_bounds__(kSlabThreads)
 // wavefronts, about 8 per 16-byte slab read of a warp (4 random 32-byte
 // rows per quarter-warp share 4 bank groups) and 2 per slot for the
 // table, over the ~20 slots a pass gathers.
-template <typename T, int RB, int CW>
+template <typename T, int RB, int CW, int NT = kSlabThreads>
 __device__ __forceinline__ void stage_slab(T* slab, const T* __restrict__ y,
                                            int n, int d, int c0) {
   constexpr int CPR = RB / CW;              // copies per slab row
   constexpr int E = CW / (int)sizeof(T);    // values per copy
-  for (int e = threadIdx.x; e < n * CPR; e += kSlabThreads) {
+  for (int e = threadIdx.x; e < n * CPR; e += NT) {
     const int r = e / CPR, j = c0 + (e % CPR) * E;
     copy_async<CW>(reinterpret_cast<char*>(slab) + (size_t)e * CW,
                    y + (size_t)r * d + (j < d ? j : 0), j < d);
@@ -1246,20 +1369,144 @@ __global__ void __launch_bounds__(kSlabThreads)
   }
 }
 
-// Dynamic shared memory of a halo launch: `stages` buffers of `rows`
-// staged rows of kHaloBd elements of `itemsize` bytes (the Python
-// planner's halo_smem_bytes with blocks = stages).
-int halo_smem_bytes(int rows, int itemsize, int stages = 1) {
-  return stages * rows * kHaloBd * itemsize;
+// ---------------------------------------------------------------------------
+// The full-operand sparse gather on a column stripe
+// ---------------------------------------------------------------------------
+
+// Replaces repro/kernels/mixing_matvec.py:sparse_mix_matvec (plain path,
+// _sparse_body, which holds an (n, 128) column stripe in VMEM and gathers
+// every neighbor row from it), f32 and bf16, up to n = 14,528 rows.
+// Bound: bytes, one read of Y and one write of the output: 0.048 ms at
+// (128, 157000) f32 at 3.35 TB/s.  The gather reads k + 1 values of the
+// stripe per output element, 6.4 GB of shared memory at (128, 157000)
+// with k = 78: about 0.2 ms at the card's ~33 TB/s of shared-memory
+// bandwidth, which is what bounds it there.
+// Design: block s stages the columns [s*bc, s*bc + bc) of all n rows, RB
+// = bc * sizeof(T) bytes a row (512 down to 16: plan_stripe_cols in
+// mixing_matvec.py), in dynamic shared memory with cp.async of cw bytes
+// (16 where d and the pointer allow, else 8 or 4; 2-byte loads for a bf16
+// row of odd d), zero past d, so Y leaves device memory once.  After one
+// barrier each warp walks rows, RB / 16 lanes a row, each lane a 16-byte
+// vector of VW columns (4 f32, 8 bf16): w_self[i]*y_i with y_i from the
+// stripe, then the row's k table slots in order, four at a time (indices
+// and weights are broadcast loads, one address per row; 16-byte ones
+// where k % 4 == 0), each neighbor's vector one 16-byte shared-memory
+// read (at RB = 512 a warp reads one 512-byte row: 4 wavefronts, no bank
+// conflict), then y_i - acc for the Laplacian; the row leaves in sw-byte
+// stores, masked past d.  The terms are the plain version's in its order,
+// so the output is bitwise sparse_mix_padded_ref's and
+// sparse_mix_unstaged_kernel's.
+constexpr int kStripeThreads = 256;
+
+template <typename T, int RB>
+__global__ void __launch_bounds__(kStripeThreads)
+    sparse_mix_stripe_kernel(const T* __restrict__ y, T* __restrict__ out,
+                             const float* __restrict__ w_self,
+                             const int* __restrict__ nbr,
+                             const float* __restrict__ wts, int n, int d,
+                             int k, int cw, int sw, int laplacian) {
+  constexpr int BC = RB / (int)sizeof(T);   // stripe columns
+  constexpr int VW = 16 / (int)sizeof(T);   // columns per lane
+  constexpr int LPR = RB / 16;              // lanes per row
+  constexpr int RPW = 32 / LPR;             // rows per warp and pass
+  constexpr int STEP = kStripeThreads / 32 * RPW;  // rows per block pass
+  static_assert(RB >= 16 && RB <= 512 && RB % 16 == 0, "a stripe row");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* stripe = reinterpret_cast<T*>(smem_raw);  // (n, BC)
+  const int c0 = blockIdx.x * BC;
+  // (1) stage the (n, BC) stripe of y
+  if (cw == 16) {
+    stage_slab<T, RB, 16, kStripeThreads>(stripe, y, n, d, c0);
+  } else if (cw == 8) {
+    stage_slab<T, RB, 8, kStripeThreads>(stripe, y, n, d, c0);
+  } else if (cw == 4) {
+    stage_slab<T, RB, 4, kStripeThreads>(stripe, y, n, d, c0);
+  } else {
+    if constexpr (sizeof(T) == 2) {
+      stage_slab<T, RB, 2, kStripeThreads>(stripe, y, n, d, c0);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // (2) the mix, row by row; a lane past the ragged edge has nothing to do
+  const int lane = threadIdx.x % 32;
+  const int cl = (lane % LPR) * VW, j0 = c0 + cl;
+  if (j0 >= d) return;
+  const bool vec_tab = k % 4 == 0 && ((size_t)nbr & 15) == 0 &&
+                       ((size_t)wts & 15) == 0;
+  for (int i = threadIdx.x / 32 * RPW + lane / LPR; i < n; i += STEP) {
+    float yi[VW], acc[VW];
+    lds_vec<T, VW>(stripe + (size_t)i * BC + cl, yi);
+    const float ws = __ldg(w_self + i);
+#pragma unroll
+    for (int v = 0; v < VW; ++v) acc[v] = __fmul_rn(ws, yi[v]);
+    const int* ni = nbr + (size_t)i * k;
+    const float* wi = wts + (size_t)i * k;
+    int t = 0;
+    for (; t + 4 <= k; t += 4) {
+      int idx[4];
+      float wq[4];
+      if (vec_tab) {
+        const int4 a = __ldg(reinterpret_cast<const int4*>(ni + t));
+        const float4 b = __ldg(reinterpret_cast<const float4*>(wi + t));
+        idx[0] = a.x, idx[1] = a.y, idx[2] = a.z, idx[3] = a.w;
+        wq[0] = b.x, wq[1] = b.y, wq[2] = b.z, wq[3] = b.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          idx[e] = __ldg(ni + t + e);
+          wq[e] = __ldg(wi + t + e);
+        }
+      }
+      float x[4][VW];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        lds_vec<T, VW>(stripe + (size_t)idx[e] * BC + cl, x[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int v = 0; v < VW; ++v) acc[v] = term(acc[v], wq[e], x[e][v]);
+      }
+    }
+    for (; t < k; ++t) {
+      float x[VW];
+      lds_vec<T, VW>(stripe + (size_t)__ldg(ni + t) * BC + cl, x);
+      const float wq = __ldg(wi + t);
+#pragma unroll
+      for (int v = 0; v < VW; ++v) acc[v] = term(acc[v], wq, x[v]);
+    }
+    if (laplacian) {
+#pragma unroll
+      for (int v = 0; v < VW; ++v) acc[v] = __fsub_rn(yi[v], acc[v]);
+    }
+    T* o = out + (size_t)i * d + j0;
+    if (sw >= 16) {
+      stg_vec<T, VW, 16>(o, acc, d - j0);
+    } else if (sw == 8) {
+      stg_vec<T, VW, 8>(o, acc, d - j0);
+    } else if (sw == 4) {
+      stg_vec<T, VW, 4>(o, acc, d - j0);
+    } else {
+      if constexpr (sizeof(T) == 2) stg_vec<T, VW, 2>(o, acc, d - j0);
+    }
+  }
 }
 
-// The launch geometry of a halo kernel, or false when the wrapper's tile,
-// stage count or shared-memory size is not one the kernel takes.
+// Dynamic shared memory of a halo launch: `buffers` tiles of `rows`
+// staged rows of kHaloBd elements of `itemsize` bytes (the Python
+// planner's halo_smem_bytes with blocks = buffers).
+long long halo_smem_bytes(int rows, int itemsize, int buffers = 1) {
+  return (long long)buffers * rows * kHaloBd * itemsize;
+}
+
+// The launch geometry of a halo kernel, or false when the wrapper's tile
+// or shared-memory size (`buffers` tiles) is not one the kernel takes.
 bool halo_launch(int n, int d, int bn, int h_lo, int h_hi, int itemsize,
-                 int stages, int smem_bytes, dim3* grid) {
+                 int buffers, int smem_bytes, dim3* grid) {
   if (bn < 1 || n % bn || h_lo < 0 || h_hi < 0 || h_lo > bn || h_hi > bn ||
-      stages < 1 || stages > kHaloStages || smem_bytes > kSmemOptIn ||
-      smem_bytes != halo_smem_bytes(h_lo + bn + h_hi, itemsize, stages)) {
+      buffers < 1 || smem_bytes > kSmemOptIn ||
+      smem_bytes != halo_smem_bytes(h_lo + bn + h_hi, itemsize, buffers)) {
     return false;
   }
   const int ncol = (d + kHaloBd - 1) / kHaloBd;
@@ -1274,6 +1521,26 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
+}
+
+// Opts `kernel` into `smem_bytes` of dynamic shared memory and cuts
+// grid->y to the column tiles that, beside the grid's grid->x row tiles,
+// fill the card once (each block then walks several tiles).
+template <typename Kernel>
+cudaError_t fill_card(Kernel kernel, int threads, int smem_bytes,
+                      dim3* grid) {
+  cudaError_t err = allow_smem(kernel, smem_bytes);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err != cudaSuccess || (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem_bytes)) != cudaSuccess) {
+    return err;
+  }
+  const int fill = sms * (per_sm > 0 ? per_sm : 1) / (int)grid->x;
+  grid->y = fill < 1 ? 1 : (fill < (int)grid->y ? fill : grid->y);
+  return cudaSuccess;
 }
 
 dim3 grid_for(int n, int d) {
@@ -1302,22 +1569,73 @@ extern "C" int circulant_mix(const void* y, void* out, int n, int d,
   return (int)cudaGetLastError();
 }
 
-// Neighbor indices must lie in [0, n).
+template <typename T, int RB>
+int launch_stripe(const void* y, void* out, const float* w_self,
+                  const int* nbr, const float* wts, int n, int d, int k,
+                  int laplacian, int smem_bytes, cudaStream_t s) {
+  const auto kernel = sparse_mix_stripe_kernel<T, RB>;
+  const cudaError_t err = allow_smem(kernel, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int BC = RB / (int)sizeof(T);
+  const int cw = vec_bytes(y, y, d, (int)sizeof(T), 16);
+  const int sw = vec_bytes(out, out, d, (int)sizeof(T), 16);
+  kernel<<<(d + BC - 1) / BC, kStripeThreads, smem_bytes, s>>>(
+      (const T*)y, (T*)out, w_self, nbr, wts, n, d, k, cw, sw, laplacian);
+  return (int)cudaGetLastError();
+}
+
+// Neighbor indices must lie in [0, n).  stripe_cols: the column stripe's
+// width bc (128, 64, 32, 16, 8, 4 for f32; 256 .. 8 for bf16) and
+// smem_bytes n * bc * itemsize for sparse_mix_stripe_kernel; 0 (and 0
+// bytes) for sparse_mix_unstaged_kernel.
 extern "C" int sparse_mix(const void* y, void* out, const float* w_self,
                           const int* nbr, const float* wts, int n, int d,
-                          int k, int dtype, int laplacian, void* stream) {
+                          int k, int dtype, int laplacian, int stripe_cols,
+                          int smem_bytes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    sparse_mix_kernel<float><<<grid_for(n, d), kThreads, 0, s>>>(
-        (const float*)y, (float*)out, w_self, nbr, wts, n, d, k, laplacian);
-  } else if (dtype == 1) {
-    sparse_mix_kernel<__nv_bfloat16><<<grid_for(n, d), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)y, (__nv_bfloat16*)out, w_self, nbr, wts, n,
-        d, k, laplacian);
-  } else {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (stripe_cols == 0) {
+    if (smem_bytes != 0) return (int)cudaErrorInvalidValue;
+    if (dtype == 0) {
+      sparse_mix_unstaged_kernel<float><<<grid_for(n, d), kThreads, 0, s>>>(
+          (const float*)y, (float*)out, w_self, nbr, wts, n, d, k,
+          laplacian);
+    } else {
+      sparse_mix_unstaged_kernel<__nv_bfloat16>
+          <<<grid_for(n, d), kThreads, 0, s>>>(
+              (const __nv_bfloat16*)y, (__nv_bfloat16*)out, w_self, nbr,
+              wts, n, d, k, laplacian);
+    }
+    return (int)cudaGetLastError();
+  }
+  const long long rb = (long long)stripe_cols * (dtype == 0 ? 4 : 2);
+  if (smem_bytes > kSmemOptIn || smem_bytes != (long long)n * rb) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const auto args = [&](auto launch) {
+    return launch(y, out, w_self, nbr, wts, n, d, k, laplacian, smem_bytes,
+                  s);
+  };
+  if (dtype == 0) {
+    switch (rb) {
+      case 512: return args(launch_stripe<float, 512>);
+      case 256: return args(launch_stripe<float, 256>);
+      case 128: return args(launch_stripe<float, 128>);
+      case 64: return args(launch_stripe<float, 64>);
+      case 32: return args(launch_stripe<float, 32>);
+      case 16: return args(launch_stripe<float, 16>);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (rb) {
+    case 512: return args(launch_stripe<__nv_bfloat16, 512>);
+    case 256: return args(launch_stripe<__nv_bfloat16, 256>);
+    case 128: return args(launch_stripe<__nv_bfloat16, 128>);
+    case 64: return args(launch_stripe<__nv_bfloat16, 64>);
+    case 32: return args(launch_stripe<__nv_bfloat16, 32>);
+    case 16: return args(launch_stripe<__nv_bfloat16, 16>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int circulant_neumann(const void* h, const void* hvp,
@@ -1411,18 +1729,8 @@ int launch_circ_halo(const void* y, void* out, int n, int d, float w_self,
                      int laplacian, int bn, int h_lo, int h_hi, int stages,
                      int smem_bytes, dim3 grid, cudaStream_t s) {
   const auto kernel = circulant_mix_halo_kernel<T, V>;
-  cudaError_t err = allow_smem(kernel, smem_bytes);
+  const cudaError_t err = fill_card(kernel, kHaloThreads, smem_bytes, &grid);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kHaloThreads, smem_bytes)) != cudaSuccess) {
-    return (int)err;
-  }
-  const int fill = sms * (per_sm > 0 ? per_sm : 1) / (int)grid.x;
-  grid.y = fill < 1 ? 1 : (fill < (int)grid.y ? fill : grid.y);
   kernel<<<grid, kHaloThreads, smem_bytes, s>>>(
       (const T*)y, (T*)out, n, d, bn, h_lo, h_hi, w_self, k, soff, weights,
       laplacian, stages);
@@ -1435,7 +1743,7 @@ extern "C" int circulant_mix_halo(const void* y, void* out, int n, int d,
                                   int laplacian, int bn, int h_lo, int h_hi,
                                   int stages, int smem_bytes, void* stream) {
   dim3 grid;
-  if ((dtype != 0 && dtype != 1) ||
+  if ((dtype != 0 && dtype != 1) || stages < 1 || stages > kHaloStages ||
       !halo_launch(n, d, bn, h_lo, h_hi, dtype == 0 ? 4 : 2, stages,
                    smem_bytes, &grid)) {
     return (int)cudaErrorInvalidValue;
@@ -1460,25 +1768,51 @@ extern "C" int circulant_mix_halo(const void* y, void* out, int n, int d,
   }
 }
 
+template <int V>
+int launch_circ_halo_comm(const float* y, float* out, float* pay, int n,
+                          int d, float w_self, int k, const int* soff,
+                          const float* weights, Wire w, int laplacian,
+                          int bn, int h_lo, int h_hi, int stages,
+                          int smem_bytes, dim3 grid, cudaStream_t s) {
+  const auto kernel = circulant_mix_halo_comm_kernel<V>;
+  const cudaError_t err =
+      fill_card(kernel, kHaloCommThreads, smem_bytes, &grid);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kHaloCommThreads, smem_bytes, s>>>(
+      y, out, pay, n, d, bn, h_lo, h_hi, w_self, k, soff, weights, w,
+      laplacian, stages);
+  return (int)cudaGetLastError();
+}
+
+// stages: the ring's raw stages, 1..3 without EF, 1..2 with; smem_bytes
+// the stages' tiles (two per stage under EF) and the decoded tile.
 extern "C" int circulant_mix_halo_comm(
     const float* y, float* out, float* pay, const float* hat,
     const float* zp, const float* scale, unsigned int seed, float levels,
     int n, int d, float w_self, int k, const int* soff,
     const float* weights, int laplacian, int bn, int h_lo, int h_hi,
-    int smem_bytes, void* stream) {
+    int stages, int smem_bytes, void* stream) {
+  const bool ef = hat != nullptr;
   dim3 grid;
-  if ((hat == nullptr) != (pay == nullptr) ||
-      !halo_launch(n, d, bn, h_lo, h_hi, 4, 1, smem_bytes, &grid)) {
+  if ((hat == nullptr) != (pay == nullptr) || stages < 1 ||
+      stages > (ef ? kHaloCommEfStages : kHaloStages) ||
+      !halo_launch(n, d, bn, h_lo, h_hi, 4, stages * (1 + ef) + 1,
+                   smem_bytes, &grid)) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t err = allow_smem(circulant_mix_halo_comm_kernel,
-                                     smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  circulant_mix_halo_comm_kernel<<<grid, kHaloThreads, smem_bytes,
-                                   (cudaStream_t)stream>>>(
-      y, out, pay, n, d, bn, h_lo, h_hi, w_self, k, soff, weights,
-      make_wire(zp, scale, hat, seed, levels), laplacian);
-  return (int)cudaGetLastError();
+  const auto args = [&](auto launch) {
+    return launch(y, out, pay, n, d, w_self, k, soff, weights,
+                  make_wire(zp, scale, hat, seed, levels), laplacian, bn,
+                  h_lo, h_hi, stages, smem_bytes, grid,
+                  (cudaStream_t)stream);
+  };
+  const int v = vec_bytes(y, out, d, 4, 16);
+  const int v_ef = ef ? vec_bytes(hat, pay, d, 4, 16) : 16;
+  switch (v < v_ef ? v : v_ef) {
+    case 16: return args(launch_circ_halo_comm<16>);
+    case 8: return args(launch_circ_halo_comm<8>);
+    default: return args(launch_circ_halo_comm<4>);
+  }
 }
 
 template <typename T, int C>

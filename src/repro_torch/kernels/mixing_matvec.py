@@ -38,7 +38,9 @@ register no backward, so an operand that requires grad is refused.
 Each kernel's launches are counted in `launch_counts()`, bumped only
 where a wrapper launches it; the comm-fused kernels count apart from the
 plain ones (`*_comm`), `ring_laplacian_matvec` apart from
-`circulant_mix_matvec`, and the sparse halo gathers' row-tiled kernels
+`circulant_mix_matvec`, the plain full-operand sparse gather's unstaged
+kernel (`sparse_mix_matvec_unstaged`, n > 14,528) apart from its column
+stripe (`sparse_mix_matvec`), and the sparse halo gathers' row-tiled kernels
 (`sparse_mix_matvec_halo_rows`, `sparse_mix_matvec_halo_comm_rows`) apart
 from their column slabs (`sparse_mix_matvec_halo`,
 `sparse_mix_matvec_halo_comm`).  `reset_launch_counts` zeroes them all.  Every
@@ -68,11 +70,13 @@ the budget (and drops the TPU's sublane rule):
 
 The halo kernels need no more than the planner counts: the plain
 circulant kernel stages its tiles on a ring of `halo_stages` buffers (3
-at the planner's bn, fewer where a wider tile is asked for), the others
-one tile per block.  Each wrapper sizes its launch with the same
-`halo_smem_bytes`, asserts that it lies within the plan for its bn, and
-the C entry point recomputes it from the stage count and refuses a
-launch that disagrees.
+at the planner's bn, fewer where a wider tile is asked for), the fused
+one a ring of `halo_comm_stages` raw stages (3, or 2 of y and hat under
+EF) beside one decoded tile, the sparse row tiles one tile per block.
+Each wrapper sizes its launch with the same `halo_smem_bytes`, asserts
+that it lies within the plan for its bn, and the C entry point
+recomputes it from the stage count and refuses a launch that
+disagrees.
 The halo wrappers take the circulant offsets and weights as host
 sequences (`structure.offsets`), so the extents never come from the
 card; their signed (k,) device tables are built once per graph and
@@ -91,6 +95,14 @@ plain slab takes a row plan (`sparse_row_plan`: the rows in degree
 order, each row's real slots), which `MixingOp` builds once per graph.
 The choice is by shape alone and bn keeps its checks either way;
 `smem_budget` lowers the budget to drive every route at a small n.
+
+The plain full-operand sparse gather stages, as `repro`'s kernel does,
+a column stripe of all n rows: `plan_stripe_cols` gives each block the
+widest stripe of bc columns (512-byte rows down to 16: bc = 128 f32 up
+to n = 454, 8 at n = 4121) whose (n, bc) tile fits `SMEM_BUDGET_BYTES`,
+and the block gathers every neighbor row from there, so Y leaves device
+memory once.  Above n = 14,528, where not even a 16-byte row fits, the
+unstaged kernel reads each neighbor row from device memory.
 """
 from __future__ import annotations
 
@@ -121,7 +133,9 @@ _WIRE = (_P, _P, _U, _F)
 # appends
 _LIB = CudaLibrary("mixing_matvec", {
     "circulant_mix": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _I),
-    "sparse_mix": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
+    # ..., n, d, k, dtype, laplacian, stripe columns (0: the unstaged
+    # kernel), smem bytes
+    "sparse_mix": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
     "circulant_neumann": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P,
                           _F),
     "circulant_mix_comm": (_P, _P, _P, _P, *_WIRE, _I, _I, _F, _I, _P, _P,
@@ -133,9 +147,9 @@ _LIB = CudaLibrary("mixing_matvec", {
     # ..., bn, h_lo, h_hi, stages, smem bytes
     "circulant_mix_halo": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _I, _I,
                            _I, _I, _I),
-    # ..., bn, h_lo, h_hi, smem bytes
+    # ..., bn, h_lo, h_hi, stages, smem bytes
     "circulant_mix_halo_comm": (_P, _P, _P, _P, *_WIRE, _I, _I, _F, _I, _P,
-                                _P, _I, _I, _I, _I, _I),
+                                _P, _I, _I, _I, _I, _I, _I),
     # ..., row plan (order, deg), n, d, k, dtype, laplacian, bn, slab
     # columns (0: the row-tiled kernel), smem bytes
     "sparse_mix_halo": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -147,7 +161,8 @@ _LIB = CudaLibrary("mixing_matvec", {
 
 # launches per kernel, under the names of chip_smoke's kernel list
 _LAUNCHES = dict.fromkeys((
-    "circulant_mix_matvec", "sparse_mix_matvec", "circulant_neumann_step",
+    "circulant_mix_matvec", "sparse_mix_matvec", "sparse_mix_matvec_unstaged",
+    "circulant_neumann_step",
     "circulant_mix_matvec_comm", "sparse_mix_matvec_comm",
     "circulant_neumann_step_comm", "ring_laplacian_matvec",
     "circulant_mix_matvec_halo", "circulant_mix_matvec_halo_comm",
@@ -339,7 +354,13 @@ def sparse_mix_matvec(y: torch.Tensor, w_self: torch.Tensor,
     .sparse_structure`, which builds them in range from W).  Indices are
     not range-checked here: that would synchronize every launch.  `comm`
     and its operands as in `circulant_mix_matvec`; each gathered row is
-    decoded with its source row's zp/scale."""
+    decoded with its source row's zp/scale.
+
+    The plain gather stages an (n, bc) column stripe per block where one
+    fits (`plan_stripe_cols`: n ≤ 14,528) and counts as
+    `sparse_mix_matvec`; above that its unstaged kernel runs, counted as
+    `sparse_mix_matvec_unstaged`.  Both equal the plain version bit for
+    bit."""
     fused = parse_kernel_comm(comm)
     _check_state("y", y)
     n, d = y.shape
@@ -352,10 +373,15 @@ def sparse_mix_matvec(y: torch.Tensor, w_self: torch.Tensor,
             return sparse_mix_padded_ref(y.float(), w_self, neighbors,
                                          weights, laplacian).to(y.dtype)
         out = torch.empty_like(y)
-        _launch("sparse_mix", "sparse_mix_matvec", y.device, y.data_ptr(),
+        cols = plan_stripe_cols(n, y.element_size())
+        smem = 0 if cols is None else stripe_bytes(n, cols,
+                                                   y.element_size())
+        assert smem <= SMEM_BUDGET_BYTES
+        _launch("sparse_mix", "sparse_mix_matvec" if cols is not None
+                else "sparse_mix_matvec_unstaged", y.device, y.data_ptr(),
                 out.data_ptr(), w_self.data_ptr(), neighbors.data_ptr(),
                 weights.data_ptr(), n, d, k, _DTYPE_CODE[y.dtype],
-                int(bool(laplacian)))
+                int(bool(laplacian)), cols or 0, smem)
         return out
     bits, ef = fused
     _check_wire(y, zp, scale, seed, hat, ef)
@@ -487,6 +513,28 @@ def halo_stages(rows: int, *, itemsize: int = 4) -> int:
                // halo_smem_bytes(rows, itemsize=itemsize))
 
 
+HALO_COMM_STAGES = 3       # the fused ring's raw stages without EF
+HALO_COMM_EF_STAGES = 2    # and with it (a y and a hat tile each)
+
+
+def halo_comm_stages(rows: int, *, ef: bool) -> int:
+    """The fused circulant halo kernel's ring: the most raw stages, up to
+    `HALO_COMM_STAGES` (`HALO_COMM_EF_STAGES` under EF, each a y and a hat
+    tile), that fit `SMEM_BUDGET_BYTES` (read at the call) beside the one
+    decoded tile, of (rows, HALO_BD) f32 tiles; 3 (2 under EF) at the
+    planner's bn, whose plan counts 4 (6) live buffers
+    (`plan_blocks(True, ef)`); 0 when not even one stage fits."""
+    tiles = SMEM_BUDGET_BYTES // halo_smem_bytes(rows)
+    most = HALO_COMM_EF_STAGES if ef else HALO_COMM_STAGES
+    return max(0, min(most, (tiles - 1) // (2 if ef else 1)))
+
+
+def halo_comm_buffers(stages: int, *, ef: bool) -> int:
+    """Tiles a fused circulant halo launch stages: the ring's raw stages
+    (a y and a hat tile each under EF) and the decoded tile."""
+    return stages * (2 if ef else 1) + 1
+
+
 def stripe_smem_bytes(n: int, *, itemsize: int = 4, blocks: int = 3) -> int:
     """A full (n, HALO_BD) column stripe's live buffers (`repro`'s
     `stripe_vmem_bytes`)."""
@@ -560,6 +608,39 @@ def plan_slab_cols(n: int, itemsize: int = 4) -> int | None:
     return None
 
 
+# The plain full-operand sparse gather's column stripe
+# (`sparse_mix_stripe_kernel` in csrc/mixing_matvec.cu): block s holds the
+# columns [s·bc, s·bc + bc) of all n rows, bc·itemsize bytes a row, and
+# nothing else in shared memory.
+STRIPE_ROW_BYTES = (512, 256, 128, 64, 32, 16)
+
+
+def stripe_cols_for(itemsize: int = 4) -> tuple[int, ...]:
+    """The stripe widths bc, widest first, for `itemsize`-byte values:
+    (128, 64, 32, 16, 8, 4) for f32, (256, 128, 64, 32, 16, 8) for
+    bf16."""
+    return tuple(b // itemsize for b in STRIPE_ROW_BYTES)
+
+
+def stripe_bytes(n: int, cols: int, itemsize: int = 4) -> int:
+    """Shared memory of a stripe launch: the (n, cols) stripe of
+    `itemsize`-byte values."""
+    return n * cols * itemsize
+
+
+def plan_stripe_cols(n: int, itemsize: int = 4) -> int | None:
+    """The stripe width bc for the plain full-operand sparse gather of
+    `itemsize`-byte values at n agents: the widest of
+    `stripe_cols_for(itemsize)` whose stripe fits `SMEM_BUDGET_BYTES`
+    (read at the call) — 128 f32 / 256 bf16 up to n = 454, 8 / 16 at n =
+    4121 — or None above n = 14,528, where not even a 16-byte row fits
+    and the unstaged kernel runs."""
+    for c in stripe_cols_for(itemsize):
+        if stripe_bytes(n, c, itemsize) <= SMEM_BUDGET_BYTES:
+            return c
+    return None
+
+
 def sparse_row_plan(neighbors, weights) -> tuple[np.ndarray, np.ndarray]:
     """The plain slab's row plan from padded (n, k) host tables: (order,
     deg), (n,) int32 each.  deg[i] counts row i's slots before its
@@ -596,20 +677,30 @@ def smem_budget(nbytes: int):
 
 
 def _halo_smem(n: int, bn, h_lo: int, h_hi: int, itemsize: int,
-               blocks: int, rows: int, ring: bool = False
-               ) -> tuple[int, int]:
+               blocks: int, rows: int, ring: bool = False,
+               comm_ef: bool | None = None) -> tuple[int, int]:
     """Check the row tile and size the launch's shared memory: (stages,
-    bytes) of `rows` staged rows — one buffer, or with `ring` the staged
-    circulant kernel's `halo_stages` — within what a block may use and
-    within the plan's `blocks` buffers for this bn."""
+    bytes) of `rows` staged rows — one buffer; with `ring` the staged
+    circulant kernel's `halo_stages`; with `comm_ef` (False or True: EF)
+    the fused circulant kernel's `halo_comm_stages` and its decoded tile
+    — within what a block may use and within the plan's `blocks` buffers
+    for this bn."""
     check_halo_tile(n, bn, h_lo, h_hi)
-    smem = halo_smem_bytes(rows, itemsize=itemsize)
-    if smem > SMEM_BUDGET_BYTES:
-        raise ValueError(f"bn={bn}: the {rows}-row tile needs {smem} B of "
-                         f"shared memory, over the {SMEM_BUDGET_BYTES} B a "
-                         f"block may use (pick_halo_bn sizes bn)")
-    stages = halo_stages(rows, itemsize=itemsize) if ring else 1
-    smem *= stages
+    one = halo_smem_bytes(rows, itemsize=itemsize)
+    if comm_ef is not None:
+        stages = halo_comm_stages(rows, ef=comm_ef)
+        buffers = halo_comm_buffers(stages, ef=comm_ef)
+    elif ring:
+        stages = buffers = halo_stages(rows, itemsize=itemsize)
+    else:
+        stages = buffers = int(one <= SMEM_BUDGET_BYTES)
+    if stages < 1:
+        need = 1 if comm_ef is None else halo_comm_buffers(1, ef=comm_ef)
+        raise ValueError(f"bn={bn}: {need} × the {rows}-row tile need "
+                         f"{need * one} B of shared memory, over the "
+                         f"{SMEM_BUDGET_BYTES} B a block may use "
+                         f"(pick_halo_bn sizes bn)")
+    smem = buffers * one
     assert smem <= halo_smem_bytes(h_lo + bn + h_hi, itemsize=itemsize,
                                    blocks=blocks)
     return stages, smem
@@ -646,11 +737,12 @@ def circulant_mix_matvec_halo(y: torch.Tensor, zp=None, scale=None,
     bits, ef = fused if fused is not None else (None, False)
     if fused is not None:
         _check_wire(y, zp, scale, seed, hat, ef)
-    # the plain kernel stages its tiles on a ring, the fused one a single
-    # tile
+    # both kernels stage their tiles on a ring, the fused one beside its
+    # decoded tile
     stages, smem = _halo_smem(n, bn, h_lo, h_hi, y.element_size(),
                               plan_blocks(fused is not None, ef),
-                              h_lo + bn + h_hi, ring=fused is None)
+                              h_lo + bn + h_hi, ring=fused is None,
+                              comm_ef=None if fused is None else ef)
     kw = dict(w_self=float(w_self), offsets=offsets, weights=weights,
               laplacian=laplacian, bn=bn)
     if y.device.type == "cpu":
@@ -671,7 +763,8 @@ def circulant_mix_matvec_halo(y: torch.Tensor, zp=None, scale=None,
     _launch("circulant_mix_halo_comm", "circulant_mix_matvec_halo_comm",
             y.device, y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
             zp.data_ptr(), scale.data_ptr(), seed & 0xFFFFFFFF,
-            float(2 ** bits - 1), n, d, float(w_self), *geometry, smem)
+            float(2 ** bits - 1), n, d, float(w_self), *geometry, stages,
+            smem)
     return (out, pay) if ef else out
 
 

@@ -45,7 +45,11 @@ memory in place of VMEM (`repro_torch.kernels.mixing_matvec`, "Row
 tiles and the shared-memory planner"): ("full", None) runs the
 full-operand kernels, ("halo", bn) their row-tiled halo twins, and
 ("xla", None), where no row tile qualifies, the full-operand kernels
-again (they take any n; `repro` falls back to XLA there).  The plan
+again (`repro` falls back to XLA there).  Those take any n: the
+circulant and comm-fused ones read their neighbor rows from device
+memory, and the plain sparse gather stages a column stripe of all n
+rows in shared memory up to n = 14,528 (`plan_stripe_cols`; f32 or
+bf16), then runs its unstaged kernel.  The plan
 depends on n, the operand's itemsize and the variant's live buffers
 (3 plain, 4 fused, 6 fused + EF), never on the data: the full operand
 holds up to n = 151 (f32, plain), so the n = 16 runs keep the

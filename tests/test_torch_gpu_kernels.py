@@ -786,6 +786,115 @@ def test_circulant_halo_staged_ring_bitwise(cuda, dtype, offsets, d, tile):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The plain full-operand sparse gather (`sparse_mix_stripe_kernel`): a
+# column stripe of every row in shared memory at each width the planner
+# can give, reached through `smem_budget`, and past the narrowest the
+# unstaged kernel.  Every route equals the plain version bit for bit.
+# ---------------------------------------------------------------------------
+
+STRIPE_SHAPES = SHAPES + [(100, 1000), (4121, 129)]
+
+
+def _tiny_and_special_rows(y):
+    """Tiny values, NaN, ±inf and −0 in the rows a small operand has."""
+    n = y.shape[0]
+    y[1 % n] = torch.linspace(0, 3e-40, y.shape[1])
+    if n > 11:
+        _special_rows(y)
+    return y
+
+
+@pytest.mark.parametrize("shape", STRIPE_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sparse_mix_stripe_every_route_bitwise(cuda, shape, dtype):
+    """Every stripe width that fits at this n (128 .. 4 columns f32,
+    256 .. 8 bf16: 512- to 16-byte rows), the planner's first, and the
+    unstaged kernel one byte under the narrowest stripe.  d = 1 (4-byte
+    f32 rows, 2-byte bf16 rows), 129 (odd), 2010 (8-byte f32 rows), 1000
+    and 157000 cover every copy and store width and a ragged last stripe;
+    n = 3, 7, 100 and 4121 rows that leave warps partly idle.  Erdős–Rényi
+    r = 0.5 (k = 78 at n = 128), r = 0.004 at n = 4121.  Counted under
+    the route's own name."""
+    n, d = shape
+    sp = _er_structure(n, r=0.5 if n <= 128 else 0.004)
+    tabs = [torch.as_tensor(a, device=cuda)
+            for a in (sp.w_self, sp.neighbors, sp.weights)]
+    y = _tiny_and_special_rows(_randn(shape, torch.float32, "cpu", seed=d))
+    y = y.to(cuda).to(dtype)
+    item = y.element_size()
+    widths = mm.stripe_cols_for(item)
+    routes = [(c, mm.stripe_bytes(n, c, item)) for c in widths
+              if mm.stripe_bytes(n, c, item) <= mm.SMEM_BUDGET_BYTES]
+    assert routes[0][0] == mm.plan_stripe_cols(n, item)
+    routes.append((None, mm.stripe_bytes(n, widths[-1], item) - 1))
+    for lap in (False, True):
+        want = ref.sparse_mix_padded_ref(y.float(), *tabs, lap).to(dtype)
+        for cols, budget in routes:
+            mm.reset_launch_counts()
+            with mm.smem_budget(budget):
+                assert mm.plan_stripe_cols(n, item) == cols
+                got = mm.sparse_mix_matvec(y, *tabs, laplacian=lap)
+            torch.cuda.synchronize()
+            counts = mm.launch_counts()
+            counter = ("sparse_mix_matvec" if cols is not None
+                       else "sparse_mix_matvec_unstaged")
+            assert counts == {**dict.fromkeys(counts, 0), counter: 1}
+            assert got.dtype == dtype
+            _bits_equal(got.float(), want.float())
+
+
+# ---------------------------------------------------------------------------
+# The fused circulant halo kernel's ring: every stage count that
+# `halo_comm_stages` can give, output and payload bitwise.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("comm,stages", [
+    ("int8", 3), ("int8", 2), ("int8", 1), ("int4", 3), ("int4", 2),
+    ("int4", 1), ("int8+ef", 2), ("int8+ef", 1)])
+@pytest.mark.parametrize("d", [4100, 2010])
+def test_circulant_halo_comm_ring_bitwise(cuda, comm, stages, d):
+    """The fused circulant halo kernel at n = 4096 on the ring, at the
+    planner's bn (64), with the ring cut to `stages` raw stages by a
+    lower budget: d = 4100 (16-byte copies, the main path's d1 rows cut
+    to 33 column tiles and a ragged last one), d = 2010 (8-byte rows).
+    Output and payload bitwise against the full-operand kernel and the
+    plain version, with tiny rows, NaN, ±inf and −0 in the operand."""
+    n = 4096
+    s = _circulant_structure(n, (1,))
+    h_lo, h_hi = mm.halo_extents(s.offsets, n)
+    y = _tiny_and_special_rows(_randn((n, d), torch.float32, "cpu", seed=d))
+    y = y.to(cuda)
+    bits, ef, zp, sc, hat = _wire(y, comm, cuda)
+    bn = mm.pick_halo_bn(n, h_lo=h_lo, h_hi=h_hi,
+                         blocks=mm.plan_blocks(True, ef))
+    assert bn == 64
+    rows = h_lo + bn + h_hi
+    budget = mm.halo_comm_buffers(stages, ef=ef) * mm.halo_smem_bytes(rows)
+    host = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights)
+    for lap in (False, True):
+        full = mm.circulant_mix_matvec(y, zp, sc, 21, hat, laplacian=lap,
+                                       comm=comm, **_tables(s, cuda))
+        want = ref.circulant_mix_fused_ref(y, zp, sc, 21, hat,
+                                           laplacian=lap, bits=bits, **host)
+        mm.reset_launch_counts()
+        with mm.smem_budget(budget):
+            assert mm.halo_comm_stages(rows, ef=ef) == stages
+            got = mm.circulant_mix_matvec_halo(y, zp, sc, 21, hat,
+                                               laplacian=lap, bn=bn,
+                                               comm=comm, **host)
+        torch.cuda.synchronize()
+        counts = mm.launch_counts()
+        assert counts == {**dict.fromkeys(counts, 0),
+                          "circulant_mix_matvec_halo_comm": 1}
+        pairs = zip(got, full, want) if ef else [(got, full, want)]
+        for g, f, w in pairs:
+            _bits_equal(g, f)
+            _bits_equal(g, w)
+        del got, full, want
+        torch.cuda.empty_cache()
+
+
 @pytest.mark.parametrize("kind,backend", [("ring", "circulant"),
                                           ("erdos_renyi", "sparse_gather")])
 def test_explicit_backends_launch_nothing_and_backpropagate(cuda, kind,

@@ -134,7 +134,7 @@ def test_cpu_wrappers_run_the_plain_versions_without_launching():
     counts = tmm.launch_counts()
     assert set(counts.values()) == {0}
     assert {"circulant_mix_matvec", "sparse_mix_matvec",
-            "circulant_neumann_step", "circulant_mix_matvec_comm",
+            "sparse_mix_matvec_unstaged", "circulant_neumann_step", "circulant_mix_matvec_comm",
             "sparse_mix_matvec_comm", "circulant_neumann_step_comm",
             "ring_laplacian_matvec", "circulant_mix_matvec_halo",
             "circulant_mix_matvec_halo_comm", "sparse_mix_matvec_halo",

@@ -336,7 +336,7 @@ def test_circulant_ring_fills_the_planners_three_buffers(itemsize,
         == tmm.plan_blocks(False) == tmm.HALO_STAGES
     assert tmm.halo_smem_bytes(h_lo + bn + h_hi, itemsize=itemsize,
                                blocks=3) <= tmm.SMEM_BUDGET_BYTES
-    # the fused kernel keeps one tile
+    # a launch without a ring (the sparse row tiles) keeps one tile
     assert tmm._halo_smem(n, bn, h_lo, h_hi, itemsize, 4,
                           h_lo + bn + h_hi)[0] == 1
 
