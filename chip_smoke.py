@@ -15,7 +15,13 @@ Phases, in order (any failure exits non-zero before the last line):
                the bytes/operations bound: the plain circulant, sparse-
                gather and Neumann kernels, their comm-fused twins
                (int8/int4 ± error feedback; payload bitwise) and the
-               ring Laplacian; the sparse gather's column stripe also at
+               ring Laplacian; the comm-fused circulant and sparse
+               gossips on their decoded column stripe, also at (454,
+               d1), where the widest stripe leaves one block per SM,
+               and at n = 16 on every stripe width and their unstaged
+               kernels (output and payload bitwise, through a lower
+               shared-memory budget), the unstaged kernels timed beside
+               each; the sparse gather's column stripe also at
                the paper's Fig. 2 size (100, d1) and, at n = 16, on every
                stripe width and its unstaged kernel (bitwise, through a
                lower shared-memory budget), the unstaged kernel timed;
@@ -39,7 +45,10 @@ Phases, in order (any failure exits non-zero before the last line):
                agree with the same run on the CPU; the compressed ones
                with the same run on the card through the kernels' plain
                versions, and with the CPU run within the algorithm's own
-               seed-to-seed spread (see E2E_NORM_REL);
+               seed-to-seed spread (see E2E_NORM_REL), and bit for bit
+               with the same run through the fused gossips' unstaged
+               kernels, whose device time per solve is profiled beside
+               the decoded stripe's;
   4b. fig2   — the same solve on an Erdős–Rényi graph of 100 agents
                (r = 0.5, the paper's Fig. 2 size; K = 3, identity wire),
                every gossip through the sparse gather's column stripe:
@@ -113,6 +122,10 @@ N_LARGE, K_LARGE, ER_R_LARGE = 4096, 3, 0.004
 # the network size of the paper's Fig. 2 (a random graph of 100 agents),
 # where the full-operand sparse gather stages its whole 128-column stripe
 N_FIG2 = 100
+# the largest n whose 128-column f32 stripe fits one block's shared
+# memory (454 x 512 bytes = 232,448): one block per SM on the decoded
+# stripe of the comm-fused full-operand gossips
+N_STRIPE_MAX = 454
 
 # tolerances: the kernels round each product and sum on its own, in
 # their plain versions' order (no FMA contraction), so outputs are
@@ -448,10 +461,11 @@ def kernel_phase(torch, results: dict) -> None:
                             stripe_cols=None))
 
     # -- circulant_neumann_step ----------------------------------------
-    print("kernel circulant_neumann_step (ring, Eq. 14)")
-    s, tabs = ring_case(N_AGENTS)
+    print("kernel circulant_neumann_step (ring, Eq. 14; also at the "
+          "large-network path's (4096, d2))")
     beta = 0.1
-    for n, d in shapes:
+    for n, d in shapes + [(N_LARGE, D2)]:
+        s, tabs = ring_case(n)
         def make():
             h, hvp, p = (torch.randn((n, d), generator=gen, device=dev)
                          for _ in range(3))
@@ -494,86 +508,120 @@ def kernel_phase(torch, results: dict) -> None:
         return (W.to_sparse_csr(),
                 (torch.eye(W.shape[0], device=dev) - W).to_sparse_csr())
 
-    print("kernel circulant_mix_matvec_comm (ring, int8/int4 ± EF)")
-    for n, d in shapes + [(128, D1)]:
+    # -- circulant_mix_matvec and sparse_mix_matvec, comm-fused ----------
+    # the decoded column stripe at the planner's width, at the main path's
+    # shapes, (128, d1) and (N_STRIPE_MAX, d1), where the widest stripe
+    # leaves one block per SM (int8+ef (I−W)·Y and int8 W·Y there); every
+    # launch held bitwise against the plain version, output and payload,
+    # at n = 16 also on every stripe width and the unstaged kernel (n >
+    # 14,528), reached through a lower planner budget; the unstaged kernel
+    # (the old one) timed beside each on the same operands
+    def ring_fused(n):
         s, tabs = ring_case(n)
-        k = len(s.offsets)
         csr = csr_pair(make_network("ring", n).W)
-        for comm in COMMS:
-            bits, ef, pool = wire_pool(n, d, comm)
-            for lap in (False, True):
-                kw = dict(tabs, laplacian=lap, comm=comm)
-                ref_kw = dict(w_self=s.w_self, offsets=s.offsets,
-                              weights=s.weights, laplacian=lap, bits=bits)
+        host = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights)
 
-                def launch(t):
-                    return mm.circulant_mix_matvec(*t[:3], SEED, t[3], **kw)
+        def launch_of(comm, lap):
+            return lambda t: mm.circulant_mix_matvec(
+                *t[:3], SEED, t[3], laplacian=lap, comm=comm, **tabs)
 
-                def plain_fn(t):
-                    return ref.circulant_mix_fused_ref(*t[:3], SEED, t[3],
-                                                       **ref_kw)
-                got = launch(pool[0])
-                want = plain_fn(pool[0])
-                torch.cuda.synchronize()
-                tag = f"({n}, {d}) {comm} laplacian={lap}"
-                err = check_fused(tag, got, want, ef)
-                ms = cuda_ms(torch, launch, pool)
-                dev_ms = device_ms(torch, launch, pool,
-                                   "circulant_mix_comm_kernel")
-                plain = cuda_ms(torch, plain_fn, pool, iters=20)
-                A = csr[int(lap)]
-                lib = cuda_ms(torch, lambda t: torch.sparse.mm(A, t[0]),
-                              pool)
-                b_ms, b_by = fused_bound(n, d, k, ef, lap, 8 * k)
-                print(f"    ms={ms:.5f} device_ms={dev_ms:.5f} "
-                      f"plain_ms={plain:.5f} "
-                      f"library_ms(sparse.mm CSR)={lib:.5f} "
-                      f"bound_ms={b_ms:.5f} ({b_by})")
-                record("circulant_mix_matvec_comm", (n, d, comm, lap),
-                       dict(err=err, ms=ms, dev=dev_ms, plain=plain,
-                            lib=lib, bound=b_ms, by=b_by))
+        def plain_of(bits, lap):
+            return lambda t: ref.circulant_mix_fused_ref(
+                *t[:3], SEED, t[3], laplacian=lap, bits=bits, **host)
+        k = len(s.offsets)
+        return launch_of, plain_of, csr, k, k, 8 * k
 
-    # -- sparse_mix_matvec, comm-fused -----------------------------------
-    print("kernel sparse_mix_matvec_comm (Erdős–Rényi r=0.5, int8/int4 ± "
-          "EF)")
-    for n, d in shapes + [(128, D1)]:
+    def er_fused(n):
         net, sp, (w_self, nbr, wts) = er_case(n)
-        csr = csr_pair(net.W)
-        for comm in COMMS:
-            bits, ef, pool = wire_pool(n, d, comm)
-            for lap in (False, True):
-                def launch(t):
-                    return mm.sparse_mix_matvec(t[0], w_self, nbr, wts,
-                                                *t[1:3], SEED, t[3],
-                                                laplacian=lap, comm=comm)
 
-                def plain_fn(t):
-                    return ref.sparse_mix_fused_ref(
-                        t[0], w_self, nbr, wts, *t[1:3], SEED, t[3],
-                        laplacian=lap, bits=bits)
-                got = launch(pool[0])
-                want = plain_fn(pool[0])
-                torch.cuda.synchronize()
-                tag = f"({n}, {d}) {comm} laplacian={lap} k={sp.k}"
-                err = check_fused(tag, got, want, ef)
-                ms = cuda_ms(torch, launch, pool)
-                dev_ms = device_ms(torch, launch, pool,
-                                   "sparse_mix_comm_kernel")
-                plain = cuda_ms(torch, plain_fn, pool, iters=20)
-                A = csr[int(lap)]
-                lib = cuda_ms(torch, lambda t: torch.sparse.mm(A, t[0]),
-                              pool)
-                # what this graph needs: its nonzeros' weights and
-                # indices and the diagonal, the mix's 2 FLOP per nonzero
-                b_ms, b_by = fused_bound(n, d, sp.nnz / n, ef, lap,
-                                         sp.nnz * 8 + n * 4)
-                print(f"    ms={ms:.5f} device_ms={dev_ms:.5f} "
-                      f"plain_ms={plain:.5f} "
-                      f"library_ms(sparse.mm CSR)={lib:.5f} "
-                      f"bound_ms={b_ms:.5f} ({b_by})")
-                record("sparse_mix_matvec_comm", (n, d, comm, lap),
-                       dict(err=err, ms=ms, dev=dev_ms, plain=plain,
-                            lib=lib, bound=b_ms, by=b_by))
+        def launch_of(comm, lap):
+            return lambda t: mm.sparse_mix_matvec(
+                t[0], w_self, nbr, wts, *t[1:3], SEED, t[3], laplacian=lap,
+                comm=comm)
+
+        def plain_of(bits, lap):
+            return lambda t: ref.sparse_mix_fused_ref(
+                t[0], w_self, nbr, wts, *t[1:3], SEED, t[3], laplacian=lap,
+                bits=bits)
+        # what this graph needs: its nonzeros' weights and indices and the
+        # diagonal, the mix's 2 FLOP per nonzero
+        return (launch_of, plain_of, csr_pair(net.W), sp.k, sp.nnz / n,
+                sp.nnz * 8 + n * 4)
+
+    sms = mm._card_sms(dev)
+    for kname, what, case, symbol in (
+            ("circulant_mix_matvec_comm", "ring", ring_fused,
+             "circulant_mix_"),
+            ("sparse_mix_matvec_comm", "Erdős–Rényi r=0.5", er_fused,
+             "sparse_mix_")):
+        print(f"kernel {kname} ({what}, int8/int4 ± EF; decoded column "
+              f"stripe, and the unstaged kernel past it)")
+        for n, d in shapes + [(128, D1), (N_STRIPE_MAX, D1)]:
+            launch_of, plain_of, csr, k, k_mean, table_bytes = case(n)
+            widths = mm.stripe_cols_for(4)
+            unstaged = mm.stripe_bytes(n, widths[-1]) - 1
+            routes = [mm.stripe_bytes(n, c) for c in widths] \
+                if n == N_AGENTS else []
+            big = n == N_STRIPE_MAX
+            cases = ({"int8+ef": (True,), "int8": (False,)} if big
+                     else dict.fromkeys(COMMS, (False, True)))
+            for comm, laps in cases.items():
+                bits, ef, operands = wire_pool(n, d, comm)
+                for lap in laps:
+                    launch = launch_of(comm, lap)
+                    plain_fn = plain_of(bits, lap)
+                    got = launch(operands[0])
+                    want = plain_fn(operands[0])
+                    torch.cuda.synchronize()
+                    cols = mm.plan_comm_stripe_cols(n, d, sms)
+                    tag = (f"({n}, {d}) {comm} laplacian={lap} k={k} stripe "
+                           f"c={cols}")
+                    err = check_fused(tag, got, want, ef)
+                    bitwise(tag, got, want, "the plain version")
+                    errs = {}
+                    for budget in routes + [unstaged]:
+                        with mm.smem_budget(budget):
+                            c = mm.plan_comm_stripe_cols(n, d, sms)
+                            got = launch(operands[0])
+                        torch.cuda.synchronize()
+                        tag = (f"({n}, {d}) {comm} laplacian={lap} "
+                               + (f"stripe c={c}" if c else "unstaged"))
+                        bitwise(tag, got, want, "the plain version")
+                        errs[c] = check_fused(tag, got, want, ef)
+                    del got, want
+                    ms = cuda_ms(torch, launch, operands, iters=50 if big
+                                 else 200)
+                    dev_ms = device_ms(torch, launch, operands,
+                                       symbol + "stripe_comm_kernel")
+                    plain = cuda_ms(torch, plain_fn, operands,
+                                    iters=3 if big else 20, warmup=1)
+                    A = csr[int(lap)]
+                    lib = cuda_ms(torch, lambda t: torch.sparse.mm(A, t[0]),
+                                  operands, iters=50 if big else 200)
+                    b_ms, b_by = fused_bound(n, d, k_mean, ef, lap,
+                                             table_bytes)
+
+                    def go(t, launch=launch):
+                        with mm.smem_budget(unstaged):
+                            return launch(t)
+                    ums = cuda_ms(torch, go, operands, iters=20 if big else 50,
+                                  warmup=2)
+                    udev = device_ms(torch, go, operands,
+                                     symbol + "comm_unstaged_kernel",
+                                     iters=20 if big else 50)
+                    print(f"    ms={ms:.5f} device_ms={dev_ms:.5f} "
+                          f"plain_ms={plain:.5f} "
+                          f"library_ms(sparse.mm CSR)={lib:.5f} "
+                          f"bound_ms={b_ms:.5f} ({b_by}); unstaged: "
+                          f"ms={ums:.5f} device_ms={udev:.5f}")
+                    row = dict(err=err, ms=ms, dev=dev_ms, plain=plain,
+                               lib=lib, bound=b_ms, by=b_by,
+                               stripe_cols=cols)
+                    record(kname, (n, d, comm, lap), row)
+                    record(kname + "_unstaged", (n, d, comm, lap),
+                           dict(row, err=errs[None], ms=ums, dev=udev,
+                                stripe_cols=None))
+                del operands
 
     # -- circulant_neumann_step, comm-fused (no EF) ----------------------
     print("kernel circulant_neumann_step_comm (ring, Eq. 14, int8/int4)")
@@ -806,7 +854,7 @@ def halo_kernel_phase(torch, results: dict) -> None:
                             **host), pool, "circulant_mix_halo_comm_kernel",
                         lambda t, lap=lap, comm=comm: mm.circulant_mix_matvec(
                             *t[:3], SEED, t[3], laplacian=lap, comm=comm,
-                            **tabs), "circulant_mix_comm_kernel",
+                            **tabs), "circulant_mix_stripe_comm_kernel",
                         lambda t: torch.sparse.mm(A, t[0]),
                         fused_bound(n, d_, k, ef, lap, 8 * k), err, planned)
                 rows = h_lo + planned + h_hi
@@ -1011,7 +1059,7 @@ def halo_kernel_phase(torch, results: dict) -> None:
                             bits=bits), pool, "sparse_mix_slab_comm_kernel",
                         lambda t, lap=lap, comm=comm: mm.sparse_mix_matvec(
                             t[0], *er_tabs, *t[1:3], SEED, laplacian=lap,
-                            comm=comm), "sparse_mix_comm_kernel",
+                            comm=comm), "sparse_mix_stripe_comm_kernel",
                         lambda t: torch.sparse.mm(A, t[0]),
                         fused_bound(n, d_, sp.nnz / n, False, lap,
                                     sp.nnz * 8 + n * 4), err[routes[0][0]],
@@ -1152,8 +1200,55 @@ def main_path_phase(torch, counts_out: dict) -> None:
         if not res.ledger.total_bytes == cpu.ledger.total_bytes == preview \
                 == ledger_bytes:
             raise AssertionError(f"{label}: ledger bytes disagree")
-        busy[label] = profile_run(torch, lambda: run("cuda"))
+        by_kernel = {}
+        busy[label] = profile_run(torch, lambda: run("cuda"), by_kernel)
+        if comm != "identity":
+            unstaged_run(torch, label, run, res, expected, by_kernel)
     idle_shares(busy, time_in_turns(torch, timed), K)
+
+
+def unstaged_run(torch, label, run, res, expected, by_kernel) -> None:
+    """The same compressed solve with the fused full-operand gossips on
+    their unstaged kernels (the kernels the decoded stripe replaced,
+    reached through a lower planner budget): exact launch counts, equal
+    to the stripe run bit for bit, and the gossips' device time per
+    solve on each route from one profiled run."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import mixing_matvec as mm
+    fused = ("circulant_mix_matvec_comm", "sparse_mix_matvec_comm")
+    moved = {**dict.fromkeys(expected, 0),
+             **{name + "_unstaged" if name in fused else name: c
+                for name, c in expected.items() if c}}
+    old_kernels = {}
+    with mm.smem_budget(mm.stripe_bytes(N_AGENTS,
+                                        mm.stripe_cols_for(4)[-1]) - 1):
+        reset_launch_counts()
+        old = run("cuda")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"  unstaged route: launches {counts} expected {moved}")
+        if counts != moved:
+            raise AssertionError(f"{label}: unstaged launch counts {counts} "
+                                 f"!= {moved}")
+        profile_run(torch, lambda: run("cuda"), old_kernels)
+    for name in ("x", "y"):
+        diff = int((getattr(res, name) != getattr(old, name)).sum().item())
+        print(f"  unstaged route vs decoded stripe {name}: elements "
+              f"differing {diff} (bitwise)")
+        if diff:
+            raise AssertionError(f"{label}: the unstaged route's {name} "
+                                 f"differs from the decoded stripe's")
+    for key, val in res.metrics.items():
+        if not torch.equal(val, old.metrics[key]):
+            raise AssertionError(f"{label}: metric {key} differs between "
+                                 f"the routes")
+    new_us = sum(us for key, us in by_kernel.items()
+                 if "stripe_comm_kernel" in key)
+    old_us = sum(us for key, us in old_kernels.items()
+                 if "comm_unstaged_kernel" in key)
+    print(f"  fused full-operand gossips, device time per solve: decoded "
+          f"stripe {new_us:.1f} us, unstaged kernels {old_us:.1f} us "
+          f"(saved {old_us - new_us:.1f} us)")
 
 
 def fig2_network_phase(torch, counts_out: dict) -> None:
@@ -1925,10 +2020,11 @@ def plain_versions():
             setattr(ops, n, fn)
 
 
-def profile_run(torch, run) -> float | None:
+def profile_run(torch, run, by_kernel: dict | None = None) -> float | None:
     """Device time by kernel and the device's busy share over one more
     run under torch.profiler (which slows the host, so its wall time is
-    not the round time above); returns the device's busy µs."""
+    not the round time above); returns the device's busy µs, and fills
+    `by_kernel` with {kernel name: device µs} of the port's kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1962,6 +2058,8 @@ def profile_run(torch, run) -> float | None:
                                       "_unstaged_kernel")):
             print(f"  port kernel: {us:.1f} us device in {count} launches "
                   f"({us / count:.2f} us each) {key[:70]}")
+            if by_kernel is not None:
+                by_kernel[key] = by_kernel.get(key, 0.0) + us
     return busy_us
 
 
@@ -2060,8 +2158,8 @@ def main() -> int:
     # Neumann steps: the d2 launch they run at; the halo kernels: the
     # (4096, d1) gossip of the large-network path); ring_laplacian_matvec
     # is not on the main path and reports its (16, d1) check, the
-    # unstaged full-operand sparse gather (n > 14,528) its (16, d1)
-    # launch under a lower budget, the row-tiled sparse gathers (n >
+    # full-operand gossips' unstaged kernels (n > 14,528) their (16, d1)
+    # launches under a lower budget, the row-tiled sparse gathers (n >
     # 33,536) their (4096, d1) launches under a lower budget, and the
     # slabs' entries their narrower routes (and the plain slab the steps
     # of its walk)
@@ -2074,7 +2172,11 @@ def main() -> int:
         "circulant_neumann_step": ((N_AGENTS, D2, "float32", None), 852),
         "circulant_mix_matvec_comm": ((N_AGENTS, D1, "int8+ef", True),
                                       232),
+        "circulant_mix_matvec_comm_unstaged": (
+            (N_AGENTS, D1, "int8+ef", True), 232),
         "sparse_mix_matvec_comm": ((N_AGENTS, D1, "int8+ef", True), 551),
+        "sparse_mix_matvec_comm_unstaged": ((N_AGENTS, D1, "int8+ef", True),
+                                            551),
         "circulant_neumann_step_comm": ((N_AGENTS, D2, "int4", None), 826),
         "ring_laplacian_matvec": ((N_AGENTS, D1, "float32", True), 923),
         "circulant_mix_matvec_halo": ((N_LARGE, D1, "float32", True), 439),
@@ -2087,6 +2189,8 @@ def main() -> int:
                                              739),
     }
     off_path = ("ring_laplacian_matvec", "sparse_mix_matvec_unstaged",
+                "circulant_mix_matvec_comm_unstaged",
+                "sparse_mix_matvec_comm_unstaged",
                 "sparse_mix_matvec_halo_rows",
                 "sparse_mix_matvec_halo_comm_rows")
     kernels = []

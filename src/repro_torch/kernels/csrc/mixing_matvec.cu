@@ -244,7 +244,8 @@ __device__ __forceinline__ float decoded(const float* __restrict__ y,
 }
 
 // Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec with comm=
-// (_mix_fused_body).
+// (_mix_fused_body) where no column stripe fits
+// (circulant_mix_stripe_comm_kernel below): n > 14,528 rows.
 // Bound: bytes, by about 2x.  The work is one read of y (and hat), one
 // write of out (and, with EF, the payload), plus per payload element one
 // hash (two murmur3 finalizers and the row/column/seed mix, ~20 integer
@@ -255,11 +256,9 @@ __device__ __forceinline__ float decoded(const float* __restrict__ y,
 // than reading a materialized payload: recomputing costs integer work
 // that overlaps the loads, a materialized payload would cost a second
 // pass over HBM.  With EF the thread also writes its own row's payload.
-__global__ void circulant_mix_comm_kernel(const float* __restrict__ y,
-                                          float* __restrict__ out,
-                                          float* __restrict__ pay, int n,
-                                          int d, Circ c, Wire w,
-                                          int laplacian) {
+__global__ void circulant_mix_comm_unstaged_kernel(
+    const float* __restrict__ y, float* __restrict__ out,
+    float* __restrict__ pay, int n, int d, Circ c, Wire w, int laplacian) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= d) return;
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
@@ -278,20 +277,19 @@ __global__ void circulant_mix_comm_kernel(const float* __restrict__ y,
 }
 
 // Replaces repro/kernels/mixing_matvec.py:sparse_mix_matvec with comm=
-// (_sparse_fused_body).
-// Bound: as circulant_mix_comm_kernel.  Each gathered row is decoded with
-// its own source row's zp/scale, as the wire carries it.
+// (_sparse_fused_body) where no column stripe fits
+// (sparse_mix_stripe_comm_kernel below): n > 14,528 rows.
+// Bound: as circulant_mix_comm_unstaged_kernel.  Each gathered row is
+// decoded with its own source row's zp/scale, as the wire carries it.
 // Design: sparse_mix_unstaged_kernel's layout; as in the circulant kernel
 // each thread recomputes its k neighbors' decoded values, so the kernel
 // does k hashes per element where the work needs one: at ER's k = 13
 // that integer work, not the bytes, sets its time.
-__global__ void sparse_mix_comm_kernel(const float* __restrict__ y,
-                                       float* __restrict__ out,
-                                       float* __restrict__ pay,
-                                       const float* __restrict__ w_self,
-                                       const int* __restrict__ nbr,
-                                       const float* __restrict__ wts, int n,
-                                       int d, int k, Wire w, int laplacian) {
+__global__ void sparse_mix_comm_unstaged_kernel(
+    const float* __restrict__ y, float* __restrict__ out,
+    float* __restrict__ pay, const float* __restrict__ w_self,
+    const int* __restrict__ nbr, const float* __restrict__ wts, int n, int d,
+    int k, Wire w, int laplacian) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= d) return;
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
@@ -608,8 +606,8 @@ __global__ void __launch_bounds__(kHaloThreads)
 
 // Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec_halo with
 // comm= (_circ_halo_body, fused; repro's `pscr`).
-// Bound: bytes, as circulant_mix_comm_kernel (one read of y, and hat under
-// EF, one write of out, and the payload under EF): 1.54 ms at (4096,
+// Bound: bytes, as the full-operand fused kernels (one read of y, and hat
+// under EF, one write of out, and the payload under EF): 1.54 ms at (4096,
 // 157000) f32, 3.07 ms under EF, at 3.35 TB/s.  Besides, one hash per
 // staged element (~20 integer operations; (h_lo + bn + h_hi) / bn = 1.03
 // per output on the ring at bn = 64) and ~10 f32 operations, the divide,
@@ -633,8 +631,8 @@ __global__ void __launch_bounds__(kHaloThreads)
 // neighbors read from the decoded tile with 16-byte loads and the self
 // term and the Laplacian's y_i from the raw stage (y is read from device
 // memory once); accumulation is `term` in offset order, w_self*y_i first,
-// so the output is bitwise circulant_mix_comm_kernel's.  The output, and
-// under EF the payload (the decoded body rows), leave in V-byte stores,
+// so the output is bitwise the full-operand fused kernels'.  The output,
+// and under EF the payload (the decoded body rows), leave in V-byte stores,
 // masked past d.  Shared memory: `stages` raw tiles (twice that under EF)
 // and the decoded tile, within repro's plan of 4 live buffers (6 under
 // EF): 3 stages without EF and 2 with at the planner's bn
@@ -821,7 +819,7 @@ __global__ void sparse_mix_halo_kernel(const T* __restrict__ y,
 // Replaces repro/kernels/mixing_matvec.py:sparse_mix_matvec_halo with
 // comm= (_sparse_halo_body, fused; no EF, as repro), where no column slab
 // fits (sparse_mix_slab_comm_kernel below): n > 33,536 in f32.
-// Bound: as sparse_mix_comm_kernel.
+// Bound: as sparse_mix_comm_unstaged_kernel.
 // Design: sparse_mix_halo_kernel with each neighbor's value decoded from
 // (seed, row, column) by `decoded`, k hashes per element as repro's
 // per-neighbor _quantize.
@@ -1159,10 +1157,11 @@ __global__ void __launch_bounds__(kSlabThreads)
 // table, over the ~20 slots a pass gathers.
 template <typename T, int RB, int CW, int NT = kSlabThreads>
 __device__ __forceinline__ void stage_slab(T* slab, const T* __restrict__ y,
-                                           int n, int d, int c0) {
+                                           int n, int d, int c0,
+                                           int nt = NT) {
   constexpr int CPR = RB / CW;              // copies per slab row
   constexpr int E = CW / (int)sizeof(T);    // values per copy
-  for (int e = threadIdx.x; e < n * CPR; e += NT) {
+  for (int e = threadIdx.x; e < n * CPR; e += nt) {
     const int r = e / CPR, j = c0 + (e % CPR) * E;
     copy_async<CW>(reinterpret_cast<char*>(slab) + (size_t)e * CW,
                    y + (size_t)r * d + (j < d ? j : 0), j < d);
@@ -1493,6 +1492,274 @@ __global__ void __launch_bounds__(kStripeThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The comm-fused full-operand gossips on a decoded column stripe
+// ---------------------------------------------------------------------------
+
+// 4 f32 values of a row in device memory at p, in pieces of vb bytes (16,
+// 8 or 4: what the row's alignment allows, vec_bytes); a piece at or past
+// `valid` columns reads as 0.
+__device__ __forceinline__ void ldg_f32x4(const float* p, int vb, int valid,
+                                          float* v) {
+  if (vb == 16) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else if (vb == 8) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float2 x = 2 * q < valid
+                           ? __ldg(reinterpret_cast<const float2*>(p) + q)
+                           : make_float2(0.f, 0.f);
+      v[2 * q] = x.x, v[2 * q + 1] = x.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = e < valid ? __ldg(p + e) : 0.f;
+  }
+}
+
+// 4 f32 values stored at p in pieces of vb bytes, masked past `valid`.
+__device__ __forceinline__ void stg_f32x4(float* p, int vb, const float* v,
+                                          int valid) {
+  if (vb == 16) {
+    stg_vec<float, 4, 16>(p, v, valid);
+  } else if (vb == 8) {
+    stg_vec<float, 4, 8>(p, v, valid);
+  } else {
+    stg_vec<float, 4, 4>(p, v, valid);
+  }
+}
+
+// A row's neighbors in the stripe kernels below: its diagonal weight, and
+// from slot t on, four slots' (or one slot's) rows and weights.  Every
+// lane of a row asks for the same slots at once, so each table entry is
+// one broadcast load.  TableSlots reads the padded (n, k) tables (16-byte
+// loads where k % 4 == 0 and the tables are aligned); OffsetSlots the
+// circulant tables, slot t of row i being row (i + off[t]) mod n.
+struct TableSlots {
+  const float* w_self;
+  const int* nbr;
+  const float* wts;
+  int k;
+  bool vec;
+  __device__ int slots() const { return k; }
+  __device__ float self(int i) const { return __ldg(w_self + i); }
+  __device__ void four(int i, int t, int* idx, float* wq) const {
+    const size_t at = (size_t)i * k + t;
+    if (vec) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(nbr + at));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(wts + at));
+      idx[0] = a.x, idx[1] = a.y, idx[2] = a.z, idx[3] = a.w;
+      wq[0] = b.x, wq[1] = b.y, wq[2] = b.z, wq[3] = b.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        idx[e] = __ldg(nbr + at + e);
+        wq[e] = __ldg(wts + at + e);
+      }
+    }
+  }
+  __device__ void one(int i, int t, int* idx, float* wq) const {
+    *idx = __ldg(nbr + (size_t)i * k + t);
+    *wq = __ldg(wts + (size_t)i * k + t);
+  }
+};
+
+struct OffsetSlots {
+  Circ c;
+  int n;
+  __device__ int slots() const { return c.k; }
+  __device__ float self(int) const { return c.w_self; }
+  __device__ void one(int i, int t, int* idx, float* wq) const {
+    const int src = i + __ldg(c.off + t);
+    *idx = src >= n ? src - n : src;
+    *wq = __ldg(c.w + t);
+  }
+  __device__ void four(int i, int t, int* idx, float* wq) const {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) one(i, t + e, idx + e, wq + e);
+  }
+};
+
+// Replaces repro/kernels/mixing_matvec.py:sparse_mix_matvec with comm=
+// (_sparse_fused_body: the resident (n, bd) stripe quantized once into
+// VMEM scratch, every neighbor row gathered from there) and
+// circulant_mix_matvec with comm= (_mix_fused_body), up to n = 14,528
+// rows; the unstaged kernels above take larger n.
+// Bound: bytes, one read of y (and hat) and one write of out (and the
+// payload): 0.012 ms at (16, 157000) under EF, 0.096 ms at (128, 157000),
+// at 3.35 TB/s.  Besides, one hash per element (~20 integer operations)
+// and ~10 f32 operations of the quantizer, and the mix's k shared-memory
+// reads per element: at (128, 157000) with k = 78, 6.4 GB of them, about
+// 0.2 ms at the card's ~33 TB/s of shared-memory bandwidth, as the plain
+// stripe (sparse_mix_stripe_kernel); at (454, 157000) with k = 260, 74
+// GB, which set the kernel's time there.
+// Design: sparse_mix_stripe_kernel's stripe, decoded once.  Block s owns the
+// columns [s*bc, s*bc + bc) of all n rows, RB = 4*bc bytes a row (512 down to
+// 16: plan_comm_stripe_cols in mixing_matvec.py).  (1) It stages the (n, bc)
+// stripe of y with cp.async of cw bytes (16 where d and the pointer allow),
+// zero past d.  (2) After one barrier, a thread takes a 16-byte vector (4
+// columns) of a staged row at a time and decodes it in place, one hash per
+// element: `roundtrip(x, zp[r], scale[r], hash_uniform(smix, r, j), levels)`
+// with x = y - hat and hat + the result under EF, `decoded`'s arithmetic, so
+// the stripe holds exactly the payload the wire carries (NaN codes, +-inf and
+// -0 included). Under EF it reads hat in hw-byte pieces from device memory and
+// writes the payload's row piece from the same registers, so the payload leaves
+// once, coalesced, in the pass that makes it (repro's `pay_ref[...] = pay`).
+// Each thread reads hat one vector, and y_i one row, ahead of its use, the
+// first of each while the stripe is staged, so at d2's 16 rows neither read
+// waits after a barrier.  (3) After one more barrier each warp walks rows as
+// the plain stripe does, RB / 16 lanes a row, each lane 4 columns: w_self*y_i
+// with y_i exact from device memory (L2: the block staged those bytes), then
+// the row's k slots in order, four at a time, each neighbor's vector one
+// 16-byte shared-memory read of the decoded stripe, then y_i - acc for the
+// Laplacian; the row leaves in sw-byte stores, masked past d.  The terms are
+// the plain version's in its order, so output and payload are bitwise
+// sparse_mix_fused_ref's and circulant_mix_fused_ref's, and the unstaged
+// kernels'.  The block's threads are sized for the decode pass
+// (stripe_comm_threads): the fewest of 256, 512 and 1024 that put 1024 threads
+// on each SM beside the stripe's shared memory, since the hash chains starve
+// with fewer warps (the fused circulant halo's finding).
+constexpr int kStripeCommMaxThreads = 1024;
+
+template <int RB, typename Slots>
+__device__ __forceinline__ void stripe_comm_body(
+    const float* __restrict__ y, float* __restrict__ out,
+    float* __restrict__ pay, int n, int d, const Slots& sl, const Wire& w,
+    int laplacian, int cw, int hw, int sw) {
+  constexpr int BC = RB / 4;    // stripe columns
+  constexpr int LPR = RB / 16;  // lanes (4-column vectors) per row
+  constexpr int RPW = 32 / LPR;  // rows per warp and pass
+  static_assert(RB >= 16 && RB <= 512 && RB % 16 == 0, "a stripe row");
+  extern __shared__ __align__(16) float smem_f[];
+  float* stripe = smem_f;  // (n, BC), decoded in place
+  const int nt = blockDim.x;
+  const int c0 = blockIdx.x * BC;
+  const bool ef = w.hat != nullptr;
+  const int nv = n * LPR;  // 16-byte vectors of the stripe
+  // Device-memory reads one step ahead of their use: hat for the decode
+  // pass's next vector, y_i for the mix's next row; the first of each
+  // while the stripe is staged.
+  const auto load_hat = [&](int e, float* h) {
+    const int j = c0 + (e % LPR) * 4;
+    if (ef && e < nv && j < d) {
+      ldg_f32x4(w.hat + (size_t)(e / LPR) * d + j, hw, d - j, h);
+    }
+  };
+  const int lane = threadIdx.x % 32;
+  const int cl = (lane % LPR) * 4, j0 = c0 + cl;
+  const int step = nt / 32 * RPW;  // rows per block pass of the mix
+  const int i0 = threadIdx.x / 32 * RPW + lane / LPR;  // this lane's first
+  const auto load_y = [&](int i, float* v) {
+    if (i < n && j0 < d) ldg_f32x4(y + (size_t)i * d + j0, cw, d - j0, v);
+  };
+  float hn[4] = {0.f, 0.f, 0.f, 0.f}, yn[4] = {0.f, 0.f, 0.f, 0.f};
+  // (1) stage the (n, BC) stripe of y
+  if (cw == 16) {
+    stage_slab<float, RB, 16>(stripe, y, n, d, c0, nt);
+  } else if (cw == 8) {
+    stage_slab<float, RB, 8>(stripe, y, n, d, c0, nt);
+  } else {
+    stage_slab<float, RB, 4>(stripe, y, n, d, c0, nt);
+  }
+  load_hat(threadIdx.x, hn);
+  load_y(i0, yn);
+  cp_async_wait_all();
+  __syncthreads();
+  // (2) decode it in place, one hash per element; under EF the payload
+  // leaves from here
+  for (int e = threadIdx.x; e < nv; e += nt) {
+    float x[4], h[4], q[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) h[v] = hn[v];
+    load_hat(e + nt, hn);
+    const int r = e / LPR, j = c0 + (e % LPR) * 4;
+    if (j >= d) continue;  // zero past d, never stored
+    float* s = stripe + (size_t)e * 4;
+    const float zp = __ldg(w.zp + r), sc = __ldg(w.scale + r);
+    lds_vec<float, 4>(s, x);
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const float u = hash_uniform(w.smix, r, j + v);
+      const float dv =
+          roundtrip(ef ? __fsub_rn(x[v], h[v]) : x[v], zp, sc, u, w.levels);
+      q[v] = ef ? __fadd_rn(h[v], dv) : dv;
+    }
+    *reinterpret_cast<float4*>(s) = make_float4(q[0], q[1], q[2], q[3]);
+    if (ef) stg_f32x4(pay + (size_t)r * d + j, sw, q, d - j);
+  }
+  __syncthreads();
+  // (3) the mix, row by row; a lane past the ragged edge has nothing to do
+  if (j0 >= d) return;
+  const int k = sl.slots();
+  for (int i = i0; i < n; i += step) {
+    const size_t at = (size_t)i * d + j0;
+    float yi[4], acc[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) yi[v] = yn[v];
+    load_y(i + step, yn);
+    const float ws = sl.self(i);
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[v] = __fmul_rn(ws, yi[v]);
+    int t = 0;
+    for (; t + 4 <= k; t += 4) {
+      int idx[4];
+      float wq[4], x[4][4];
+      sl.four(i, t, idx, wq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        lds_vec<float, 4>(stripe + (size_t)idx[e] * BC + cl, x[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[v] = term(acc[v], wq[e], x[e][v]);
+      }
+    }
+    for (; t < k; ++t) {
+      int idx;
+      float wq, x[4];
+      sl.one(i, t, &idx, &wq);
+      lds_vec<float, 4>(stripe + (size_t)idx * BC + cl, x);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[v] = term(acc[v], wq, x[v]);
+    }
+    if (laplacian) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[v] = __fsub_rn(yi[v], acc[v]);
+    }
+    stg_f32x4(out + at, sw, acc, d - j0);
+  }
+}
+
+template <int RB>
+__global__ void __launch_bounds__(kStripeCommMaxThreads)
+    sparse_mix_stripe_comm_kernel(const float* __restrict__ y,
+                                  float* __restrict__ out,
+                                  float* __restrict__ pay,
+                                  const float* __restrict__ w_self,
+                                  const int* __restrict__ nbr,
+                                  const float* __restrict__ wts, int n,
+                                  int d, int k, Wire w, int laplacian,
+                                  int cw, int hw, int sw) {
+  const bool vec = k % 4 == 0 && ((size_t)nbr & 15) == 0 &&
+                   ((size_t)wts & 15) == 0;
+  stripe_comm_body<RB>(y, out, pay, n, d,
+                       TableSlots{w_self, nbr, wts, k, vec}, w, laplacian,
+                       cw, hw, sw);
+}
+
+template <int RB>
+__global__ void __launch_bounds__(kStripeCommMaxThreads)
+    circulant_mix_stripe_comm_kernel(const float* __restrict__ y,
+                                     float* __restrict__ out,
+                                     float* __restrict__ pay, int n, int d,
+                                     Circ c, Wire w, int laplacian, int cw,
+                                     int hw, int sw) {
+  stripe_comm_body<RB>(y, out, pay, n, d, OffsetSlots{c, n}, w, laplacian,
+                       cw, hw, sw);
+}
+
 // Dynamic shared memory of a halo launch: `buffers` tiles of `rows`
 // staged rows of kHaloBd elements of `itemsize` bytes (the Python
 // planner's halo_smem_bytes with blocks = buffers).
@@ -1669,20 +1936,92 @@ static Wire make_wire(const float* zp, const float* scale, const float* hat,
   return Wire{zp, scale, hat, seed * 0xC2B2AE3Du, levels};
 }
 
+// The threads of a decoded-stripe block with `smem_bytes` of shared
+// memory: the fewest of 256, 512 and 1024 that put 1024 threads on each
+// SM (256 at n = 16, 512 at n = 128, 1024 where the stripe leaves one
+// block per SM).
+template <typename Kernel>
+cudaError_t stripe_comm_threads(Kernel kernel, int smem_bytes,
+                                int* threads) {
+  for (*threads = 256; *threads < kStripeCommMaxThreads; *threads *= 2) {
+    int per_sm = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, *threads, smem_bytes);
+    if (err != cudaSuccess) return err;
+    if (per_sm * *threads >= 1024) break;
+  }
+  return cudaSuccess;
+}
+
+// Launches a decoded-stripe kernel over the ceil(d / bc) stripes of bc
+// columns; `args` are its arguments before the copy, hat and store
+// widths, which are picked here from the pointers.
+template <typename Kernel, typename... Args>
+int launch_stripe_comm(Kernel kernel, const float* y, const float* out,
+                       const float* pay, const float* hat, int d, int bc,
+                       int smem_bytes, cudaStream_t s, Args... args) {
+  int threads = 0;
+  cudaError_t err = allow_smem(kernel, smem_bytes);
+  if (err != cudaSuccess ||
+      (err = stripe_comm_threads(kernel, smem_bytes, &threads)) !=
+          cudaSuccess) {
+    return (int)err;
+  }
+  const int cw = vec_bytes(y, y, d, 4, 16);
+  const int hw = hat ? vec_bytes(hat, hat, d, 4, 16) : 16;
+  const int sw = vec_bytes(out, pay ? pay : out, d, 4, 16);
+  kernel<<<(d + bc - 1) / bc, threads, smem_bytes, s>>>(
+      args..., cw, hw, sw);
+  return (int)cudaGetLastError();
+}
+
+// The decoded stripe's row bytes RB for a launch of stripe_cols columns
+// at n rows and smem_bytes of shared memory, or 0 when the size is not
+// one the kernels take (stripe_cols 128, 64, 32, 16, 8 or 4 and
+// smem_bytes n * stripe_cols * 4, within what a block may use).
+static int stripe_comm_row_bytes(int n, int stripe_cols, int smem_bytes) {
+  const long long rb = 4LL * stripe_cols;
+  if (rb < 16 || rb > 512 || (rb & (rb - 1)) || smem_bytes > kSmemOptIn ||
+      smem_bytes != (long long)n * rb) {
+    return 0;
+  }
+  return (int)rb;
+}
+
+// stripe_cols: the decoded stripe's width bc and smem_bytes n * bc * 4
+// for the stripe kernels; 0 (and 0 bytes) for the unstaged kernels.
 extern "C" int circulant_mix_comm(const float* y, float* out, float* pay,
                                   const float* hat, const float* zp,
                                   const float* scale, unsigned int seed,
                                   float levels, int n, int d, float w_self,
                                   int k, const int* offsets,
                                   const float* weights, int laplacian,
+                                  int stripe_cols, int smem_bytes,
                                   void* stream) {
   if ((hat == nullptr) != (pay == nullptr)) return (int)cudaErrorInvalidValue;
   const Circ c{w_self, k, offsets, weights};
-  circulant_mix_comm_kernel<<<grid_for(n, d), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-      y, out, pay, n, d, c, make_wire(zp, scale, hat, seed, levels),
-      laplacian);
-  return (int)cudaGetLastError();
+  const Wire w = make_wire(zp, scale, hat, seed, levels);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (stripe_cols == 0) {
+    if (smem_bytes != 0) return (int)cudaErrorInvalidValue;
+    circulant_mix_comm_unstaged_kernel<<<grid_for(n, d), kThreads, 0, s>>>(
+        y, out, pay, n, d, c, w, laplacian);
+    return (int)cudaGetLastError();
+  }
+  const auto go = [&](auto kernel) {
+    return launch_stripe_comm(kernel, y, out, pay, hat, d, stripe_cols,
+                              smem_bytes, s, y, out, pay, n, d, c, w,
+                              laplacian);
+  };
+  switch (stripe_comm_row_bytes(n, stripe_cols, smem_bytes)) {
+    case 512: return go(circulant_mix_stripe_comm_kernel<512>);
+    case 256: return go(circulant_mix_stripe_comm_kernel<256>);
+    case 128: return go(circulant_mix_stripe_comm_kernel<128>);
+    case 64: return go(circulant_mix_stripe_comm_kernel<64>);
+    case 32: return go(circulant_mix_stripe_comm_kernel<32>);
+    case 16: return go(circulant_mix_stripe_comm_kernel<16>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int sparse_mix_comm(const float* y, float* out, float* pay,
@@ -1690,13 +2029,31 @@ extern "C" int sparse_mix_comm(const float* y, float* out, float* pay,
                                const float* scale, unsigned int seed,
                                float levels, const float* w_self,
                                const int* nbr, const float* wts, int n,
-                               int d, int k, int laplacian, void* stream) {
+                               int d, int k, int laplacian, int stripe_cols,
+                               int smem_bytes, void* stream) {
   if ((hat == nullptr) != (pay == nullptr)) return (int)cudaErrorInvalidValue;
-  sparse_mix_comm_kernel<<<grid_for(n, d), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      y, out, pay, w_self, nbr, wts, n, d, k,
-      make_wire(zp, scale, hat, seed, levels), laplacian);
-  return (int)cudaGetLastError();
+  const Wire w = make_wire(zp, scale, hat, seed, levels);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (stripe_cols == 0) {
+    if (smem_bytes != 0) return (int)cudaErrorInvalidValue;
+    sparse_mix_comm_unstaged_kernel<<<grid_for(n, d), kThreads, 0, s>>>(
+        y, out, pay, w_self, nbr, wts, n, d, k, w, laplacian);
+    return (int)cudaGetLastError();
+  }
+  const auto go = [&](auto kernel) {
+    return launch_stripe_comm(kernel, y, out, pay, hat, d, stripe_cols,
+                              smem_bytes, s, y, out, pay, w_self, nbr, wts,
+                              n, d, k, w, laplacian);
+  };
+  switch (stripe_comm_row_bytes(n, stripe_cols, smem_bytes)) {
+    case 512: return go(sparse_mix_stripe_comm_kernel<512>);
+    case 256: return go(sparse_mix_stripe_comm_kernel<256>);
+    case 128: return go(sparse_mix_stripe_comm_kernel<128>);
+    case 64: return go(sparse_mix_stripe_comm_kernel<64>);
+    case 32: return go(sparse_mix_stripe_comm_kernel<32>);
+    case 16: return go(sparse_mix_stripe_comm_kernel<16>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int circulant_neumann_comm(const float* h, const float* hvp,

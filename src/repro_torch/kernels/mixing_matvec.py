@@ -38,9 +38,11 @@ register no backward, so an operand that requires grad is refused.
 Each kernel's launches are counted in `launch_counts()`, bumped only
 where a wrapper launches it; the comm-fused kernels count apart from the
 plain ones (`*_comm`), `ring_laplacian_matvec` apart from
-`circulant_mix_matvec`, the plain full-operand sparse gather's unstaged
-kernel (`sparse_mix_matvec_unstaged`, n > 14,528) apart from its column
-stripe (`sparse_mix_matvec`), and the sparse halo gathers' row-tiled kernels
+`circulant_mix_matvec`, the full-operand gossips' unstaged kernels
+(`sparse_mix_matvec_unstaged`, `sparse_mix_matvec_comm_unstaged`,
+`circulant_mix_matvec_comm_unstaged`, n > 14,528) apart from their
+column stripes (`sparse_mix_matvec`, `sparse_mix_matvec_comm`,
+`circulant_mix_matvec_comm`), and the sparse halo gathers' row-tiled kernels
 (`sparse_mix_matvec_halo_rows`, `sparse_mix_matvec_halo_comm_rows`) apart
 from their column slabs (`sparse_mix_matvec_halo`,
 `sparse_mix_matvec_halo_comm`).  `reset_launch_counts` zeroes them all.  Every
@@ -103,6 +105,14 @@ to n = 454, 8 at n = 4121) whose (n, bc) tile fits `SMEM_BUDGET_BYTES`,
 and the block gathers every neighbor row from there, so Y leaves device
 memory once.  Above n = 14,528, where not even a 16-byte row fits, the
 unstaged kernel reads each neighbor row from device memory.
+
+The comm-fused full-operand gossips (sparse and circulant, ``comm=``)
+stage the same f32 stripe and decode it in place, one hash per element,
+writing the EF payload from that pass, then gather every neighbor's
+decoded row from there (`plan_comm_stripe_cols`: the plain f32 widths,
+narrowed where an operand as narrow as d2 = 2,010 would leave SMs
+idle).  Above n = 14,528 their unstaged kernels decode each neighbor
+value where it is gathered, k hashes per element.
 """
 from __future__ import annotations
 
@@ -138,10 +148,11 @@ _LIB = CudaLibrary("mixing_matvec", {
     "sparse_mix": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
     "circulant_neumann": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P,
                           _F),
+    # ..., laplacian, stripe columns (0: the unstaged kernel), smem bytes
     "circulant_mix_comm": (_P, _P, _P, _P, *_WIRE, _I, _I, _F, _I, _P, _P,
-                           _I),
+                           _I, _I, _I),
     "sparse_mix_comm": (_P, _P, _P, _P, *_WIRE, _P, _P, _P, _I, _I, _I,
-                        _I),
+                        _I, _I, _I),
     "circulant_neumann_comm": (_P, _P, _P, _P, _P, *_WIRE, _I, _I, _F, _I,
                                _P, _P, _F),
     # ..., bn, h_lo, h_hi, stages, smem bytes
@@ -163,7 +174,8 @@ _LIB = CudaLibrary("mixing_matvec", {
 _LAUNCHES = dict.fromkeys((
     "circulant_mix_matvec", "sparse_mix_matvec", "sparse_mix_matvec_unstaged",
     "circulant_neumann_step",
-    "circulant_mix_matvec_comm", "sparse_mix_matvec_comm",
+    "circulant_mix_matvec_comm", "circulant_mix_matvec_comm_unstaged",
+    "sparse_mix_matvec_comm", "sparse_mix_matvec_comm_unstaged",
     "circulant_neumann_step_comm", "ring_laplacian_matvec",
     "circulant_mix_matvec_halo", "circulant_mix_matvec_halo_comm",
     "sparse_mix_matvec_halo", "sparse_mix_matvec_halo_rows",
@@ -317,7 +329,12 @@ def circulant_mix_matvec(y: torch.Tensor, zp=None, scale=None, seed=None,
     W[i, i] = w_self; offsets (k,) int32 in [0, n) and weights (k,) f32
     on y's device (`circulant_tables`).  f32 accumulation, output in y's
     dtype.  `comm`, zp, scale, seed, hat: the comm-fused twin (module
-    docstring); returns (out, payload) under ``+ef``."""
+    docstring); returns (out, payload) under ``+ef``.  The fused gossip
+    decodes an (n, bc) column stripe per block where one fits
+    (`plan_comm_stripe_cols`: n ≤ 14,528), counted as
+    `circulant_mix_matvec_comm`, else runs its unstaged kernel, counted
+    as `circulant_mix_matvec_comm_unstaged`; both equal the plain version
+    bit for bit, output and payload."""
     fused = parse_kernel_comm(comm)
     if fused is None:
         return _circulant_mix("circulant_mix_matvec", y, w_self, offsets,
@@ -334,11 +351,14 @@ def circulant_mix_matvec(y: torch.Tensor, zp=None, scale=None, seed=None,
             laplacian=laplacian, bits=bits)
     out = torch.empty_like(y)
     pay = torch.empty_like(y) if ef else None
-    _launch("circulant_mix_comm", "circulant_mix_matvec_comm", y.device,
+    cols, smem = _comm_stripe(y)
+    _launch("circulant_mix_comm", "circulant_mix_matvec_comm" if cols
+            else "circulant_mix_matvec_comm_unstaged", y.device,
             y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
             zp.data_ptr(), scale.data_ptr(), seed & 0xFFFFFFFF,
             float(2 ** bits - 1), n, d, float(w_self), k,
-            offsets.data_ptr(), weights.data_ptr(), int(bool(laplacian)))
+            offsets.data_ptr(), weights.data_ptr(), int(bool(laplacian)),
+            cols, smem)
     return (out, pay) if ef else out
 
 
@@ -360,7 +380,10 @@ def sparse_mix_matvec(y: torch.Tensor, w_self: torch.Tensor,
     fits (`plan_stripe_cols`: n ≤ 14,528) and counts as
     `sparse_mix_matvec`; above that its unstaged kernel runs, counted as
     `sparse_mix_matvec_unstaged`.  Both equal the plain version bit for
-    bit."""
+    bit.  The fused gather likewise decodes its stripe
+    (`plan_comm_stripe_cols`), counted as `sparse_mix_matvec_comm`, or
+    runs its unstaged kernel, `sparse_mix_matvec_comm_unstaged`: output
+    and payload bitwise the plain version's on both."""
     fused = parse_kernel_comm(comm)
     _check_state("y", y)
     n, d = y.shape
@@ -391,11 +414,13 @@ def sparse_mix_matvec(y: torch.Tensor, w_self: torch.Tensor,
                                     bits=bits)
     out = torch.empty_like(y)
     pay = torch.empty_like(y) if ef else None
-    _launch("sparse_mix_comm", "sparse_mix_matvec_comm", y.device,
+    cols, smem = _comm_stripe(y)
+    _launch("sparse_mix_comm", "sparse_mix_matvec_comm" if cols
+            else "sparse_mix_matvec_comm_unstaged", y.device,
             y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
             zp.data_ptr(), scale.data_ptr(), seed & 0xFFFFFFFF,
             float(2 ** bits - 1), w_self.data_ptr(), neighbors.data_ptr(),
-            weights.data_ptr(), n, d, k, int(bool(laplacian)))
+            weights.data_ptr(), n, d, k, int(bool(laplacian)), cols, smem)
     return (out, pay) if ef else out
 
 
@@ -639,6 +664,50 @@ def plan_stripe_cols(n: int, itemsize: int = 4) -> int | None:
         if stripe_bytes(n, c, itemsize) <= SMEM_BUDGET_BYTES:
             return c
     return None
+
+
+# The comm-fused full-operand gossips' decoded stripe
+# (`sparse_mix_stripe_comm_kernel`, `circulant_mix_stripe_comm_kernel`):
+# block s stages the f32 columns [s·bc, s·bc + bc) of all n rows and
+# decodes them in place, and holds nothing else in shared memory.  The
+# H100's 132 SMs: an operand too narrow for one stripe per SM at the
+# widest bc gets narrower stripes.
+CARD_SMS = 132
+
+
+def plan_comm_stripe_cols(n: int, d: int | None = None,
+                          sms: int = CARD_SMS) -> int | None:
+    """The decoded stripe's width bc for a comm-fused full-operand
+    gossip at n agents: the widest f32 stripe that fits
+    `SMEM_BUDGET_BYTES` (read at the call), `plan_stripe_cols`'s widths
+    (one decoded stripe is all the kernels stage): 128 up to n = 454, 8
+    at n = 4121, 4 at n = 14,528 — or None above that, where the
+    unstaged kernels run.  Given the operand's width d, bc halves (down
+    to 4) while ceil(d / bc) stripes leave some of the card's `sms` SMs
+    without a block: 8 columns at d = 2,010 on the H100."""
+    cols = plan_stripe_cols(n)
+    if cols is None or d is None:
+        return cols
+    while cols > STRIPE_ROW_BYTES[-1] // 4 and -(-d // cols) < sms:
+        cols //= 2
+    return cols
+
+
+@functools.lru_cache(maxsize=None)
+def _card_sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _comm_stripe(y: torch.Tensor) -> tuple[int, int]:
+    """(stripe columns, shared-memory bytes) of a comm-fused full-operand
+    launch on y's card; (0, 0) for the unstaged kernels."""
+    n, d = y.shape
+    cols = plan_comm_stripe_cols(n, d, _card_sms(y.device))
+    if cols is None:
+        return 0, 0
+    smem = stripe_bytes(n, cols)
+    assert smem <= SMEM_BUDGET_BYTES
+    return cols, smem
 
 
 def sparse_row_plan(neighbors, weights) -> tuple[np.ndarray, np.ndarray]:

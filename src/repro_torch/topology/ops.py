@@ -45,12 +45,13 @@ memory in place of VMEM (`repro_torch.kernels.mixing_matvec`, "Row
 tiles and the shared-memory planner"): ("full", None) runs the
 full-operand kernels, ("halo", bn) their row-tiled halo twins, and
 ("xla", None), where no row tile qualifies, the full-operand kernels
-again (`repro` falls back to XLA there).  Those take any n: the
-circulant and comm-fused ones read their neighbor rows from device
-memory, and the plain sparse gather stages a column stripe of all n
-rows in shared memory up to n = 14,528 (`plan_stripe_cols`; f32 or
-bf16), then runs its unstaged kernel.  The plan
-depends on n, the operand's itemsize and the variant's live buffers
+again (`repro` falls back to XLA there).  Those take any n: the plain
+circulant ones read their neighbor rows from device memory, the plain
+sparse gather stages a column stripe of all n rows in shared memory up
+to n = 14,528 (`plan_stripe_cols`; f32 or bf16), and the comm-fused
+circulant and sparse gossips stage and decode one up to the same n
+(`plan_comm_stripe_cols`); past it these run their unstaged kernels.
+The plan depends on n, the operand's itemsize and the variant's live buffers
 (3 plain, 4 fused, 6 fused + EF), never on the data: the full operand
 holds up to n = 151 (f32, plain), so the n = 16 runs keep the
 full-operand kernels and n = 4096 takes the halo tier; `repro`

@@ -161,6 +161,42 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                              torch.as_tensor(sp.w_self),
                              torch.as_tensor(sp.neighbors, device=cuda),
                              torch.as_tensor(sp.weights, device=cuda))
+    # the decoded-stripe entry points refuse a shared-memory size that
+    # is not their width's stripe, a width they do not take, and a
+    # stripe over what a block may use (planned under a raised budget),
+    # and the wrappers raise: no retry on the unstaged kernels
+    from repro_torch.comm import row_quant_params
+    y = _randn((8, 8), torch.float32, cuda)
+    out = torch.empty_like(y)
+    zp, sc = row_quant_params(y, 8)
+    off, w = kw["offsets"], kw["weights"]
+    wire = (zp.data_ptr(), sc.data_ptr(), 1, 255.0)
+    for cols, smem in ((128, 8 * 128 * 4 + 4), (96, 8 * 96 * 4),
+                       (128, 0)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mm._LIB.launch("circulant_mix_comm", cuda, y.data_ptr(),
+                           out.data_ptr(), None, None, *wire, 8, 8,
+                           s.w_self, 2, off.data_ptr(), w.data_ptr(), 0,
+                           cols, smem)
+    tabs = [torch.as_tensor(a, device=cuda)
+            for a in (sp.w_self, sp.neighbors, sp.weights)]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mm._LIB.launch("sparse_mix_comm", cuda, y.data_ptr(),
+                       out.data_ptr(), None, None, *wire,
+                       *(t.data_ptr() for t in tabs), 8, 8, sp.k, 0, 128,
+                       8 * 64 * 4)
+    n, d = 500, 128 * 132       # 500 x 128 x 4 bytes > 232,448
+    s500 = circulant_structure(make_network("ring", n).W)
+    y = _randn((n, d), torch.float32, cuda)
+    zp, sc = row_quant_params(y, 8)
+    mm.reset_launch_counts()
+    with mm.smem_budget(n * 128 * 4):
+        assert mm.plan_comm_stripe_cols(n, d, mm._card_sms(y.device)) \
+            == 128
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mm.circulant_mix_matvec(y, zp, sc, 1, comm="int8",
+                                    **_tables(s500, cuda))
+    assert sum(mm.launch_counts().values()) == 0
 
 
 @pytest.mark.parametrize("kind", ["ring", "erdos_renyi", "star"])
@@ -893,6 +929,123 @@ def test_circulant_halo_comm_ring_bitwise(cuda, comm, stages, d):
             _bits_equal(g, w)
         del got, full, want
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The comm-fused full-operand gossips' decoded column stripe
+# (`sparse_mix_stripe_comm_kernel`, `circulant_mix_stripe_comm_kernel`):
+# every stripe width the planner gives, reached through `smem_budget`, and
+# past the narrowest the unstaged kernels.  Output and payload equal the
+# plain version bit for bit on every route.
+# ---------------------------------------------------------------------------
+
+def _offset_by_4_bytes(t):
+    """A copy of t whose data starts 4 bytes past where torch would put
+    it, so no row of it is 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.flatten()
+    return buf[1:].view(t.shape)
+
+
+def _comm_stripe_case(kind, n, d, comm, dev, offset=False):
+    """(launch(y, hat, lap), plain version(y, hat, lap), y, hat) of one
+    fused full-operand gossip: ER r = 0.5 or a circulant of offsets 1, 2
+    (the ring below n = 5), tiny rows, NaN, ±inf and −0 in y."""
+    y = _randn((n, d), torch.float32, "cpu", seed=d)
+    if d >= 4:
+        _tiny_and_special_rows(y)
+    else:   # one column: a tiny value, NaN, +inf and −0
+        y[1], y[3 % n], y[5 % n], y[7 % n] = 3e-40, float("nan"), \
+            float("inf"), -0.0
+    y = y.to(dev)
+    bits, ef, zp, sc, hat = _wire(y, comm, dev)
+    if offset:
+        y, hat = _offset_by_4_bytes(y), hat if hat is None \
+            else _offset_by_4_bytes(hat)
+    if kind == "sparse":
+        sp = _er_structure(n, r=0.5 if n <= 454 else 0.004)
+        tabs = [torch.as_tensor(a, device=dev)
+                for a in (sp.w_self, sp.neighbors, sp.weights)]
+
+        def launch(y, hat, lap):
+            return mm.sparse_mix_matvec(y, *tabs, zp, sc, 31, hat,
+                                        laplacian=lap, comm=comm)
+
+        def plain(y, hat, lap):
+            return ref.sparse_mix_fused_ref(y, *tabs, zp, sc, 31, hat,
+                                            laplacian=lap, bits=bits)
+    else:
+        s = circulant_structure(make_network("circulant", n, offsets=(1, 2)).W
+                                if n >= 5 else make_network("ring", n).W)
+        host = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights)
+
+        def launch(y, hat, lap):
+            return mm.circulant_mix_matvec(y, zp, sc, 31, hat, laplacian=lap,
+                                           comm=comm, **_tables(s, dev))
+
+        def plain(y, hat, lap):
+            return ref.circulant_mix_fused_ref(y, zp, sc, 31, hat,
+                                               laplacian=lap, bits=bits,
+                                               **host)
+    return launch, plain, y, hat
+
+
+@pytest.mark.parametrize("d", [1, 129, 2010, 157000, "2012, 4 bytes off"])
+@pytest.mark.parametrize("comm", COMMS)
+@pytest.mark.parametrize("kind", ["sparse", "circulant"])
+def test_comm_stripe_every_route_bitwise(cuda, d, comm, kind):
+    """At n = 16 the planner's route, then a budget of exactly each
+    width's stripe (the planner narrows d = 1, 129 and 2010 further: d =
+    157000 reaches every width), and one byte under the narrowest (the
+    unstaged kernel).  d = 1 and 129 take 4-byte copies, 2010 8-byte
+    ones, 157000 16-byte ones; "2012, 4 bytes off" holds y and hat 4
+    bytes past alignment, so 16-byte rows take 4-byte copies and loads.
+    Each launch is counted under its route's own name."""
+    n, offset = 16, isinstance(d, str)
+    d = 2012 if offset else d
+    launch, plain, y, hat = _comm_stripe_case(kind, n, d, comm, cuda,
+                                              offset)
+    ef = hat is not None
+    name = ("sparse_mix_matvec_comm" if kind == "sparse"
+            else "circulant_mix_matvec_comm")
+    widths = mm.stripe_cols_for(4)
+    budgets = [mm.SMEM_BUDGET_BYTES, *(mm.stripe_bytes(n, c) for c in widths),
+               mm.stripe_bytes(n, widths[-1]) - 1]
+    reached = set()
+    for lap in (False, True):
+        want = plain(y, hat, lap)
+        for budget in budgets:
+            mm.reset_launch_counts()
+            with mm.smem_budget(budget):
+                cols = mm.plan_comm_stripe_cols(n, d, mm._card_sms(y.device))
+                got = launch(y, hat, lap)
+            torch.cuda.synchronize()
+            reached.add(cols)
+            assert (cols is None) == (budget == budgets[-1])
+            counts = mm.launch_counts()
+            assert counts == {**dict.fromkeys(counts, 0),
+                              name if cols else name + "_unstaged": 1}
+            for g, w in (zip(got, want) if ef else [(got, want)]):
+                _bits_equal(g, w)
+    if d == 157000:
+        assert reached == {*widths, None}
+
+
+@pytest.mark.parametrize("n,d", [(3, 1), (7, 129), (100, 1001), (128, 2010),
+                                 (454, 600), (455, 600), (4121, 129)])
+@pytest.mark.parametrize("comm", ["int8", "int4+ef"])
+@pytest.mark.parametrize("kind", ["sparse", "circulant"])
+def test_comm_stripe_row_counts_bitwise(cuda, n, d, comm, kind):
+    """Row counts that leave warps partly idle, n = 454 (the widest
+    stripe at its largest n, one block per SM, 1024 threads), 455 (64
+    columns) and 4121 (8 columns; the ER tables there are r = 0.004's,
+    as the large-network path's)."""
+    launch, plain, y, hat = _comm_stripe_case(kind, n, d, comm, cuda)
+    ef = hat is not None
+    got, want = launch(y, hat, True), plain(y, hat, True)
+    torch.cuda.synchronize()
+    for g, w in (zip(got, want) if ef else [(got, want)]):
+        _bits_equal(g, w)
 
 
 @pytest.mark.parametrize("kind,backend", [("ring", "circulant"),

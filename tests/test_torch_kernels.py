@@ -135,7 +135,8 @@ def test_cpu_wrappers_run_the_plain_versions_without_launching():
     assert set(counts.values()) == {0}
     assert {"circulant_mix_matvec", "sparse_mix_matvec",
             "sparse_mix_matvec_unstaged", "circulant_neumann_step", "circulant_mix_matvec_comm",
-            "sparse_mix_matvec_comm", "circulant_neumann_step_comm",
+            "circulant_mix_matvec_comm_unstaged", "sparse_mix_matvec_comm",
+            "sparse_mix_matvec_comm_unstaged", "circulant_neumann_step_comm",
             "ring_laplacian_matvec", "circulant_mix_matvec_halo",
             "circulant_mix_matvec_halo_comm", "sparse_mix_matvec_halo",
             "sparse_mix_matvec_halo_rows", "sparse_mix_matvec_halo_comm",
