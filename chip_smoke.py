@@ -3,6 +3,8 @@
 kernel on that path against its plain PyTorch version.
 
     python3 chip_smoke.py        # from the repository root, one H100
+    python3 chip_smoke.py --phase ring_sweep --phase kernel   # a probe:
+                                 # those phases only, no result line
 
 Phases, in order (any failure exits non-zero before the last line):
   1. card    — nvidia-smi name and power limit, torch's device name/count;
@@ -12,8 +14,11 @@ Phases, in order (any failure exits non-zero before the last line):
   3. kernels — each kernel vs its plain version on the card at the main
                path's shapes, with timings (CUDA events), the plain
                version's and a one-call PyTorch yardstick's times, and
-               the bytes/operations bound: the plain circulant, sparse-
-               gather and Neumann kernels, their comm-fused twins
+               the bytes/operations bound: the plain circulant mix and
+               Neumann step on the circulant ring and on their unstaged
+               kernels (f32 and bf16, bitwise against each other, every
+               stage count, at n = 16, 128 and 4096 and an odd d), the
+               sparse-gather kernel, their comm-fused twins
                (int8/int4 ± error feedback; payload bitwise) and the
                ring Laplacian; the comm-fused circulant and sparse
                gossips on their decoded column stripe, also at (454,
@@ -34,6 +39,10 @@ Phases, in order (any failure exits non-zero before the last line):
                row-tiled kernel, driven by a lower shared-memory budget;
                bitwise against the full-operand kernel and the plain
                version; the plain slab also without its row plan);
+  3b. sweep  — the Neumann ring at every (row tile, stages) its kernel
+               takes at (4096, d2/d1), f32 and bf16, and (16, d2/d1),
+               and the mix's ring at each stage count, bitwise against
+               the unstaged kernels: the numbers behind the planners;
   4. main    — `repro_torch.solve` on the paper's §6.2 hyper-
                representation MLP at its published widths (d=784,
                hidden=200: d1=157,000, d2=2,010; n=16 agents) on a ring
@@ -48,7 +57,8 @@ Phases, in order (any failure exits non-zero before the last line):
                seed-to-seed spread (see E2E_NORM_REL), and bit for bit
                with the same run through the fused gossips' unstaged
                kernels, whose device time per solve is profiled beside
-               the decoded stripe's;
+               the decoded stripe's; the ring identity solve likewise
+               through the plain ring kernels' unstaged kernels;
   4b. fig2   — the same solve on an Erdős–Rényi graph of 100 agents
                (r = 0.5, the paper's Fig. 2 size; K = 3, identity wire),
                every gossip through the sparse gather's column stripe:
@@ -61,7 +71,9 @@ Phases, in order (any failure exits non-zero before the last line):
                Erdős–Rényi (r = 0.004) identity and int8, each with exact
                launch counts and ledger bytes, held against the same
                solve on the card through the plain versions, timed and
-               profiled;
+               profiled; the ring identity solve also through the
+               unstaged kernels (bitwise), and the Neumann step timed on
+               the operands that solve hands it;
   5b. routes — explicit "circulant" / "sparse_gather" MixingOps, and
                "auto" with the kernel switch off, launch no kernel and
                backpropagate; the entry points (solve, MixingOp,
@@ -115,6 +127,8 @@ SEED = 123456789
 N_AGENTS = 16
 D_IN, HIDDEN, N_CLASSES, M_PER = 784, 200, 10, 30
 D1, D2 = D_IN * HIDDEN + HIDDEN, HIDDEN * N_CLASSES + N_CLASSES
+# an odd width beside d2: 4-byte f32 and 2-byte bf16 copies on the rings
+D_ODD = D2 + 1
 K, M, U = 5, 5, 3
 # the large-network path: one (4096, 157000) f32 state is 2.57 GB; an
 # Erdős–Rényi graph with mean degree ~18 (k_max 36, the padded gather)
@@ -173,28 +187,41 @@ def device_ms(torch, fn, pool, symbol: str, iters=50, attempts=3
               ) -> float:
     """Mean device time (ms) of the one CUDA kernel named like `symbol`
     that fn launches, from torch.profiler: the kernel alone, without the
-    host's launch cost that `cuda_ms` includes.  The profiler may miss
-    the first launches of its window (up to 3 of 50 seen on the H100),
-    so the mean is over those it saw; a window in which it saw fewer
-    (the tracer dropped its records) is profiled again, up to
-    `attempts` times."""
-    from torch.profiler import ProfilerActivity, profile
+    host's launch cost that `cuda_ms` includes.  The tracer misses the
+    first launches of a window (up to 3 of 50 seen on the H100, and late
+    in a long run whole windows), so five launches run under the
+    profiler's warm-up step before the step it records, and the mean is
+    over those it saw; a window in which it saw fewer than iters - 3 is
+    profiled again, up to `attempts` times.  Past that the time comes
+    from CUDA events around the same launches (`cuda_ms`, which for
+    kernels shorter than their host launch cost reads the host's rate),
+    and the line says so."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     for attempt in range(attempts):
+        recorded = []
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(pool[i % len(pool)])
-            torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if symbol in e.key
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: recorded.append(
+                         p.key_averages())) as prof:
+            for launches in (min(iters, 5), iters):
+                for i in range(launches):
+                    fn(pool[i % len(pool)])
+                torch.cuda.synchronize()
+                prof.step()
+        hits = [e for e in (recorded[0] if recorded else ())
+                if symbol in e.key
                 and getattr(e, "self_device_time_total", 0) > 0]
         count = sum(e.count for e in hits)
         if iters - 3 <= count <= iters:
             return sum(e.self_device_time_total for e in hits) / count / 1e3
         print(f"  profiler saw {count} launches of {symbol}, expected "
               f"{iters} (attempt {attempt + 1} of {attempts})")
-    raise AssertionError(f"profiler saw {count} launches of {symbol} in "
-                         f"{attempts} attempts, expected {iters}")
+    ms = cuda_ms(torch, fn, pool, iters=iters)
+    print(f"  device ms of {symbol} from CUDA events instead (the profiler "
+          f"missed launches in {attempts} windows): {ms:.5f}")
+    return ms
 
 
 def operand_pool(torch, make, nbytes: int):
@@ -205,6 +232,33 @@ def operand_pool(torch, make, nbytes: int):
     operands do); those times are launch-latency readings."""
     copies = max(1, min(64, math.ceil(3 * L2_BYTES / max(nbytes, 1))))
     return [make() for _ in range(copies)]
+
+
+def try_library(torch, fn, pool, **kw):
+    """(ms, None) of a one-call PyTorch yardstick (`cuda_ms`), or (None,
+    the error) where the card's PyTorch refuses the call (a bf16 CSR
+    product, for one)."""
+    try:
+        return cuda_ms(torch, fn, pool, **kw), None
+    except (RuntimeError, NotImplementedError, TypeError) as err:
+        return None, f"{type(err).__name__}: {str(err).splitlines()[0][:160]}"
+
+
+def csr_mm(torch, A, dt):
+    """One `torch.sparse.mm` with the CSR matrix A in dtype dt, which is
+    converted once, at the first call (inside `try_library`'s warm-up,
+    so that a refused conversion is reported as the call's error)."""
+    held = {}
+
+    def call(t):
+        if "A" not in held:
+            held["A"] = A if A.dtype == dt else A.to(dt)
+        return torch.sparse.mm(held["A"], t)
+    return call
+
+
+def lib_text(lib, lib_err) -> str:
+    return f"{lib:.5f}" if lib is not None else (lib_err or "n/a")
 
 
 def bound(nbytes: float, flops: float, int_ops: float = 0.0
@@ -296,8 +350,8 @@ def kernel_phase(torch, results: dict) -> None:
 
     def ring_case(n):
         s = circulant_structure(make_network("ring", n).W)
-        off, w = mm.circulant_tables(n, s.offsets, s.weights, dev)
-        return s, dict(w_self=s.w_self, offsets=off, weights=w)
+        return s, dict(w_self=s.w_self, offsets=s.offsets,
+                       weights=s.weights)
 
     def er_case(n):
         net = make_network("erdos_renyi", n, r=0.5, seed=0)
@@ -314,53 +368,96 @@ def kernel_phase(torch, results: dict) -> None:
         results.setdefault(kname, {})[key] = row
 
     # -- circulant_mix_matvec ------------------------------------------
-    print("kernel circulant_mix_matvec (ring W·Y and (I−W)·Y)")
-    for n, d in shapes + [(128, D1)]:
+    # the circulant halo's ring at bn = n (the planner's route) at every
+    # stage count, and the unstaged kernel (reached through a budget no
+    # tile fits), each bitwise against the plain version and the other;
+    # both timed, f32 and bf16, at the main path's shapes, at (128, d1)
+    # and at an odd d (4-byte f32, 2-byte bf16 copies)
+    print("kernel circulant_mix_matvec (ring W·Y and (I−W)·Y; the ring at "
+          "bn = n, and the unstaged kernel)")
+    for n, d in shapes + [(128, D1), (N_AGENTS, D_ODD)]:
         s, tabs = ring_case(n)
-        I_minus = torch.eye(n, device=dev) - torch.as_tensor(
-            make_network("ring", n).W, dtype=torch.float32, device=dev)
         W_dense = torch.as_tensor(make_network("ring", n).W,
                                   dtype=torch.float32, device=dev)
-        for dname, dt in (dtypes if n == N_AGENTS else dtypes[:1]):
+        I_minus = torch.eye(n, device=dev) - W_dense
+        h_lo, h_hi = mm.halo_extents(s.offsets, n)
+        for dname, dt in dtypes:
             item = torch.tensor([], dtype=dt).element_size()
             pool = operand_pool(torch, lambda: torch.randn(
                 (n, d), generator=gen, device=dev).to(dt), n * d * item)
+            one = mm.halo_smem_bytes(h_lo + n + h_hi, itemsize=item)
+            top = mm.halo_stages(h_lo + n + h_hi, itemsize=item)
+            planned = mm.circulant_ring_stages(n, h_lo, h_hi, itemsize=item,
+                                               d=d)
             for lap in (False, True):
                 kw = dict(tabs, laplacian=lap)
                 y = pool[0]
-                got = mm.circulant_mix_matvec(y, **kw)
                 want = ref.circulant_mix_ref(
                     y.float(), s.w_self, s.offsets, s.weights,
                     lap).to(dt)
+                got = mm.circulant_mix_matvec(y, **kw)
                 torch.cuda.synchronize()
-                tag = f"({n}, {d}) {dname} laplacian={lap}"
+                tag = (f"({n}, {d}) {dname} laplacian={lap} planner: "
+                       + (f"ring bn={n} stages={planned}" if planned
+                          else "unstaged"))
                 err = check(tag, got, want, dname)
-                def launch(t):
-                    return mm.circulant_mix_matvec(t, **kw)
+                bitwise(tag, got, want, "the plain version")
+                with mm.smem_budget(one - 1):
+                    assert mm.circulant_ring_stages(n, h_lo, h_hi,
+                                                    itemsize=item, d=d) == 0
+                    old = mm.circulant_mix_matvec(y, **kw)
+                torch.cuda.synchronize()
+                tag = f"({n}, {d}) {dname} laplacian={lap} unstaged"
+                bitwise(tag, old, want, "the plain version")
+                err_old = check(tag, old, want, dname)
+                for st in range(1, top + 1):
+                    with mm.smem_budget(st * one):
+                        got = mm.circulant_mix_matvec(y, ring=(n, st), **kw)
+                    torch.cuda.synchronize()
+                    tag = (f"({n}, {d}) {dname} laplacian={lap} ring "
+                           f"stages={st}")
+                    bitwise(tag, got, want, "the plain version")
+                    bitwise(tag, got, old, "the unstaged kernel")
+                    err = max(err, check(tag, got, want, dname))
+                del got, old
+
+                def launch(t, kw=kw):
+                    return mm.circulant_mix_matvec(t, ring=(n, top), **kw)
+
+                def go_old(t, kw=kw):
+                    with mm.smem_budget(one - 1):
+                        return mm.circulant_mix_matvec(t, **kw)
                 ms = cuda_ms(torch, launch, pool)
                 dev_ms = device_ms(torch, launch, pool,
-                                   "circulant_mix_kernel")
+                                   "circulant_mix_halo_kernel")
+                ms_old = cuda_ms(torch, go_old, pool)
+                dev_old = device_ms(torch, go_old, pool,
+                                    "circulant_mix_kernel")
                 plain = cuda_ms(torch, lambda t: ref.circulant_mix_ref(
                     t.float(), s.w_self, s.offsets, s.weights,
                     lap).to(dt), pool, iters=50)
-                lib = None
-                if dt == torch.float32:
-                    Wl = I_minus if lap else W_dense
-                    lib = cuda_ms(torch, lambda t: torch.matmul(Wl, t),
-                                  pool)
+                Wl = (I_minus if lap else W_dense).to(dt)
+                lib, lib_err = try_library(torch,
+                                           lambda t: torch.matmul(Wl, t),
+                                           pool)
                 # one read of Y, one write of the output, the k-entry
                 # offset and weight tables
                 k = len(s.offsets)
                 b_ms, b_by = bound(2 * n * d * item + 8 * k,
                                    (2 * (k + 1) + lap) * n * d)
-                print(f"    ms={ms:.5f} device_ms={dev_ms:.5f} "
-                      f"plain_ms={plain:.5f} "
-                      f"library_ms(matmul)="
-                      f"{'n/a' if lib is None else f'{lib:.5f}'} "
+                print(f"    ring bn={n} stages={top}: ms={ms:.5f} "
+                      f"device_ms={dev_ms:.5f}; unstaged: ms={ms_old:.5f} "
+                      f"device_ms={dev_old:.5f}; plain_ms={plain:.5f} "
+                      f"library_ms(matmul {dname})={lib_text(lib, lib_err)} "
                       f"bound_ms={b_ms:.5f} ({b_by})")
+                row = dict(plain=plain, lib=lib, lib_err=lib_err,
+                           bound=b_ms, by=b_by)
                 record("circulant_mix_matvec", (n, d, dname, lap),
-                       dict(err=err, ms=ms, dev=dev_ms, plain=plain,
-                            lib=lib, bound=b_ms, by=b_by))
+                       dict(row, err=err, ms=ms, dev=dev_ms, bn=n,
+                            stages=top))
+                record("circulant_mix_matvec_unstaged", (n, d, dname, lap),
+                       dict(row, err=err_old, ms=ms_old, dev=dev_old))
+            del pool
 
     # -- sparse_mix_matvec ---------------------------------------------
     # the column stripe at the planner's width (128 f32 / 256 bf16 columns
@@ -417,11 +514,8 @@ def kernel_phase(torch, results: dict) -> None:
                 plain = cuda_ms(torch, lambda t: ref.sparse_mix_padded_ref(
                     t.float(), w_self, nbr, wts, lap).to(dt), pool,
                     iters=50)
-                lib = None
-                if dt == torch.float32:
-                    A = csr_lap if lap else csr
-                    lib = cuda_ms(torch, lambda t: torch.sparse.mm(A, t),
-                                  pool)
+                lib, lib_err = try_library(
+                    torch, csr_mm(torch, csr_lap if lap else csr, dt), pool)
                 # what this graph needs: each nonzero's weight and index,
                 # the diagonal, one read of Y and one write of the output
                 nbytes = 2 * n * d * item + sp.nnz * 8 + n * 4
@@ -429,11 +523,11 @@ def kernel_phase(torch, results: dict) -> None:
                                    (2 * (sp.nnz + n) + lap * n) * d)
                 print(f"    ms={ms:.5f} device_ms={dev_ms:.5f} "
                       f"plain_ms={plain:.5f} "
-                      f"library_ms(sparse.mm CSR)="
-                      f"{'n/a' if lib is None else f'{lib:.5f}'} "
+                      f"library_ms(sparse.mm CSR {dname})="
+                      f"{lib_text(lib, lib_err)} "
                       f"bound_ms={b_ms:.5f} ({b_by})")
                 row = dict(err=err, ms=ms, dev=dev_ms, plain=plain, lib=lib,
-                           bound=b_ms, by=b_by,
+                           lib_err=lib_err, bound=b_ms, by=b_by,
                            stripe_cols=mm.plan_stripe_cols(n, item))
                 record("sparse_mix_matvec", (n, d, dname, lap), row)
                 if dt != torch.float32:
@@ -461,40 +555,90 @@ def kernel_phase(torch, results: dict) -> None:
                             stripe_cols=None))
 
     # -- circulant_neumann_step ----------------------------------------
-    print("kernel circulant_neumann_step (ring, Eq. 14; also at the "
-          "large-network path's (4096, d2))")
+    # the circulant ring at the planner's (bn, stages) and the unstaged
+    # kernel (a budget no tile fits), bitwise against the plain version
+    # and each other, f32 and bf16, at the main path's shapes, the large
+    # path's (4096, d2) and (4096, d1), and an odd d; both timed
+    print("kernel circulant_neumann_step (ring, Eq. 14; the circulant "
+          "ring and the unstaged kernel)")
     beta = 0.1
-    for n, d in shapes + [(N_LARGE, D2)]:
+    for n, d in shapes + [(N_LARGE, D2), (N_LARGE, D1), (N_AGENTS, D_ODD)]:
         s, tabs = ring_case(n)
-        def make():
-            h, hvp, p = (torch.randn((n, d), generator=gen, device=dev)
-                         for _ in range(3))
-            dsc = 1.5 + 1.5 * torch.rand((n, 1), generator=gen,
-                                         device=dev)
-            return h, hvp, p, dsc
-        pool = operand_pool(torch, make, 4 * n * d * 4)
-        kw = dict(tabs, beta=beta)
-        ref_kw = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights,
-                      beta=beta)
-        got = mm.circulant_neumann_step(*pool[0], **kw)
-        want = ref.neumann_step_ref(*pool[0], **ref_kw)
-        torch.cuda.synchronize()
-        err = check(f"({n}, {d}) float32", got, want, "float32")
-        def launch(t):
-            return mm.circulant_neumann_step(*t, **kw)
-        ms = cuda_ms(torch, launch, pool)
-        dev_ms = device_ms(torch, launch, pool, "circulant_neumann_kernel")
-        plain = cuda_ms(torch, lambda t: ref.neumann_step_ref(*t, **ref_kw),
-                        pool, iters=50)
-        k = len(s.offsets)
-        b_ms, b_by = bound(4 * n * d * 4 + n * 4 + 8 * k,
-                           (2 * (k + 1) + 6) * n * d)
-        print(f"    ms={ms:.5f} device_ms={dev_ms:.5f} "
-              f"plain_ms={plain:.5f} library_ms=n/a "
-              f"bound_ms={b_ms:.5f} ({b_by})")
-        record("circulant_neumann_step", (n, d, "float32", None),
-               dict(err=err, ms=ms, dev=dev_ms, plain=plain, lib=None,
-                    bound=b_ms, by=b_by))
+        h_lo, h_hi = mm.halo_extents(s.offsets, n)
+        for dname, dt in dtypes:
+            item = torch.tensor([], dtype=dt).element_size()
+
+            def make(n=n, d=d, dt=dt):
+                h, hvp, p = (torch.randn((n, d), generator=gen,
+                                         device=dev).to(dt)
+                             for _ in range(3))
+                dsc = 1.5 + 1.5 * torch.rand((n, 1), generator=gen,
+                                             device=dev)
+                return h, hvp, p, dsc
+            pool = operand_pool(torch, make, 4 * n * d * item)
+            kw = dict(tabs, beta=beta)
+            ref_kw = dict(w_self=s.w_self, offsets=s.offsets,
+                          weights=s.weights, beta=beta)
+
+            def plain_fn(t, dt=dt):
+                return ref.neumann_step_ref(*(a.float() for a in t[:3]),
+                                            t[3], **ref_kw).to(dt)
+            plan = mm.neumann_ring_plan(n, h_lo, h_hi, itemsize=item, d=d)
+            ring = plan or mm.neumann_ring_plan(n, h_lo, h_hi, itemsize=item)
+            want = plain_fn(pool[0])
+            got = mm.circulant_neumann_step(*pool[0], **kw)
+            torch.cuda.synchronize()
+            tag = (f"({n}, {d}) {dname} planner: "
+                   + (f"ring bn={plan[0]} stages={plan[1]}" if plan
+                      else "unstaged"))
+            err = check(tag, got, want, dname)
+            bitwise(tag, got, want, "the plain version")
+            with mm.smem_budget(0):
+                assert mm.neumann_ring_plan(n, h_lo, h_hi, itemsize=item,
+                                            d=d) is None
+                old = mm.circulant_neumann_step(*pool[0], **kw)
+            torch.cuda.synchronize()
+            tag = f"({n}, {d}) {dname} unstaged"
+            bitwise(tag, old, want, "the plain version")
+            err_old = check(tag, old, want, dname)
+            got = mm.circulant_neumann_step(*pool[0], ring=ring, **kw)
+            torch.cuda.synchronize()
+            tag = f"({n}, {d}) {dname} ring bn={ring[0]} stages={ring[1]}"
+            bitwise(tag, got, want, "the plain version")
+            bitwise(tag, got, old, "the unstaged kernel")
+            del got, old
+
+            def launch(t):
+                return mm.circulant_neumann_step(*t, ring=ring, **kw)
+
+            def go_old(t):
+                with mm.smem_budget(0):
+                    return mm.circulant_neumann_step(*t, **kw)
+            big = d == D1 and n == N_LARGE
+            it = 20 if big else 200
+            ms = cuda_ms(torch, launch, pool, iters=it)
+            dev_ms = device_ms(torch, launch, pool,
+                               "circulant_neumann_ring_kernel")
+            ms_old = cuda_ms(torch, go_old, pool, iters=it)
+            dev_old = device_ms(torch, go_old, pool,
+                                "circulant_neumann_kernel")
+            plain = cuda_ms(torch, plain_fn, pool, iters=3 if big else 50,
+                            warmup=1 if big else 10)
+            k = len(s.offsets)
+            # h, hvp_h and p read once, h+ written once, D~ and the tables
+            b_ms, b_by = bound(4 * n * d * item + n * 4 + 8 * k,
+                               (2 * (k + 1) + 6) * n * d)
+            print(f"    ring bn={ring[0]} stages={ring[1]}: ms={ms:.5f} "
+                  f"device_ms={dev_ms:.5f}; unstaged: ms={ms_old:.5f} "
+                  f"device_ms={dev_old:.5f}; plain_ms={plain:.5f} "
+                  f"library_ms=n/a bound_ms={b_ms:.5f} ({b_by})")
+            row = dict(plain=plain, lib=None, bound=b_ms, by=b_by)
+            record("circulant_neumann_step", (n, d, dname, None),
+                   dict(row, err=err, ms=ms, dev=dev_ms, bn=ring[0],
+                        stages=ring[1]))
+            record("circulant_neumann_step_unstaged", (n, d, dname, None),
+                   dict(row, err=err_old, ms=ms_old, dev=dev_old))
+            del pool
 
     def wire_pool(n, d, comm, extra=0):
         return wire_operands(torch, gen, n, d, comm, extra)
@@ -663,7 +807,7 @@ def kernel_phase(torch, results: dict) -> None:
 
     # -- ring_laplacian_matvec -------------------------------------------
     print("kernel ring_laplacian_matvec ((I−W)·Y on a ring, over the "
-          "circulant kernel)")
+          "plain circulant mix's route)")
     for n, d in [(2, D1), (N_AGENTS, D2), (N_AGENTS, D1)]:
         W = torch.as_tensor(make_network("ring", n).W, dtype=torch.float32,
                             device=dev) if n > 2 else torch.full(
@@ -686,7 +830,10 @@ def kernel_phase(torch, results: dict) -> None:
         check(f"({n}, {d}) vs ring_laplacian_ref", got,
               ref.ring_laplacian_ref(pool[0], w_self, w_edge), "float32")
         ms = cuda_ms(torch, launch, pool)
-        dev_ms = device_ms(torch, launch, pool, "circulant_mix_kernel")
+        h_lo, h_hi = mm.halo_extents(offsets, n)
+        dev_ms = device_ms(torch, launch, pool, "circulant_mix_halo_kernel"
+                           if mm.circulant_ring_stages(n, h_lo, h_hi, d=d)
+                           else "circulant_mix_kernel")
         plain = cuda_ms(torch, plain_fn, pool, iters=50)
         lib = cuda_ms(torch, lambda t: torch.matmul(I_minus, t), pool)
         k = len(offsets)
@@ -696,6 +843,105 @@ def kernel_phase(torch, results: dict) -> None:
         record("ring_laplacian_matvec", (n, d, "float32", True),
                dict(err=err, ms=ms, dev=dev_ms, plain=plain, lib=lib,
                     bound=b_ms, by=b_by))
+
+
+def ring_sweep_phase(torch, results: dict) -> None:
+    """The circulant ring's shapes, swept on the card: the Neumann
+    step's ring at every (bn, stages) its kernel takes at (4096, d2),
+    (4096, d1) (f32 and bf16), (16, d2) and (16, d1), and the plain
+    mix's ring at bn = n with each stage count at (16, d2), (16, d1)
+    and (128, d1), each launch bitwise against the unstaged kernel and
+    timed beside it (device ms).  `neumann_ring_plan` and
+    `circulant_ring_stages` take their rules from these numbers."""
+    from repro_torch.kernels import mixing_matvec as mm
+    from repro_torch.topology import make_network
+    from repro_torch.topology.structure import circulant_structure
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(2)
+    beta = 0.1
+    sweep = results.setdefault("ring_sweep", {})
+    cases = [(N_LARGE, D2, torch.float32), (N_LARGE, D1, torch.float32),
+             (N_LARGE, D2, torch.bfloat16), (N_LARGE, D1, torch.bfloat16),
+             (N_AGENTS, D2, torch.float32), (N_AGENTS, D1, torch.float32)]
+    for n, d, dt in cases:
+        s = circulant_structure(make_network("ring", n).W)
+        kw = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights,
+                  beta=beta)
+        h_lo, h_hi = mm.halo_extents(s.offsets, n)
+        item = torch.tensor([], dtype=dt).element_size()
+
+        def make(n=n, d=d, dt=dt):
+            h, hvp, p = (torch.randn((n, d), generator=gen,
+                                     device=dev).to(dt) for _ in range(3))
+            return h, hvp, p, 1.5 + torch.rand((n, 1), generator=gen,
+                                               device=dev)
+        pool = operand_pool(torch, make, 4 * n * d * item)
+        it = 20 if d == D1 and n == N_LARGE else 50
+
+        def go_old(t):
+            with mm.smem_budget(0):
+                return mm.circulant_neumann_step(*t, **kw)
+        old = go_old(pool[0])
+        old_dev = device_ms(torch, go_old, pool, "circulant_neumann_kernel",
+                            iters=it)
+        plan = mm.neumann_ring_plan(n, h_lo, h_hi, itemsize=item, d=d)
+        print(f"sweep circulant_neumann_step ({n}, {d}) {dt}: unstaged "
+              f"device_ms={old_dev:.5f}; planner {plan}")
+        best = None
+        for bn in sorted({n, 128, 64, 32, 16, 8, 4, 2}, reverse=True):
+            if bn > n or n % bn or bn < max(h_lo, h_hi):
+                continue
+            one = mm.neumann_stage_bytes(bn, h_lo, h_hi, itemsize=item)
+            for st in range(1, min(mm.HALO_STAGES,
+                                   mm.SMEM_BUDGET_BYTES // one) + 1):
+                def go(t, ring=(bn, st)):
+                    return mm.circulant_neumann_step(*t, ring=ring, **kw)
+                got = go(pool[0])
+                torch.cuda.synchronize()
+                diff = int((got != old).sum().item())
+                if diff:
+                    raise AssertionError(f"sweep ({n}, {d}) bn={bn} "
+                                         f"stages={st}: {diff} elements "
+                                         f"differ from the unstaged kernel")
+                dev_ms = device_ms(torch, go, pool,
+                                   "circulant_neumann_ring_kernel", iters=it)
+                print(f"  bn={bn} stages={st} smem={st * one} "
+                      f"device_ms={dev_ms:.5f} (elements differing 0)")
+                sweep[("neumann", n, d, str(dt), bn, st)] = dev_ms
+                if best is None or dev_ms < best[0]:
+                    best = (dev_ms, bn, st)
+        print(f"  fastest: bn={best[1]} stages={best[2]} "
+              f"device_ms={best[0]:.5f}")
+        del pool, old
+    for n, d in ((N_AGENTS, D2), (N_AGENTS, D1), (128, D1)):
+        s = circulant_structure(make_network("ring", n).W)
+        kw = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights)
+        h_lo, h_hi = mm.halo_extents(s.offsets, n)
+        one = mm.halo_smem_bytes(h_lo + n + h_hi)
+        pool = operand_pool(torch, lambda n=n, d=d: torch.randn(
+            (n, d), generator=gen, device=dev), n * d * 4)
+
+        def go_old(t):
+            with mm.smem_budget(one - 1):
+                return mm.circulant_mix_matvec(t, **kw)
+        old = go_old(pool[0])
+        old_dev = device_ms(torch, go_old, pool, "circulant_mix_kernel")
+        print(f"sweep circulant_mix_matvec ({n}, {d}) float32: unstaged "
+              f"device_ms={old_dev:.5f}; planner stages "
+              f"{mm.circulant_ring_stages(n, h_lo, h_hi, d=d)}")
+        for st in range(1, mm.halo_stages(h_lo + n + h_hi) + 1):
+            def go(t, st=st):
+                return mm.circulant_mix_matvec(t, ring=(n, st), **kw)
+            diff = int((go(pool[0]) != old).sum().item())
+            if diff:
+                raise AssertionError(f"sweep ({n}, {d}) stages={st}: "
+                                     f"{diff} elements differ")
+            dev_ms = device_ms(torch, go, pool, "circulant_mix_halo_kernel")
+            print(f"  bn={n} stages={st} smem={st * one} "
+                  f"device_ms={dev_ms:.5f} (elements differing 0)")
+            sweep[("mix", n, d, "float32", n, st)] = dev_ms
+        del pool, old
 
 
 @functools.lru_cache(maxsize=None)
@@ -731,8 +977,7 @@ def halo_kernel_phase(torch, results: dict) -> None:
     sp = sparse_structure(er.W)
     k = len(s.offsets)
     host = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights)
-    off, w = mm.circulant_tables(n, s.offsets, s.weights, dev)
-    tabs = dict(w_self=s.w_self, offsets=off, weights=w)
+    tabs = host
     er_tabs = tuple(torch.as_tensor(a, device=dev)
                     for a in (sp.w_self, sp.neighbors, sp.weights))
     h_lo, h_hi = mm.halo_extents(s.offsets, n)
@@ -755,16 +1000,17 @@ def halo_kernel_phase(torch, results: dict) -> None:
         full_dev = device_ms(torch, full_fn, pool, full_symbol)
         plain = cuda_ms(torch, plain_fn, pool, iters=3 if big else 20,
                         warmup=1)
-        lib = None if lib_fn is None else cuda_ms(torch, lib_fn, pool,
-                                                  iters=20 if big else 200)
+        lib, lib_err = try_library(torch, lib_fn, pool,
+                                   iters=20 if big else 200)
         print(f"    bn={bn} ms={ms:.5f} device_ms={dev_ms:.5f} "
               f"full-operand device_ms={full_dev:.5f} plain_ms={plain:.5f} "
-              f"library_ms(sparse.mm CSR)="
-              f"{'n/a' if lib is None else f'{lib:.5f}'} "
+              f"library_ms(sparse.mm CSR "
+              f"{'float32' if key[2] in COMMS else key[2]})="
+              f"{lib_text(lib, lib_err)} "
               f"bound_ms={b[0]:.5f} ({b[1]})")
         results.setdefault(kname, {})[key] = dict(
-            err=err, ms=ms, dev=dev_ms, plain=plain, lib=lib, bound=b[0],
-            by=b[1], bn=bn, full_dev=full_dev)
+            err=err, ms=ms, dev=dev_ms, plain=plain, lib=lib,
+            lib_err=lib_err, bound=b[0], by=b[1], bn=bn, full_dev=full_dev)
 
     # -- circulant_mix_matvec_halo ---------------------------------------
     print(f"kernel circulant_mix_matvec_halo (ring n={n}, row tiles)")
@@ -802,8 +1048,7 @@ def halo_kernel_phase(torch, results: dict) -> None:
                             lap).to(t.dtype), pool, "circulant_mix_halo_kernel",
                         lambda t, lap=lap: mm.circulant_mix_matvec(
                             t, laplacian=lap, **tabs), "circulant_mix_kernel",
-                        (lambda t: torch.sparse.mm(A, t))
-                        if dt == torch.float32 else None,
+                        csr_mm(torch, A, dt),
                         bound(2 * n * d_ * item + 8 * k,
                               (2 * (k + 1) + lap) * n * d_), err, planned)
                 rows = h_lo + planned + h_hi
@@ -965,8 +1210,7 @@ def halo_kernel_phase(torch, results: dict) -> None:
                         lambda t, lap=lap: mm.sparse_mix_matvec(
                             t, *er_tabs, laplacian=lap),
                         "sparse_mix_stripe_kernel",
-                        (lambda t: torch.sparse.mm(A, t))
-                        if dt == torch.float32 else None,
+                        csr_mm(torch, A, dt),
                         bound(2 * n * d_ * item + sp.nnz * 8 + n * 4,
                               (2 * (sp.nnz + n) + lap * n) * d_), err[top],
                         planned)
@@ -1127,8 +1371,7 @@ def main_path_phase(torch, counts_out: dict) -> None:
     # (label, graph, comm spec, expected launches, ledger bytes)
     runs = [
         ("ring identity", ring, "identity",
-         {**zero, "circulant_mix_matvec": K * (M + 1),
-          "circulant_neumann_step": K * U}, 3461600),
+         {**zero, **ring_identity_counts(N_AGENTS, K)}, 3461600),
         ("erdos_renyi identity", er, "identity",
          {**zero, "sparse_mix_matvec": gossips}, 3461600),
         ("ring int8+ef", ring, "int8+ef",
@@ -1204,7 +1447,85 @@ def main_path_phase(torch, counts_out: dict) -> None:
         busy[label] = profile_run(torch, lambda: run("cuda"), by_kernel)
         if comm != "identity":
             unstaged_run(torch, label, run, res, expected, by_kernel)
+        elif net is ring:
+            ring_route_run(torch, label, run, res, K, by_kernel)
     idle_shares(busy, time_in_turns(torch, timed), K)
+
+
+def ring_identity_counts(n: int, rounds: int) -> dict:
+    """The launches of a ring identity solve's rows 1 and 5 by the
+    planners' routes: per round M d2 mixes and one d1 mix (on the full
+    tier: the ring at bn = n or its unstaged kernel; on the halo tier the
+    halo kernel) and U Neumann steps at d2 (the ring or its unstaged
+    kernel)."""
+    from repro_torch.kernels import mixing_matvec as mm
+    h_lo, h_hi = 1, 1
+    counts: dict = {}
+    for d, c in ((D2, rounds * M), (D1, rounds)):
+        if mm.plan_row_tile(n, h_lo=h_lo, h_hi=h_hi)[0] == "halo":
+            name = "circulant_mix_matvec_halo"
+        elif mm.circulant_ring_stages(n, h_lo, h_hi, d=d):
+            name = "circulant_mix_matvec"
+        else:
+            name = "circulant_mix_matvec_unstaged"
+        counts[name] = counts.get(name, 0) + c
+    name = "circulant_neumann_step" if mm.neumann_ring_plan(
+        n, h_lo, h_hi, d=D2) else "circulant_neumann_step_unstaged"
+    counts[name] = rounds * U
+    return counts
+
+
+# the ring solves' kernels of rows 1, 2 and 5, by their device symbols
+RING_KERNELS = (("circulant_mix_halo_kernel", "the circulant ring's mix "
+                 "(row 1 at bn = n, row 2 on the halo tier)"),
+                ("circulant_mix_kernel", "row 1's unstaged kernel"),
+                ("circulant_neumann_ring_kernel", "row 5 on the ring"),
+                ("circulant_neumann_kernel", "row 5's unstaged kernel"))
+
+
+def ring_route_run(torch, label, run, res, rounds, by_kernel) -> None:
+    """The same ring identity solve with rows 1 and 5 on their unstaged
+    kernels, reached through a budget no tile fits (which at n = 4096
+    also moves the mix off the halo ring onto row 1's unstaged kernel):
+    exact launch counts, equal to the planner's run bit for bit, and
+    the device time per solve of each ring kernel on both routes from
+    one profiled run each."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import mixing_matvec as mm
+    moved = {**dict.fromkeys(launch_counts(), 0),
+             "circulant_mix_matvec_unstaged": rounds * (M + 1),
+             "circulant_neumann_step_unstaged": rounds * U}
+    old_kernels = {}
+    with mm.smem_budget(0):
+        reset_launch_counts()
+        old = run("cuda")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"  unstaged route: launches {counts} expected {moved}")
+        if counts != moved:
+            raise AssertionError(f"{label}: unstaged launch counts {counts} "
+                                 f"!= {moved}")
+        profile_run(torch, lambda: run("cuda"), old_kernels)
+    for name in ("x", "y"):
+        diff = int((getattr(res, name) != getattr(old, name)).sum().item())
+        print(f"  unstaged route vs the planner's {name}: elements "
+              f"differing {diff} (bitwise)")
+        if diff:
+            raise AssertionError(f"{label}: the unstaged route's {name} "
+                                 f"differs from the planner's")
+    for key, val in res.metrics.items():
+        if not torch.equal(val, old.metrics[key]):
+            raise AssertionError(f"{label}: metric {key} differs between "
+                                 f"the routes")
+    del old
+    for route, by in (("planner", by_kernel), ("unstaged", old_kernels)):
+        parts = []
+        for symbol, what in RING_KERNELS:
+            us = sum(v for key, v in by.items()
+                     if f"{symbol}<" in key or key.endswith(symbol))
+            parts.append(f"{what} {us:.1f} us")
+        print(f"  ring kernels, device time per solve, {route} route: "
+              + "; ".join(parts))
 
 
 def unstaged_run(torch, label, run, res, expected, by_kernel) -> None:
@@ -1377,8 +1698,7 @@ def large_network_phase(torch, counts_out: dict) -> None:
     # agent, K_LARGE rounds of M + U d2 gossips and one d1 gossip
     runs = [
         ("ring identity", ring, "identity",
-         {**zero, "circulant_mix_matvec_halo": K_LARGE * (M + 1),
-          "circulant_neumann_step": K_LARGE * U}, 2076960),
+         {**zero, **ring_identity_counts(n, K_LARGE)}, 2076960),
         ("ring int4", ring, "int4",
          {**zero, "circulant_mix_matvec_halo_comm": gossips}, 259728),
         ("ring int8+ef", ring, "int8+ef",
@@ -1434,11 +1754,16 @@ def large_network_phase(torch, counts_out: dict) -> None:
             plain = run()
         compare_runs(torch, "the card's plain versions", res, plain,
                      compressed=comm != "identity", norm_rel_xy=True)
-        del res, plain
+        del plain
         print(f"  seconds per round of the first run {first / K_LARGE:.6f} "
               f"(host clock)")
         timed[label] = run
-        busy[label] = profile_run(torch, run)
+        by_kernel = {}
+        busy[label] = profile_run(torch, run, by_kernel)
+        if label == "ring identity":
+            ring_route_run(torch, label, run, res, K_LARGE, by_kernel)
+            neumann_on_solve_operands(torch, run)
+        del res
     # every solve builds its MixingOp (structure detection over the dense
     # (n, n) W on the host), set-up that the K_LARGE rounds share: timed
     # inside each timed run, so each run's rounds are its time less its
@@ -1468,6 +1793,62 @@ def large_network_phase(torch, counts_out: dict) -> None:
             line += (f"; device busy {busy[label] / 1e6:.6f} s of {net:.6f} s "
                      f"(idle share {1 - busy[label] / 1e6 / net:.4f})")
         print(line)
+
+
+def neumann_on_solve_operands(torch, run) -> None:
+    """Row 5 on the operands the n = 4096 ring identity solve hands it
+    (captured from one more run) and on random ones of the same shape:
+    device ms of the planner's ring, of nearby (bn, stages) and of the
+    unstaged kernel, each over both pools in turn, so that a gap between
+    the solve's per-launch time and the kernel phase's reads as the
+    operands' or the solve's surroundings'.  Also the operands' share of
+    zeros and of subnormals (IEEE division takes its slow path there)."""
+    from repro_torch.kernels import mixing_matvec as mm
+    from repro_torch.topology import ops as tops
+    captured = []
+    real = tops.circulant_neumann_step
+
+    def capture(*args, **kw):
+        captured.append((tuple(a.clone() for a in args), kw))
+        return real(*args, **kw)
+    tops.circulant_neumann_step = capture
+    try:
+        run()
+    finally:
+        tops.circulant_neumann_step = real
+    torch.cuda.synchronize()
+    kw = captured[0][1]
+    solve_pool = [a for a, _ in captured]
+    h = solve_pool[0][0]
+    gen = torch.Generator(h.device).manual_seed(3)
+    random_pool = [tuple(torch.randn(h.shape, generator=gen,
+                                     device=h.device) for _ in range(3))
+                   + (a[3],) for a in solve_pool]
+    tiny = 1.1754944e-38
+    for name, i in (("h", 0), ("hvp_h", 1), ("p", 2)):
+        t = torch.stack([a[i] for a in solve_pool])
+        print(f"  row 5 on the solve's operands: {name} zeros "
+              f"{(t == 0).float().mean().item():.4f}, subnormal "
+              f"{((t != 0) & (t.abs() < tiny)).float().mean().item():.6f}")
+    dsc = torch.stack([a[3] for a in solve_pool])
+    print(f"  D~ in [{dsc.min().item():.6g}, {dsc.max().item():.6g}] over "
+          f"{len(solve_pool)} launches at {tuple(h.shape)}")
+    plans = [None, (8, 1), (8, 2), (16, 2), (32, 1), (32, 2), "unstaged"]
+    for pool_name, pool in (("solve", solve_pool), ("random", random_pool)):
+        parts = []
+        for plan in plans:
+            def go(t, plan=plan):
+                if plan == "unstaged":
+                    with mm.smem_budget(0):
+                        return real(*t, **kw)
+                return real(*t, ring=plan, **kw) if plan else real(*t, **kw)
+            symbol = "circulant_neumann_kernel" if plan == "unstaged" \
+                else "circulant_neumann_ring_kernel"
+            ms = device_ms(torch, go, pool, symbol, iters=45)
+            parts.append(f"{plan or 'planner'} {ms:.5f}")
+        print(f"  row 5 device_ms on the {pool_name} operands: "
+              + "; ".join(parts))
+    del captured, solve_pool, random_pool
 
 
 def routes_phase(torch, out: dict) -> None:
@@ -1970,10 +2351,13 @@ def plain_versions():
     from repro_torch.kernels import ref
     from repro_torch.topology import ops
 
+    def host(table):      # MixingOp passes host tuples or device tables
+        return table.tolist() if hasattr(table, "tolist") else list(table)
+
     def circ(y, zp=None, scale=None, seed=None, hat=None, *, w_self,
              offsets, weights, laplacian=False, comm=None):
-        kw = dict(w_self=w_self, offsets=offsets.tolist(),
-                  weights=weights.tolist(), laplacian=laplacian)
+        kw = dict(w_self=w_self, offsets=host(offsets),
+                  weights=host(weights), laplacian=laplacian)
         if comm in (None, "identity"):
             return ref.circulant_mix_ref(y, **kw)
         return ref.circulant_mix_fused_ref(y, zp, scale, seed, hat,
@@ -1989,8 +2373,8 @@ def plain_versions():
 
     def neumann(h, hvp, p, dsc, zp=None, scale=None, seed=None, *, w_self,
                 offsets, weights, beta, comm=None):
-        kw = dict(w_self=w_self, offsets=offsets.tolist(),
-                  weights=weights.tolist(), beta=beta)
+        kw = dict(w_self=w_self, offsets=host(offsets),
+                  weights=host(weights), beta=beta)
         if comm in (None, "identity"):
             return ref.neumann_step_ref(h, hvp, p, dsc, **kw)
         return ref.neumann_step_fused_ref(h, hvp, p, dsc, zp, scale, seed,
@@ -2055,7 +2439,7 @@ def profile_run(torch, run, by_kernel: dict | None = None) -> float | None:
         if any(tag in key for tag in ("_mix_kernel", "_neumann_kernel",
                                       "_comm_kernel", "_halo_kernel",
                                       "_slab_kernel", "_stripe_kernel",
-                                      "_unstaged_kernel")):
+                                      "_unstaged_kernel", "_ring_kernel")):
             print(f"  port kernel: {us:.1f} us device in {count} launches "
                   f"({us / count:.2f} us each) {key[:70]}")
             if by_kernel is not None:
@@ -2083,8 +2467,18 @@ def tensor_core_instructions(lib) -> dict:
     return found
 
 
+PHASES = ("kernel", "halo", "ring_sweep", "main", "fig2", "large",
+          "routes", "ops")
+
+
 def main() -> int:
     started = time.perf_counter()
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phase", action="append", choices=PHASES,
+                        help="run only these phases (a probe: no kernel "
+                             "list and no result line)")
+    only = parser.parse_args().phase
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -2142,21 +2536,31 @@ def main() -> int:
     routes: dict = {}
     # the plain versions' matmuls in full f32 for the whole run
     with strict_f32():
-        for phase, args in ((kernel_phase, results),
-                            (halo_kernel_phase, results),
-                            (main_path_phase, counts),
-                            (fig2_network_phase, counts),
-                            (large_network_phase, counts),
-                            (routes_phase, routes),
-                            (ops_kernel_phase, ops_out)):
+        for name, (phase, args) in zip(PHASES, (
+                (kernel_phase, results),
+                (halo_kernel_phase, results),
+                (ring_sweep_phase, results),
+                (main_path_phase, counts),
+                (fig2_network_phase, counts),
+                (large_network_phase, counts),
+                (routes_phase, routes),
+                (ops_kernel_phase, ops_out))):
+            if only and name not in only:
+                continue
             t0 = time.perf_counter()
             phase(torch, args)
             print(f"phase {phase.__name__}: "
                   f"{time.perf_counter() - t0:.1f} s")
+    if only:
+        print(f"chip_smoke: probe of {', '.join(only)} done in "
+              f"{time.perf_counter() - started:.1f} s (no result line)")
+        return 0
 
     # one entry per kernel, at the main path's largest f32 launch (the
-    # Neumann steps: the d2 launch they run at; the halo kernels: the
-    # (4096, d1) gossip of the large-network path); ring_laplacian_matvec
+    # Neumann steps: the d2 launch they run at, (4096, d2) on the ring and
+    # (16, d2) on the unstaged kernels, which the planners keep at the
+    # n = 16 path's d2; the halo kernels: the (4096, d1) gossip of the
+    # large-network path); ring_laplacian_matvec
     # is not on the main path and reports its (16, d1) check, the
     # full-operand gossips' unstaged kernels (n > 14,528) their (16, d1)
     # launches under a lower budget, the row-tiled sparse gathers (n >
@@ -2166,10 +2570,14 @@ def main() -> int:
     src = "src/repro/kernels/mixing_matvec.py"
     pick = {
         "circulant_mix_matvec": ((N_AGENTS, D1, "float32", True), 274),
+        "circulant_mix_matvec_unstaged": ((N_AGENTS, D2, "float32", True),
+                                          274),
         "sparse_mix_matvec": ((N_AGENTS, D1, "float32", True), 598),
         "sparse_mix_matvec_unstaged": ((N_AGENTS, D1, "float32", True),
                                        598),
-        "circulant_neumann_step": ((N_AGENTS, D2, "float32", None), 852),
+        "circulant_neumann_step": ((N_LARGE, D2, "float32", None), 852),
+        "circulant_neumann_step_unstaged": (
+            (N_AGENTS, D2, "float32", None), 852),
         "circulant_mix_matvec_comm": ((N_AGENTS, D1, "int8+ef", True),
                                       232),
         "circulant_mix_matvec_comm_unstaged": (

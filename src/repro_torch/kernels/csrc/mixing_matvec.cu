@@ -4,6 +4,8 @@
 //   circulant_mix      W.Y or (I-W).Y for shift-invariant W (ring, circulant)
 //   sparse_mix         W.Y or (I-W).Y for any W from padded (n, k) tables
 //   circulant_neumann  one DIHGP Neumann iteration (Eq. 14) fused with W.h
+//                      (circulant_neumann_ring: the same on the circulant
+//                      halo's cp.async ring)
 //
 // and their comm-fused twins, which gossip an int8/int4 stochastically
 // quantized payload instead of Y (compressed gossip, comm="int8|int4[+ef]"):
@@ -76,7 +78,10 @@ __device__ __forceinline__ float neumann_update(float h, float mix,
 }
 
 // Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec (plain
-// path, _mix_body).
+// path, _mix_body) where the ring at bn = n does not serve
+// (circulant_mix_halo_kernel below; circulant_ring_stages in
+// mixing_matvec.py): no (h_lo + n + h_hi)-row tile fits, or the operand
+// is as narrow as the rule there says.
 // Bound: bytes.  Each output element needs its own input plus k neighbor
 // rows and 2(k+1) FLOP, so per byte moved (one read of Y, one write of
 // out) the work is < 1 FLOP/B, far below the H100's ~20 FLOP/B f32 ridge.
@@ -142,7 +147,9 @@ __global__ void sparse_mix_unstaged_kernel(const T* __restrict__ y,
 }
 
 // Replaces repro/kernels/mixing_matvec.py:circulant_neumann_step (plain
-// path, _neumann_body).
+// path, _neumann_body) where the planner gives no ring tile
+// (circulant_neumann_ring_kernel below; neumann_ring_plan in
+// mixing_matvec.py).
 // Bound: bytes: reads h, hvp_h and p once and writes h+, with
 // 2(k+1) + 6 FLOP per element.
 // Design: circulant_mix's layout; the mix stays in a register and the
@@ -491,40 +498,37 @@ __device__ __forceinline__ void halo_copy_rows(T* dst,
   }
 }
 
-// Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec_halo (plain
-// path, _circ_halo_body).
-// Bound: bytes: one read of Y plus the halo rows (h_lo + h_hi of every
-// bn, 2/128 on the ring at bn = 128) and one write; 1.54 ms at (4096,
-// 157000) f32 at 3.35 TB/s.
-// Design: a ring of `stages` (h_lo + bn + h_hi, 128) tiles in shared
-// memory.  Block (bi, by) owns the rows [bi*bn, bi*bn + bn) and walks the
-// column tiles by, by + gridDim.y, ...; the launch sizes gridDim.y so that
-// the blocks just fill the card.  While tile t is mixed, tiles t+1 ..
-// t+stages-1 are in flight as cp.async copies of V bytes (16 where d, the
-// pointers and the tile allow, else 8, 4, or 2-byte loads for a bf16 row
-// of odd d); the low halo, the body and the high halo are three copies
-// of contiguous rows, as repro's three _ext_copy DMAs (each wraps mod n
-// as a whole: h_lo, h_hi <= bn and bn | n).  A thread mixes a 16-byte
-// vector of the tile (4 f32 or 8 bf16 columns) for R rows at a time, so
-// each offset and weight is read once per R * VW outputs, and stores it
-// with V-byte stores, masked past d.  Accumulation is `term` in offset
-// order, w_self*y_i first and y_i - acc for the Laplacian: the output is
-// bitwise circulant_mix_kernel's for every bn.
-template <typename T, int V>
-__global__ void __launch_bounds__(kHaloThreads)
-    circulant_mix_halo_kernel(const T* __restrict__ y, T* __restrict__ out,
-                              int n, int d, int bn, int h_lo, int h_hi,
-                              float w_self, int k,
-                              const int* __restrict__ soff,
-                              const float* __restrict__ wts, int laplacian,
-                              int stages) {
+// The circulant ring: a walk of `stages` (h_lo + bn + h_hi + E::kTiles*bn,
+// 128) tiles in shared memory, shared by the plain circulant mix (at the
+// planner's bn on the halo tier and at bn = n on the full one) and the
+// DIHGP Neumann step.  Block (bi, by) owns the rows [bi*bn, bi*bn + bn)
+// and walks the column tiles by, by + gridDim.y, ...; the launch sizes
+// gridDim.y so that the blocks just fill the card.  While tile t is
+// mixed, tiles t+1 .. t+stages-1 are in flight as cp.async copies of V
+// bytes (16 where d, the pointers and the tile allow, else 8, 4, or
+// 2-byte loads for a bf16 row of odd d); the low halo, the body and the
+// high halo are three copies of contiguous rows, as repro's three
+// _ext_copy DMAs (each wraps mod n as a whole: h_lo, h_hi <= bn and
+// bn | n), and the epilogue E stages its own (bn, 128) operand tiles
+// (E::kTiles of them) behind them on the same stage.  A thread mixes a
+// 16-byte vector of the tile (4 f32 or 8 bf16 columns) for R rows at a
+// time, so each offset and weight is read once per R * VW outputs;
+// accumulation is `term` in offset order, w_self*y_i first.  E::finish
+// turns each row's accumulator into its output, which leaves in V-byte
+// stores, masked past d.
+template <typename T, int V, typename E>
+__device__ __forceinline__ void circulant_ring_body(
+    const T* __restrict__ y, T* __restrict__ out, int n, int d, int bn,
+    int h_lo, int h_hi, float w_self, int k, const int* __restrict__ soff,
+    const float* __restrict__ wts, int stages, const E& epi) {
   constexpr int VW = 16 / (int)sizeof(T);   // columns a thread mixes
   constexpr int TPR = kHaloBd / VW;         // threads per tile row
   constexpr int RP = kHaloThreads / TPR;    // rows mixed side by side
   constexpr int R = 4;                      // rows per thread and pass
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
-  const size_t tile = (size_t)(h_lo + bn + h_hi) * kHaloBd;
+  const int ext = h_lo + bn + h_hi;         // the extended tile's rows
+  const size_t tile = (size_t)(ext + E::kTiles * bn) * kHaloBd;
   const int row0 = blockIdx.x * bn;
   const int ncol = (d + kHaloBd - 1) / kHaloBd;
   const int ntile = (int)blockIdx.y < ncol
@@ -541,6 +545,7 @@ __global__ void __launch_bounds__(kHaloThreads)
                            col0);
       halo_copy_rows<T, V>(st + (size_t)(h_lo + bn) * kHaloBd, y, hi_src,
                            h_hi, d, col0);
+      epi.stage(st + (size_t)ext * kHaloBd, row0, bn, d, col0);
     }
     cp_async_commit();
   };
@@ -588,20 +593,115 @@ __global__ void __launch_bounds__(kHaloThreads)
       for (int rr = 0; rr < R; ++rr) {
         const int r = r0 + rr * RP;
         if (r < bn) {
-          if (laplacian) {
-            float yi[VW];
-            lds_vec<T, VW>(st + (size_t)(h_lo + r) * kHaloBd + c, yi);
-#pragma unroll
-            for (int v = 0; v < VW; ++v) {
-              acc[rr][v] = __fsub_rn(yi[v], acc[rr][v]);
-            }
-          }
+          epi.template finish<VW>(
+              acc[rr], st + (size_t)(h_lo + r) * kHaloBd + c,
+              st + (size_t)(ext + r) * kHaloBd + c, bn, row0 + r);
           stg_vec<T, VW, V>(out + (size_t)(row0 + r) * d + j0, acc[rr],
                             d - j0);
         }
       }
     }
   }
+}
+
+// The plain mix's epilogue: y_i - acc for the Laplacian.
+template <typename T, int V>
+struct RingMix {
+  static constexpr int kTiles = 0;
+  int laplacian;
+  __device__ __forceinline__ void stage(T*, int, int, int, int) const {}
+  template <int VW>
+  __device__ __forceinline__ void finish(float* acc, const T* self,
+                                         const T*, int, int) const {
+    if (laplacian) {
+      float yi[VW];
+      lds_vec<T, VW>(self, yi);
+#pragma unroll
+      for (int v = 0; v < VW; ++v) acc[v] = __fsub_rn(yi[v], acc[v]);
+    }
+  }
+};
+
+// The Neumann step's epilogue: hvp_h and p staged as two (bn, 128) tiles
+// behind the extended tile of h, and D~[i] read once per row and tile (a
+// broadcast: the threads of a tile row share it); the update is
+// `neumann_update` on h_i from the stage.
+template <typename T, int V>
+struct RingNeumann {
+  static constexpr int kTiles = 2;
+  const T* __restrict__ hvp;
+  const T* __restrict__ p;
+  const float* __restrict__ dsc;
+  float beta;
+  __device__ __forceinline__ void stage(T* dst, int row0, int bn, int d,
+                                        int col0) const {
+    halo_copy_rows<T, V>(dst, hvp, row0, bn, d, col0);
+    halo_copy_rows<T, V>(dst + (size_t)bn * kHaloBd, p, row0, bn, d, col0);
+  }
+  template <int VW>
+  __device__ __forceinline__ void finish(float* acc, const T* self,
+                                         const T* extra, int bn,
+                                         int row) const {
+    float hi[VW], hv[VW], pv[VW];
+    lds_vec<T, VW>(self, hi);
+    lds_vec<T, VW>(extra, hv);
+    lds_vec<T, VW>(extra + (size_t)bn * kHaloBd, pv);
+    const float di = __ldg(dsc + row);
+#pragma unroll
+    for (int v = 0; v < VW; ++v) {
+      acc[v] = neumann_update(hi[v], acc[v], hv[v], pv[v], di, beta);
+    }
+  }
+};
+
+// Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec_halo (plain
+// path, _circ_halo_body), and, at bn = n, circulant_mix_matvec (plain
+// path, _mix_body) wherever the (h_lo + n + h_hi)-row tile fits.
+// Bound: bytes: one read of Y plus the halo rows (h_lo + h_hi of every
+// bn, 2/128 on the ring at bn = 128) and one write; 1.54 ms at (4096,
+// 157000) f32 at 3.35 TB/s.
+// Design: circulant_ring_body with the plain epilogue (3 stages at the
+// planner's bn).  Accumulation is `term` in offset order, w_self*y_i
+// first and y_i - acc for the Laplacian: the output is bitwise
+// circulant_mix_kernel's for every bn.
+template <typename T, int V>
+__global__ void __launch_bounds__(kHaloThreads)
+    circulant_mix_halo_kernel(const T* __restrict__ y, T* __restrict__ out,
+                              int n, int d, int bn, int h_lo, int h_hi,
+                              float w_self, int k,
+                              const int* __restrict__ soff,
+                              const float* __restrict__ wts, int laplacian,
+                              int stages) {
+  circulant_ring_body<T, V>(y, out, n, d, bn, h_lo, h_hi, w_self, k, soff,
+                            wts, stages, RingMix<T, V>{laplacian});
+}
+
+// Replaces repro/kernels/mixing_matvec.py:circulant_neumann_step (plain
+// path, _neumann_body) wherever the planner gives a row tile
+// (neumann_ring_plan in mixing_matvec.py).
+// Bound: bytes: reads h (and its halo rows), hvp_h and p once and writes
+// h+, 16 bytes per f32 element: 39.3 us at (4096, 2010), 3.07 ms at
+// (4096, 157000), at 3.35 TB/s.
+// Design: circulant_ring_body with the Neumann epilogue: each stage holds
+// h's extended tile and the (bn, 128) tiles of hvp_h and p, all three
+// in flight as cp.async copies while the tile before is mixed; the mix
+// stays in registers and `neumann_update` runs on it in the plain
+// version's order.  The output is bitwise circulant_neumann_kernel's for
+// every bn.
+template <typename T, int V>
+__global__ void __launch_bounds__(kHaloThreads)
+    circulant_neumann_ring_kernel(const T* __restrict__ h,
+                                  const T* __restrict__ hvp,
+                                  const T* __restrict__ p,
+                                  const float* __restrict__ dsc,
+                                  T* __restrict__ out, int n, int d, int bn,
+                                  int h_lo, int h_hi, float w_self, int k,
+                                  const int* __restrict__ soff,
+                                  const float* __restrict__ wts, float beta,
+                                  int stages) {
+  circulant_ring_body<T, V>(h, out, n, d, bn, h_lo, h_hi, w_self, k, soff,
+                            wts, stages,
+                            RingNeumann<T, V>{hvp, p, dsc, beta});
 }
 
 // Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec_halo with
@@ -1768,12 +1868,15 @@ long long halo_smem_bytes(int rows, int itemsize, int buffers = 1) {
 }
 
 // The launch geometry of a halo kernel, or false when the wrapper's tile
-// or shared-memory size (`buffers` tiles) is not one the kernel takes.
+// or shared-memory size (`buffers` tiles of h_lo + bn + h_hi rows, and
+// `tiles` more (bn, 128) operand tiles in each) is not one the kernel
+// takes.
 bool halo_launch(int n, int d, int bn, int h_lo, int h_hi, int itemsize,
-                 int buffers, int smem_bytes, dim3* grid) {
+                 int buffers, int smem_bytes, dim3* grid, int tiles = 0) {
   if (bn < 1 || n % bn || h_lo < 0 || h_hi < 0 || h_lo > bn || h_hi > bn ||
       buffers < 1 || smem_bytes > kSmemOptIn ||
-      smem_bytes != halo_smem_bytes(h_lo + bn + h_hi, itemsize, buffers)) {
+      smem_bytes != halo_smem_bytes(h_lo + (1 + tiles) * bn + h_hi,
+                                    itemsize, buffers)) {
     return false;
   }
   const int ncol = (d + kHaloBd - 1) / kHaloBd;
@@ -2122,6 +2225,60 @@ extern "C" int circulant_mix_halo(const void* y, void* out, int n, int d,
     case 8: return args(launch_circ_halo<__nv_bfloat16, 8>);
     case 4: return args(launch_circ_halo<__nv_bfloat16, 4>);
     default: return args(launch_circ_halo<__nv_bfloat16, 2>);
+  }
+}
+
+// The staged Neumann kernel for (T, V), sized as launch_circ_halo.
+template <typename T, int V>
+int launch_neumann_ring(const void* h, const void* hvp, const void* p,
+                        const float* dsc, void* out, int n, int d,
+                        float w_self, int k, const int* soff,
+                        const float* weights, float beta, int bn, int h_lo,
+                        int h_hi, int stages, int smem_bytes, dim3 grid,
+                        cudaStream_t s) {
+  const auto kernel = circulant_neumann_ring_kernel<T, V>;
+  const cudaError_t err = fill_card(kernel, kHaloThreads, smem_bytes, &grid);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kHaloThreads, smem_bytes, s>>>(
+      (const T*)h, (const T*)hvp, (const T*)p, dsc, (T*)out, n, d, bn, h_lo,
+      h_hi, w_self, k, soff, weights, beta, stages);
+  return (int)cudaGetLastError();
+}
+
+// The Neumann step on the circulant ring: soff/weights the signed (k,)
+// device tables of the halo kernels; bn | n, h_lo, h_hi <= bn; stages in
+// [1, kHaloStages] and smem_bytes = stages * (h_lo + 3 bn + h_hi) * 128 *
+// itemsize, as neumann_ring_plan sizes them (refused otherwise).
+extern "C" int circulant_neumann_ring(const void* h, const void* hvp,
+                                      const void* p, const float* dsc,
+                                      void* out, int n, int d, int dtype,
+                                      float w_self, int k, const int* soff,
+                                      const float* weights, float beta,
+                                      int bn, int h_lo, int h_hi, int stages,
+                                      int smem_bytes, void* stream) {
+  dim3 grid;
+  if ((dtype != 0 && dtype != 1) || stages < 1 || stages > kHaloStages ||
+      !halo_launch(n, d, bn, h_lo, h_hi, dtype == 0 ? 4 : 2, stages,
+                   smem_bytes, &grid, 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto args = [&](auto launch) {
+    return launch(h, hvp, p, dsc, out, n, d, w_self, k, soff, weights, beta,
+                  bn, h_lo, h_hi, stages, smem_bytes, grid, s);
+  };
+  if (dtype == 0) {
+    switch (vec_bytes(h, out, d, 4, vec_bytes(hvp, p, d, 4, 16))) {
+      case 16: return args(launch_neumann_ring<float, 16>);
+      case 8: return args(launch_neumann_ring<float, 8>);
+      default: return args(launch_neumann_ring<float, 4>);
+    }
+  }
+  switch (vec_bytes(h, out, d, 2, vec_bytes(hvp, p, d, 2, 16))) {
+    case 16: return args(launch_neumann_ring<__nv_bfloat16, 16>);
+    case 8: return args(launch_neumann_ring<__nv_bfloat16, 8>);
+    case 4: return args(launch_neumann_ring<__nv_bfloat16, 4>);
+    default: return args(launch_neumann_ring<__nv_bfloat16, 2>);
   }
 }
 

@@ -38,7 +38,11 @@ register no backward, so an operand that requires grad is refused.
 Each kernel's launches are counted in `launch_counts()`, bumped only
 where a wrapper launches it; the comm-fused kernels count apart from the
 plain ones (`*_comm`), `ring_laplacian_matvec` apart from
-`circulant_mix_matvec`, the full-operand gossips' unstaged kernels
+`circulant_mix_matvec`, the plain circulant mix's and Neumann step's
+unstaged kernels (`circulant_mix_matvec_unstaged`,
+`circulant_neumann_step_unstaged`) apart from their rings
+(`circulant_mix_matvec`, `circulant_neumann_step`), the full-operand
+gossips' unstaged kernels
 (`sparse_mix_matvec_unstaged`, `sparse_mix_matvec_comm_unstaged`,
 `circulant_mix_matvec_comm_unstaged`, n > 14,528) apart from their
 column stripes (`sparse_mix_matvec`, `sparse_mix_matvec_comm`,
@@ -106,6 +110,14 @@ and the block gathers every neighbor row from there, so Y leaves device
 memory once.  Above n = 14,528, where not even a 16-byte row fits, the
 unstaged kernel reads each neighbor row from device memory.
 
+The plain full-operand circulant mix and the DIHGP Neumann step run on
+the circulant halo kernel's `cp.async` ring too: the mix at bn = n, one
+row block holding the whole agent axis (`circulant_ring_stages`), the
+step at the short row tile of `neumann_ring_plan` with h's extended
+tile and the tiles of hvp_h and p on each stage.  Where no tile fits,
+or where a launch would have fewer tiles than the card has SMs (the
+n = 16 path's 2,010-wide operands), their unstaged kernels run.
+
 The comm-fused full-operand gossips (sparse and circulant, ``comm=``)
 stage the same f32 stripe and decode it in place, one hash per element,
 writing the EF payload from that pass, then gather every neighbor's
@@ -148,6 +160,9 @@ _LIB = CudaLibrary("mixing_matvec", {
     "sparse_mix": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
     "circulant_neumann": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P,
                           _F),
+    # ..., beta, bn, h_lo, h_hi, stages, smem bytes
+    "circulant_neumann_ring": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P,
+                               _P, _F, _I, _I, _I, _I, _I),
     # ..., laplacian, stripe columns (0: the unstaged kernel), smem bytes
     "circulant_mix_comm": (_P, _P, _P, _P, *_WIRE, _I, _I, _F, _I, _P, _P,
                            _I, _I, _I),
@@ -172,8 +187,9 @@ _LIB = CudaLibrary("mixing_matvec", {
 
 # launches per kernel, under the names of chip_smoke's kernel list
 _LAUNCHES = dict.fromkeys((
-    "circulant_mix_matvec", "sparse_mix_matvec", "sparse_mix_matvec_unstaged",
-    "circulant_neumann_step",
+    "circulant_mix_matvec", "circulant_mix_matvec_unstaged",
+    "sparse_mix_matvec", "sparse_mix_matvec_unstaged",
+    "circulant_neumann_step", "circulant_neumann_step_unstaged",
     "circulant_mix_matvec_comm", "circulant_mix_matvec_comm_unstaged",
     "sparse_mix_matvec_comm", "sparse_mix_matvec_comm_unstaged",
     "circulant_neumann_step_comm", "ring_laplacian_matvec",
@@ -303,32 +319,109 @@ def _check_circulant(offsets, weights, device) -> int:
     return k
 
 
-def _circulant_mix(counter: str, y, w_self, offsets, weights, laplacian):
-    """The plain circulant kernel (or its plain version on the CPU),
-    counted under `counter`."""
+def _is_host(offsets, weights) -> bool:
+    """Whether a circulant W comes as host sequences (else as (k,) device
+    tables, checked here; one of each is refused)."""
+    if isinstance(offsets, torch.Tensor) or isinstance(weights, torch.Tensor):
+        return False
+    if len(offsets) != len(weights):
+        raise ValueError(f"{len(offsets)} offsets but {len(weights)} "
+                         f"weights")
+    return True
+
+
+def _circulant_host(n: int, offsets, weights, device):
+    """The circulant W as host tuples, offsets in [0, n).  Device tables
+    are read back (one synchronizing copy): hot paths pass host
+    sequences (`structure.offsets`, `.weights`)."""
+    if not _is_host(offsets, weights):
+        _check_circulant(offsets, weights, device)
+        offsets, weights = offsets.tolist(), weights.tolist()
+    return (tuple(int(o) % n for o in offsets),
+            tuple(float(c) for c in weights))
+
+
+def _circulant_device(n: int, offsets, weights, device):
+    """(k, offset table, weight table) of the full-operand kernels on
+    `device`: the given (k,) device tables, or those of host sequences,
+    built once per graph and device."""
+    if _is_host(offsets, weights):
+        off, w = _unsigned_tables(n, tuple(int(o) % n for o in offsets),
+                                  tuple(float(c) for c in weights), device)
+        return len(off), off, w
+    return _check_circulant(offsets, weights, device), offsets, weights
+
+
+@functools.lru_cache(maxsize=64)
+def _unsigned_tables(n: int, offsets: tuple, weights: tuple, device):
+    return circulant_tables(n, offsets, weights, device)
+
+
+def _circulant_mix(counter: str, unstaged: str, y, w_self, offsets,
+                   weights, laplacian, ring=None):
+    """The plain circulant mix (or its plain version on the CPU): the
+    ring at bn = n where `circulant_ring_stages` gives it stages (or at
+    ring = (n, stages)), counted under `counter`, else the unstaged
+    kernel, counted under `unstaged`."""
     _check_state("y", y)
     n, d = y.shape
-    k = _check_circulant(offsets, weights, y.device)
+    item = y.element_size()
+    offs, ws = _circulant_host(n, offsets, weights, y.device)
+    h_lo, h_hi = halo_extents(offs, n)
+    one = halo_smem_bytes(h_lo + n + h_hi, itemsize=item)
+    if ring is None:
+        stages = circulant_ring_stages(n, h_lo, h_hi, itemsize=item, d=d)
+    elif ring[0] != n or not 1 <= ring[1] <= HALO_STAGES \
+            or ring[1] * one > SMEM_BUDGET_BYTES:
+        raise ValueError(f"ring={ring}: the full-operand mix's ring has "
+                         f"bn = n = {n} and 1 to {HALO_STAGES} stages of "
+                         f"{one} B within {SMEM_BUDGET_BYTES} B")
+    else:
+        stages = ring[1]
     if y.device.type == "cpu":
-        return circulant_mix_ref(y.float(), float(w_self), offsets.tolist(),
-                                 weights.tolist(), laplacian).to(y.dtype)
+        return circulant_mix_ref(y.float(), float(w_self), offs, ws,
+                                 laplacian).to(y.dtype)
     out = torch.empty_like(y)
-    _launch("circulant_mix", counter, y.device, y.data_ptr(),
+    if stages:
+        smem = stages * one
+        assert smem <= SMEM_BUDGET_BYTES
+        soff, w = _signed_tables(n, offs, ws, y.device)
+        _launch("circulant_mix_halo", counter, y.device, y.data_ptr(),
+                out.data_ptr(), n, d, _DTYPE_CODE[y.dtype], float(w_self),
+                len(offs), soff.data_ptr(), w.data_ptr(),
+                int(bool(laplacian)), n, h_lo, h_hi, stages, smem)
+        return out
+    k, off, w = _circulant_device(n, offsets, weights, y.device)
+    _launch("circulant_mix", unstaged, y.device, y.data_ptr(),
             out.data_ptr(), n, d, _DTYPE_CODE[y.dtype], float(w_self), k,
-            offsets.data_ptr(), weights.data_ptr(), int(bool(laplacian)))
+            off.data_ptr(), w.data_ptr(), int(bool(laplacian)))
     return out
 
 
 def circulant_mix_matvec(y: torch.Tensor, zp=None, scale=None, seed=None,
-                         hat=None, *, w_self: float, offsets: torch.Tensor,
-                         weights: torch.Tensor, laplacian: bool = False,
-                         comm: str | None = None):
+                         hat=None, *, w_self: float, offsets, weights,
+                         laplacian: bool = False,
+                         comm: str | None = None,
+                         ring: tuple[int, int] | None = None):
     """W·Y (or (I−W)·Y) for circulant W; y: (n, d) f32 or bf16.
 
     W[i, (i+o) mod n] = c_o for o, c_o in zip(offsets, weights),
-    W[i, i] = w_self; offsets (k,) int32 in [0, n) and weights (k,) f32
-    on y's device (`circulant_tables`).  f32 accumulation, output in y's
-    dtype.  `comm`, zp, scale, seed, hat: the comm-fused twin (module
+    W[i, i] = w_self; offsets and weights as host sequences
+    (`structure.offsets`, `.weights`; their device tables are built once
+    per graph) or as (k,) int32 offsets in [0, n) and (k,) f32 weights
+    on y's device (`circulant_tables`; the plain mix reads those back to
+    plan its tile, one synchronizing copy).  f32 accumulation, output in
+    y's dtype.
+
+    The plain mix runs the circulant halo's ring at bn = n, one row block
+    holding the whole agent axis (`circulant_ring_stages`), counted as
+    `circulant_mix_matvec`; where that tile does not fit, or the rule
+    there keeps the old kernel, the unstaged kernel runs, counted as
+    `circulant_mix_matvec_unstaged`.  Both equal the plain version bit
+    for bit.  ring: (n, stages) to run the ring with instead of the
+    planner's choice (sweeps and tests), held to the same checks.
+
+    `comm`, zp, scale, seed, hat: the comm-fused twin (module
     docstring); returns (out, payload) under ``+ef``.  The fused gossip
     decodes an (n, bc) column stripe per block where one fits
     (`plan_comm_stripe_cols`: n ≤ 14,528), counted as
@@ -337,18 +430,22 @@ def circulant_mix_matvec(y: torch.Tensor, zp=None, scale=None, seed=None,
     bit for bit, output and payload."""
     fused = parse_kernel_comm(comm)
     if fused is None:
-        return _circulant_mix("circulant_mix_matvec", y, w_self, offsets,
-                              weights, laplacian)
+        return _circulant_mix("circulant_mix_matvec",
+                              "circulant_mix_matvec_unstaged", y, w_self,
+                              offsets, weights, laplacian, ring)
+    if ring is not None:
+        raise ValueError("ring= sizes the plain mix's tile; the comm-fused "
+                         "mix stages a decoded stripe")
     bits, ef = fused
     _check_state("y", y)
     _check_wire(y, zp, scale, seed, hat, ef)
     n, d = y.shape
-    k = _check_circulant(offsets, weights, y.device)
     if y.device.type == "cpu":
+        offs, ws = _circulant_host(n, offsets, weights, y.device)
         return circulant_mix_fused_ref(
-            y, zp, scale, seed, hat, w_self=float(w_self),
-            offsets=offsets.tolist(), weights=weights.tolist(),
-            laplacian=laplacian, bits=bits)
+            y, zp, scale, seed, hat, w_self=float(w_self), offsets=offs,
+            weights=ws, laplacian=laplacian, bits=bits)
+    k, off, w = _circulant_device(n, offsets, weights, y.device)
     out = torch.empty_like(y)
     pay = torch.empty_like(y) if ef else None
     cols, smem = _comm_stripe(y)
@@ -356,9 +453,8 @@ def circulant_mix_matvec(y: torch.Tensor, zp=None, scale=None, seed=None,
             else "circulant_mix_matvec_comm_unstaged", y.device,
             y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
             zp.data_ptr(), scale.data_ptr(), seed & 0xFFFFFFFF,
-            float(2 ** bits - 1), n, d, float(w_self), k,
-            offsets.data_ptr(), weights.data_ptr(), int(bool(laplacian)),
-            cols, smem)
+            float(2 ** bits - 1), n, d, float(w_self), k, off.data_ptr(),
+            w.data_ptr(), int(bool(laplacian)), cols, smem)
     return (out, pay) if ef else out
 
 
@@ -427,9 +523,10 @@ def sparse_mix_matvec(y: torch.Tensor, w_self: torch.Tensor,
 def circulant_neumann_step(h: torch.Tensor, hvp_h: torch.Tensor,
                            p: torch.Tensor, d_scalar: torch.Tensor,
                            zp=None, scale=None, seed=None, *,
-                           w_self: float, offsets: torch.Tensor,
-                           weights: torch.Tensor, beta: float,
-                           comm: str | None = None) -> torch.Tensor:
+                           w_self: float, offsets, weights, beta: float,
+                           comm: str | None = None,
+                           ring: tuple[int, int] | None = None
+                           ) -> torch.Tensor:
     """One fused DIHGP Neumann iteration (Eq. 14) for circulant W:
 
         h⁺ = (D̃h − (I−W)h − β·hvp_h − p) / D̃
@@ -437,49 +534,85 @@ def circulant_neumann_step(h: torch.Tensor, hvp_h: torch.Tensor,
     h, hvp_h, p: (n, d), one dtype (f32; bf16 is accepted and
     accumulated in f32); d_scalar: (n, 1) f32 per-agent D̃; the
     circulant W as in `circulant_mix_matvec`; β a Python number (a
-    runtime kernel argument).  ``comm="int8" | "int4"`` with zp, scale
-    and seed quantizes the W·h gossip in the same pass; error feedback
-    is refused, as `repro` refuses it (no payload write-back)."""
+    runtime kernel argument).
+
+    The step runs on the circulant halo's ring wherever
+    `neumann_ring_plan` gives it a row tile (bn, stages), counted as
+    `circulant_neumann_step`, else the unstaged kernel, counted as
+    `circulant_neumann_step_unstaged`; both equal the plain version bit
+    for bit.  ring: a (bn, stages) to run instead of the planner's
+    (sweeps and tests), held to the same checks.
+
+    ``comm="int8" | "int4"`` with zp, scale and seed quantizes the W·h
+    gossip in the same pass; error feedback is refused, as `repro`
+    refuses it (no payload write-back)."""
     fused = parse_kernel_comm(comm)
     _check_state("h", h)
     _check_state("hvp_h", hvp_h, h.shape, like=h)
     _check_state("p", p, h.shape, like=h)
     n, d = h.shape
     _check_table("d_scalar", d_scalar, (n, 1), torch.float32, h.device)
-    k = _check_circulant(offsets, weights, h.device)
     if fused is None:
+        offs, ws = _circulant_host(n, offsets, weights, h.device)
+        item = h.element_size()
+        h_lo, h_hi = halo_extents(offs, n)
+        plan = neumann_ring_plan(n, h_lo, h_hi, itemsize=item, d=d) \
+            if ring is None else ring
+        if plan is not None:
+            bn, stages = plan
+            check_halo_tile(n, bn, h_lo, h_hi)
+            smem = stages * neumann_stage_bytes(bn, h_lo, h_hi,
+                                                itemsize=item)
+            if not 1 <= stages <= HALO_STAGES \
+                    or smem > SMEM_BUDGET_BYTES:
+                raise ValueError(
+                    f"ring={plan}: {stages} stages of "
+                    f"{neumann_stage_bytes(bn, h_lo, h_hi, itemsize=item)}"
+                    f" B; the kernel takes 1 to {HALO_STAGES} "
+                    f"within {SMEM_BUDGET_BYTES} B")
         if h.device.type == "cpu":
             return neumann_step_ref(h.float(), hvp_h.float(), p.float(),
                                     d_scalar, w_self=float(w_self),
-                                    offsets=offsets.tolist(),
-                                    weights=weights.tolist(),
+                                    offsets=offs, weights=ws,
                                     beta=float(beta)).to(h.dtype)
         out = torch.empty_like(h)
-        _launch("circulant_neumann", "circulant_neumann_step", h.device,
-                h.data_ptr(), hvp_h.data_ptr(), p.data_ptr(),
-                d_scalar.data_ptr(), out.data_ptr(), n, d,
-                _DTYPE_CODE[h.dtype], float(w_self), k, offsets.data_ptr(),
-                weights.data_ptr(), float(beta))
+        operands = (h.data_ptr(), hvp_h.data_ptr(), p.data_ptr(),
+                    d_scalar.data_ptr(), out.data_ptr(), n, d,
+                    _DTYPE_CODE[h.dtype], float(w_self))
+        if plan is not None:
+            soff, w = _signed_tables(n, offs, ws, h.device)
+            _launch("circulant_neumann_ring", "circulant_neumann_step",
+                    h.device, *operands, len(offs), soff.data_ptr(),
+                    w.data_ptr(), float(beta), bn, h_lo, h_hi, stages,
+                    smem)
+            return out
+        k, off, w = _circulant_device(n, offsets, weights, h.device)
+        _launch("circulant_neumann", "circulant_neumann_step_unstaged",
+                h.device, *operands, k, off.data_ptr(), w.data_ptr(),
+                float(beta))
         return out
     bits, ef = fused
     if ef:
         raise ValueError("the fused Neumann kernel does not lower '+ef' "
                          "comm (no payload write-back); compose it from "
                          "mix_c and the Neumann update instead")
+    if ring is not None:
+        raise ValueError("ring= sizes the plain Neumann step's tile; the "
+                         "comm-fused step has none")
     _check_wire(h, zp, scale, seed, None, False)
     if h.device.type == "cpu":
+        offs, ws = _circulant_host(n, offsets, weights, h.device)
         return neumann_step_fused_ref(h, hvp_h, p, d_scalar, zp, scale,
                                       seed, w_self=float(w_self),
-                                      offsets=offsets.tolist(),
-                                      weights=weights.tolist(),
+                                      offsets=offs, weights=ws,
                                       beta=float(beta), bits=bits)
+    k, off, w = _circulant_device(n, offsets, weights, h.device)
     out = torch.empty_like(h)
     _launch("circulant_neumann_comm", "circulant_neumann_step_comm",
             h.device, h.data_ptr(), hvp_h.data_ptr(), p.data_ptr(),
             d_scalar.data_ptr(), out.data_ptr(), zp.data_ptr(),
             scale.data_ptr(), seed & 0xFFFFFFFF, float(2 ** bits - 1), n, d,
-            float(w_self), k, offsets.data_ptr(), weights.data_ptr(),
-            float(beta))
+            float(w_self), k, off.data_ptr(), w.data_ptr(), float(beta))
     return out
 
 
@@ -494,11 +627,12 @@ def ring_offsets(n: int, w_edge: float):
 def ring_laplacian_matvec(y: torch.Tensor, *, w_self: float,
                           w_edge: float) -> torch.Tensor:
     """(I − W)·Y for ring W (`repro`'s compatibility wrapper over the
-    circulant kernel); y: (n, d) f32 or bf16, any n ≥ 2 and d.  Builds
-    the (k,) offset tables on y's device at every call."""
+    plain circulant mix, on its route; counted as
+    `ring_laplacian_matvec` on both); y: (n, d) f32 or bf16, any n ≥ 2
+    and d."""
     offsets, weights = ring_offsets(y.shape[0], float(w_edge))
-    off, w = circulant_tables(y.shape[0], offsets, weights, y.device)
-    return _circulant_mix("ring_laplacian_matvec", y, w_self, off, w, True)
+    return _circulant_mix("ring_laplacian_matvec", "ring_laplacian_matvec",
+                          y, w_self, offsets, weights, True)
 
 
 # ---------------------------------------------------------------------------
@@ -526,6 +660,7 @@ def halo_smem_bytes(rows: int, *, itemsize: int = 4,
 
 
 HALO_STAGES = 3
+CARD_SMS = 132          # the H100's SMs, which the planners' rules fill
 
 
 def halo_stages(rows: int, *, itemsize: int = 4) -> int:
@@ -558,6 +693,111 @@ def halo_comm_buffers(stages: int, *, ef: bool) -> int:
     """Tiles a fused circulant halo launch stages: the ring's raw stages
     (a y and a hat tile each under EF) and the decoded tile."""
     return stages * (2 if ef else 1) + 1
+
+
+# The plain full-operand circulant mix and the DIHGP Neumann step on the
+# circulant halo's ring (`circulant_mix_halo_kernel` at bn = n and
+# `circulant_neumann_ring_kernel` in csrc/mixing_matvec.cu): the
+# Neumann step's stage holds h's extended tile and the (bn, 128) tiles of
+# hvp_h and p.  Both rules come from chip_smoke.py's `ring_sweep_phase`
+# and `neumann_on_solve_operands` (H100 80GB HBM3, 700 W; device ms, every
+# (bn, stages) bitwise the unstaged kernel's):
+#
+#   Neumann, (4096, 2010) f32: unstaged 0.06962; bn 8: 0.06033 / 0.05432
+#     / 0.05550 at 1-3 stages; bn 16: 0.05444 / 0.05855 / 0.06571; bn 32:
+#     0.05849 / 0.06449 / 0.07051; bn 64: 0.06482 / 0.07497; bn 128:
+#     0.08640; bn 4: 0.07463 at 2.
+#   (4096, 157000) f32: unstaged 5.15263; bn 8: 4.05339 / 3.87441 /
+#     3.94812; bn 16: 3.90331 / 3.91114 / 3.79861; bn 32: 3.94416 /
+#     3.90766 / 3.88765; bn 64: 3.96072 / 4.13864; bn 4: 4.77641 at 2.
+#   (4096, 2010) bf16: unstaged 0.06431; bn 32: 0.04564 / 0.04079 /
+#     0.04162; bn 16: 0.04749 at 2; bn 64: 0.04253 at 2; bn 8: 0.06423
+#     at 2.  (4096, 157000) bf16: unstaged 4.73325; bn 32: 2.50357 /
+#     2.40247 / 2.44220; bn 64: 2.38083 / 2.42998 / 2.34950; bn 16:
+#     2.49224 at 2; bn 8: 4.35280 at 2.
+#   (16, 2010) f32: unstaged 0.00225; the ring's best 0.00321 (bn 4, 2
+#     stages), bn 16 0.00416.  (16, 157000): unstaged 0.02313; bn 16
+#     0.01756 / 0.01697, bn 8 0.01890 / 0.01667 at 1-2 stages.
+#   Mix at bn = n, 1-3 stages: (16, 2010) unstaged 0.00200, ring 0.00281
+#     / 0.00283 / 0.00286; (16, 157000) 0.01526 against 0.00882 /
+#     0.00767 / 0.00804; (128, 157000) 0.11748 against 0.06623 / 0.06924
+#     / 0.06834.
+#   On the operands the n = 4096 ring identity solve hands the step (83%
+#     of h zeros, 2% subnormal, which send f32 division down its slow
+#     path), (4096, 2010) f32, in one run: unstaged 0.07883; bn 8:
+#     0.08091 / 0.07537 / 0.07575 at 1-3 stages; bn 16: 0.06900 /
+#     0.07255 at 1-2; bn 32: 0.06932 at 1; and on random operands in
+#     that run 0.06985; 0.06004 / 0.05439 / 0.05555; 0.05432 / 0.05853;
+#     0.05813.
+#
+# So the Neumann ring takes short tiles (more blocks on an SM, whose warps
+# hide each other's copies and divisions): 16 rows and 1 stage f32, the
+# fastest on the solve's operands and as fast as any on random ones at
+# d2 (the step's only width on the main path), and 32 rows and 2 stages
+# bf16; both rings give way to the unstaged kernels where their launch
+# has fewer tiles than the card has SMs (ceil(d/128) · n/bn < 132: the
+# (16, 2010) operands of the n = 16 path), where one block per tile
+# leaves the card idle behind a chain of copy, wait and mix that the
+# unstaged kernels' single round of loads does not have.
+# the planner's (row tile, stages) by itemsize
+NEUMANN_RING_TILE = {4: (16, 1), 2: (32, 2)}
+
+
+def _fills_card(n: int, bn: int, d: int | None, sms: int) -> bool:
+    """Whether a ring launch of row tile bn over an (n, d) operand has
+    at least one tile per SM (always, when d is not given)."""
+    return d is None or n // bn * -(-d // HALO_BD) >= sms
+
+
+def circulant_ring_stages(n: int, h_lo: int = 0, h_hi: int = 0, *,
+                          itemsize: int = 4, d: int | None = None,
+                          sms: int = CARD_SMS) -> int:
+    """Stages of the plain full-operand circulant mix on the ring at
+    bn = n: `halo_stages` of the (h_lo + n + h_hi)-row tile (3 on the
+    ring at n = 16), or 0, for the unstaged kernel, where not one fits
+    `SMEM_BUDGET_BYTES` (read at the call; n > 452 f32 on the ring) or,
+    given d, where the operand has fewer 128-column tiles than the
+    card's `sms` SMs (d ≤ 16,768 on the H100: the n = 16 path's d2)."""
+    if not _fills_card(n, n, d, sms):
+        return 0
+    return halo_stages(h_lo + n + h_hi, itemsize=itemsize)
+
+
+def neumann_stage_bytes(bn: int, h_lo: int = 0, h_hi: int = 0, *,
+                        itemsize: int = 4) -> int:
+    """One stage of the Neumann ring: h's (h_lo + bn + h_hi)-row tile and
+    the (bn, 128) tiles of hvp_h and p."""
+    return halo_smem_bytes(h_lo + 3 * bn + h_hi, itemsize=itemsize)
+
+
+def neumann_ring_plan(n: int, h_lo: int = 0, h_hi: int = 0, *,
+                      itemsize: int = 4, d: int | None = None,
+                      sms: int = CARD_SMS) -> tuple[int, int] | None:
+    """(bn, stages) of the Neumann step on the circulant ring, or None
+    for the unstaged kernel.  bn: among n and the powers of two in
+    `HALO_BNS` and 4 and 2 that divide n, hold the halo extents and
+    whose stage (`neumann_stage_bytes`) fits `SMEM_BUDGET_BYTES` (read at
+    the call), the tallest of at most the rows of
+    `NEUMANN_RING_TILE[itemsize]` (16 f32 at n = 16 and 4096, 32 bf16 at
+    4096; 4 at n = 100; 7 at n = 7), else the shortest; stages: up to
+    the stages there that fit (1 f32, 2 bf16).  None where no tile
+    qualifies (a prime n over 150 in f32) or, given d, where the launch
+    would have fewer tiles than the card's `sms` SMs (the n = 16 path's
+    d2)."""
+    tiles = [bn for bn in sorted({n, *HALO_BNS, 4, 2})
+             if bn <= n and n % bn == 0 and bn >= max(h_lo, h_hi)
+             and neumann_stage_bytes(bn, h_lo, h_hi, itemsize=itemsize)
+             <= SMEM_BUDGET_BYTES]
+    if not tiles:
+        return None
+    rows, stages = NEUMANN_RING_TILE[itemsize]
+    short = [bn for bn in tiles if bn <= rows]
+    bn = short[-1] if short else tiles[0]
+    if not _fills_card(n, bn, d, sms):
+        return None
+    return bn, min(stages, SMEM_BUDGET_BYTES
+                   // neumann_stage_bytes(bn, h_lo, h_hi,
+                                          itemsize=itemsize))
 
 
 def stripe_smem_bytes(n: int, *, itemsize: int = 4, blocks: int = 3) -> int:
@@ -669,10 +909,9 @@ def plan_stripe_cols(n: int, itemsize: int = 4) -> int | None:
 # The comm-fused full-operand gossips' decoded stripe
 # (`sparse_mix_stripe_comm_kernel`, `circulant_mix_stripe_comm_kernel`):
 # block s stages the f32 columns [s·bc, s·bc + bc) of all n rows and
-# decodes them in place, and holds nothing else in shared memory.  The
-# H100's 132 SMs: an operand too narrow for one stripe per SM at the
-# widest bc gets narrower stripes.
-CARD_SMS = 132
+# decodes them in place, and holds nothing else in shared memory.  An
+# operand too narrow for one stripe per SM (`CARD_SMS`) at the widest bc
+# gets narrower stripes.
 
 
 def plan_comm_stripe_cols(n: int, d: int | None = None,

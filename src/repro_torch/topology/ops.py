@@ -57,10 +57,15 @@ holds up to n = 151 (f32, plain), so the n = 16 runs keep the
 full-operand kernels and n = 4096 takes the halo tier; `repro`
 switches at n ≈ 4096, so for 151 < n < 4096 the two dispatch
 differently and agree in result (the halo kernels equal the
-full-operand ones bit for bit).  The identity Neumann step
-keeps its full-operand kernel at any n, as `repro`'s does; the
-comm-fused Neumann kernel runs on the full tier only, and on the halo
-tier the step composes `mix_c` (a fused halo mix) with the update.
+full-operand ones bit for bit).  The plain full-operand circulant mix
+runs the circulant halo's ring itself, at bn = n
+(`circulant_ring_stages`).  The identity Neumann step keeps
+`circulant_neumann_step` at any n, as `repro`'s does; that wrapper runs
+it on the circulant ring at the row tile of `neumann_ring_plan` (bn =
+n at n = 16, a shorter tile at n = 4096) and on its unstaged kernel
+where no tile qualifies, one result either way.  The comm-fused Neumann
+kernel runs on the full tier only, and on the halo tier the step
+composes `mix_c` (a fused halo mix) with the update.
 
 Mixing dtype
 ------------
@@ -372,10 +377,9 @@ class MixingOp:
                                             weights=s.weights,
                                             laplacian=laplacian, bn=bn)
         elif self.backend == "circulant":
-            out = circulant_mix_matvec(flat.contiguous(),
-                                       w_self=self.structure.w_self,
-                                       offsets=self._circ_off,
-                                       weights=self._circ_w,
+            s = self.structure
+            out = circulant_mix_matvec(flat.contiguous(), w_self=s.w_self,
+                                       offsets=s.offsets, weights=s.weights,
                                        laplacian=laplacian)
         elif bn is not None:
             out = sparse_mix_matvec_halo(flat.contiguous(), self._sp_wself,
@@ -403,12 +407,13 @@ class MixingOp:
         if self.backend == "circulant" and self.storage_dtype is None \
                 and self._kernel_tier():
             flat = h.reshape(h.shape[0], -1).contiguous()
+            s = self.structure
             out = circulant_neumann_step(
                 flat, hvp_h.reshape(flat.shape).contiguous(),
                 p.reshape(flat.shape).contiguous(),
                 d_scalar.reshape(h.shape[0], 1).float().contiguous(),
-                w_self=self.structure.w_self, offsets=self._circ_off,
-                weights=self._circ_w, beta=float(beta))
+                w_self=s.w_self, offsets=s.offsets, weights=s.weights,
+                beta=float(beta))
             return out.reshape(h.shape)
         # the plain, sparse, dense and bf16-storage tiers compose the
         # same algebra from the backend mix (only the W·h term is

@@ -13,6 +13,7 @@ ulp (2⁻⁷ relative to the largest output).
 from __future__ import annotations
 
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -54,6 +55,22 @@ def _tables(s, dev):
     return dict(w_self=s.w_self, offsets=off, weights=w)
 
 
+def _mix_route(offsets, n, d, dtype):
+    """The counter of the plain circulant mix's route by the planner:
+    the ring at bn = n or the unstaged kernel."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    return "circulant_mix_matvec" if mm.circulant_ring_stages(
+        n, *mm.halo_extents(offsets, n), itemsize=item, d=d) \
+        else "circulant_mix_matvec_unstaged"
+
+
+def _neumann_route(offsets, n, d, dtype):
+    item = torch.tensor([], dtype=dtype).element_size()
+    return "circulant_neumann_step" if mm.neumann_ring_plan(
+        n, *mm.halo_extents(offsets, n), itemsize=item, d=d) \
+        else "circulant_neumann_step_unstaged"
+
+
 def _randn(shape, dtype, dev, seed=0):
     rng = np.random.default_rng(seed)
     return torch.as_tensor(rng.standard_normal(shape),
@@ -69,10 +86,11 @@ def test_circulant_mix_kernel(cuda, shape, dtype, laplacian, kind, offsets):
     n, d = shape
     s = circulant_structure(make_network(kind, n, offsets=offsets).W)
     y = _randn(shape, dtype, cuda)
-    before = mm.launch_counts()["circulant_mix_matvec"]
+    route = _mix_route(s.offsets, n, d, dtype)
+    before = mm.launch_counts()[route]
     got = mm.circulant_mix_matvec(y, laplacian=laplacian, **_tables(s, cuda))
     torch.cuda.synchronize()
-    assert mm.launch_counts()["circulant_mix_matvec"] == before + 1
+    assert mm.launch_counts()[route] == before + 1
     assert got.dtype == dtype and got.shape == y.shape
     want = ref.circulant_mix_ref(y.float(), s.w_self, s.offsets,
                                  s.weights, laplacian).to(dtype)
@@ -105,11 +123,12 @@ def test_circulant_neumann_kernel(cuda, shape, dtype):
     h, hvp, p = (_randn(shape, dtype, cuda, seed=i) for i in range(3))
     dsc = torch.as_tensor(np.random.default_rng(3).uniform(
         1.5, 3.0, (n, 1)), dtype=torch.float32).to(cuda)
-    before = mm.launch_counts()["circulant_neumann_step"]
+    route = _neumann_route(s.offsets, n, d, dtype)
+    before = mm.launch_counts()[route]
     got = mm.circulant_neumann_step(h, hvp, p, dsc, beta=0.1,
                                     **_tables(s, cuda))
     torch.cuda.synchronize()
-    assert mm.launch_counts()["circulant_neumann_step"] == before + 1
+    assert mm.launch_counts()[route] == before + 1
     want = ref.neumann_step_ref(h.float(), hvp.float(), p.float(), dsc,
                                 w_self=s.w_self, offsets=s.offsets,
                                 weights=s.weights, beta=0.1).to(dtype)
@@ -542,12 +561,15 @@ def test_halo_kernels_at_the_planners_largest_tiles(cuda):
 
 TIER_CASES = [
     # (graph, n, comm, launches of one mix_c + laplacian_c + neumann_step_c)
-    ("ring", 16, "identity", {"circulant_mix_matvec": 2,
-                              "circulant_neumann_step": 1}),
+    # at d = 260: three column tiles, too few for the rings at n = 16 and,
+    # for offsets ±100 at n = 1024, no ring tile fits (the unstaged
+    # kernels); at n = 1024 the ring's Neumann tile (16 rows) has 192
+    ("ring", 16, "identity", {"circulant_mix_matvec_unstaged": 2,
+                              "circulant_neumann_step_unstaged": 1}),
     ("ring", 1024, "identity", {"circulant_mix_matvec_halo": 2,
                                 "circulant_neumann_step": 1}),
-    ("far", 1024, "identity", {"circulant_mix_matvec": 2,
-                               "circulant_neumann_step": 1}),
+    ("far", 1024, "identity", {"circulant_mix_matvec_unstaged": 2,
+                               "circulant_neumann_step_unstaged": 1}),
     ("erdos_renyi", 16, "identity", {"sparse_mix_matvec": 3}),
     ("erdos_renyi", 1024, "identity", {"sparse_mix_matvec_halo": 3}),
     ("ring", 16, "int8", {"circulant_mix_matvec_comm": 2,
@@ -1078,3 +1100,197 @@ def test_explicit_backends_launch_nothing_and_backpropagate(cuda, kind,
     mm.reset_launch_counts()
     op.mix(h)
     assert sum(mm.launch_counts().values()) == 1
+
+
+# -- the circulant ring's Neumann step and plain full-operand mix -----------
+
+RING_SHAPES = [(16, 1), (16, 3), (16, 5), (16, 2010), (16, 157000),
+               (100, 2010), (100, 157000), (4096, 5), (4096, 2010),
+               (4096, 157000)]
+RING_GRAPHS = {
+    "ring": lambda n: circulant_structure(make_network("ring", n).W),
+    # a k = 4 circulant with asymmetric offsets +1, +2, −3, +5
+    "asym": lambda n: types.SimpleNamespace(
+        w_self=0.3, offsets=tuple(o % n for o in (1, 2, -3, 5)),
+        weights=(0.25, 0.125, 0.2, 0.125))}
+
+
+def _ring_routes(kernel, n, d, dtype, offsets):
+    """Every route of `kernel` ("mix" or "neumann") at (n, d): [(keyword
+    arguments, budget, counter)] — the planner's ring (or its unstaged
+    kernel), the ring forced at each stage count (mix) or at the
+    planner's tile, at n and at the shortest tile (Neumann), whatever
+    the d2 rule says, and the unstaged kernel under a budget no tile
+    fits."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    h_lo, h_hi = mm.halo_extents(offsets, n)
+    budget = mm.SMEM_BUDGET_BYTES
+    name = "circulant_mix_matvec" if kernel == "mix" \
+        else "circulant_neumann_step"
+    route = _mix_route if kernel == "mix" else _neumann_route
+    routes = [({}, budget, route(offsets, n, d, dtype)),
+              ({}, 0, name + "_unstaged")]
+    if kernel == "mix":
+        for st in range(1, mm.halo_stages(h_lo + n + h_hi,
+                                          itemsize=item) + 1):
+            routes.append(({"ring": (n, st)}, budget, name))
+        return routes
+    plan = mm.neumann_ring_plan(n, h_lo, h_hi, itemsize=item)
+    tiles = {plan[0]} if plan else set()
+    for bn in (n, *mm.HALO_BNS, 4, 2):
+        if bn <= n and n % bn == 0 and bn >= max(h_lo, h_hi) and \
+                mm.neumann_stage_bytes(bn, h_lo, h_hi,
+                                       itemsize=item) <= budget:
+            tiles.add(bn)
+    for bn in sorted(tiles)[:1] + sorted(tiles)[-1:] + (
+            [plan[0]] if plan else []):
+        st = min(mm.HALO_STAGES, budget
+                 // mm.neumann_stage_bytes(bn, h_lo, h_hi, itemsize=item))
+        routes.append(({"ring": (bn, st)}, budget, name))
+    return routes
+
+
+def _launch_ring(kernel, s, operands, **kw):
+    host = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights)
+    if kernel == "mix":
+        return mm.circulant_mix_matvec(operands[0], laplacian=True, **host,
+                                       **kw)
+    return mm.circulant_neumann_step(*operands, beta=0.1, **host, **kw)
+
+
+def _ring_operands(kernel, n, d, dtype, dev, offset=False):
+    """y (mix) or h, hvp_h, p, D̃ (Neumann); with `offset` each (n, d)
+    operand starts one value past an aligned allocation (4-byte f32,
+    2-byte bf16 copies)."""
+    def make(seed):
+        t = _randn((n * d + offset,), dtype, dev, seed=seed)
+        return t[int(offset):].view(n, d)
+    if kernel == "mix":
+        return (make(0),)
+    dsc = torch.as_tensor(np.random.default_rng(3).uniform(
+        1.5, 3.0, (n, 1)), dtype=torch.float32).to(dev)
+    return make(0), make(1), make(2), dsc
+
+
+def _ring_want(kernel, s, operands, dtype):
+    if kernel == "mix":
+        return ref.circulant_mix_ref(operands[0].float(), s.w_self,
+                                     s.offsets, s.weights, True).to(dtype)
+    h, hvp, p, dsc = operands
+    return ref.neumann_step_ref(h.float(), hvp.float(), p.float(), dsc,
+                                w_self=s.w_self, offsets=s.offsets,
+                                weights=s.weights, beta=0.1).to(dtype)
+
+
+def _check_every_ring_route(kernel, s, n, d, dtype, operands):
+    want = _ring_want(kernel, s, operands, dtype)
+    outs = []
+    for kw, budget, counter in _ring_routes(kernel, n, d, dtype, s.offsets):
+        with mm.smem_budget(budget):
+            before = mm.launch_counts()
+            got = _launch_ring(kernel, s, operands, **kw)
+            torch.cuda.synchronize()
+            after = mm.launch_counts()
+        assert after[counter] == before[counter] + 1, (kw, budget, counter)
+        assert sum(after.values()) == sum(before.values()) + 1
+        assert got.dtype == dtype and got.shape == operands[0].shape
+        assert torch.equal(got, want), (kw, budget)
+        outs.append(got)
+    for got in outs[1:]:
+        assert torch.equal(got, outs[0])
+
+
+@pytest.mark.parametrize("kernel", ["mix", "neumann"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,d", RING_SHAPES)
+def test_circulant_ring_every_route_bitwise(cuda, kernel, dtype, n, d):
+    """Each route of the ring's plain mix and Neumann step — the
+    planner's, the ring at every stage count or tile, the unstaged
+    kernel — equals the plain version and the others bit for bit, and
+    bumps its own counter once."""
+    s = RING_GRAPHS["ring"](n)
+    _check_every_ring_route(kernel, s, n, d, dtype,
+                            _ring_operands(kernel, n, d, dtype, cuda))
+
+
+@pytest.mark.parametrize("kernel", ["mix", "neumann"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,d", [(16, 157000), (100, 2010)])
+def test_circulant_ring_asymmetric_offsets_bitwise(cuda, kernel, dtype, n,
+                                                   d):
+    s = RING_GRAPHS["asym"](n)
+    _check_every_ring_route(kernel, s, n, d, dtype,
+                            _ring_operands(kernel, n, d, dtype, cuda))
+
+
+@pytest.mark.parametrize("kernel", ["mix", "neumann"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [2010, 157000])
+def test_circulant_ring_offset_pointer_bitwise(cuda, kernel, dtype, d):
+    """Operands one value past an aligned allocation: the rings' copies
+    narrow to 4 (f32) or 2 (bf16) bytes and stay bitwise."""
+    n = 16
+    s = RING_GRAPHS["ring"](n)
+    operands = _ring_operands(kernel, n, d, dtype, cuda, offset=True)
+    assert operands[0].data_ptr() % 16
+    _check_every_ring_route(kernel, s, n, d, dtype, operands)
+
+
+def test_circulant_ring_no_fallback_past_the_kernels_limits(cuda):
+    """A ring the kernels do not take raises; it never gives way to the
+    unstaged kernel or to the plain version."""
+    n, d = 16, 157000
+    s = RING_GRAPHS["ring"](n)
+    h, hvp, p, dsc = _ring_operands("neumann", n, d, torch.float32, cuda)
+    before = mm.launch_counts()
+    with pytest.raises(ValueError, match="1 to 3"):
+        _launch_ring("neumann", s, (h, hvp, p, dsc), ring=(8, 4))
+    with pytest.raises(ValueError, match="within"):
+        with mm.smem_budget(mm.neumann_stage_bytes(8, 1, 1) - 1):
+            _launch_ring("neumann", s, (h, hvp, p, dsc), ring=(8, 1))
+    with pytest.raises(ValueError, match="1 to 3 stages"):
+        _launch_ring("mix", s, (h,), ring=(n, 4))
+    assert mm.launch_counts() == before
+
+
+def _same_bits_nan(got, want):
+    """Bitwise, with NaN at the same places (a NaN's payload aside)."""
+    nan = got.isnan()
+    assert torch.equal(nan, want.isnan())
+    ints = torch.int32 if got.dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(ints)[~nan], want.view(ints)[~nan])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,d", [(16, 157000), (4096, 2010)])
+def test_circulant_neumann_ring_special_values_bitwise(cuda, dtype, n, d):
+    """Operands as a solve's DIHGP iterates hold them — mostly zeros, a
+    share of subnormals — with ±inf and NaN, and D̃ of 1, tiny, zero and
+    inf: the ring (which divides in f64) equals the unstaged kernel and
+    the plain version bit for bit, NaN at the same places."""
+    s = RING_GRAPHS["ring"](n)
+    rng = np.random.default_rng(7)
+
+    def operand(seed):
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        u = rng.random((n, d))
+        x[u < 0.8] = 0.0
+        sub = rng.integers(1, 2 ** 23, (n, d)).astype(np.uint32).view(
+            np.float32)
+        x = np.where((u >= 0.8) & (u < 0.82), sub, x)
+        x[seed % n, :3] = [np.inf, -np.inf, np.nan]
+        return torch.as_tensor(x).to(cuda).to(dtype)
+    h, hvp, p = (operand(i) for i in range(3))
+    dsc = torch.as_tensor(rng.uniform(1.3, 141.0, (n, 1)),
+                          dtype=torch.float32)
+    dsc[:4, 0] = torch.tensor([1.0, 1e-30, 0.0, float("inf")])
+    dsc = dsc.to(cuda)
+    operands = (h, hvp, p, dsc)
+    want = _ring_want("neumann", s, operands, dtype)
+    item = torch.tensor([], dtype=dtype).element_size()
+    plan = mm.neumann_ring_plan(n, 1, 1, itemsize=item)
+    ring = _launch_ring("neumann", s, operands, ring=plan)
+    with mm.smem_budget(0):
+        old = _launch_ring("neumann", s, operands)
+    _same_bits_nan(ring, want)
+    _same_bits_nan(ring, old)

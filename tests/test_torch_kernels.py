@@ -133,8 +133,10 @@ def test_cpu_wrappers_run_the_plain_versions_without_launching():
     assert torch.equal(out, want)
     counts = tmm.launch_counts()
     assert set(counts.values()) == {0}
-    assert {"circulant_mix_matvec", "sparse_mix_matvec",
-            "sparse_mix_matvec_unstaged", "circulant_neumann_step", "circulant_mix_matvec_comm",
+    assert {"circulant_mix_matvec", "circulant_mix_matvec_unstaged",
+            "sparse_mix_matvec", "sparse_mix_matvec_unstaged",
+            "circulant_neumann_step", "circulant_neumann_step_unstaged",
+            "circulant_mix_matvec_comm",
             "circulant_mix_matvec_comm_unstaged", "sparse_mix_matvec_comm",
             "sparse_mix_matvec_comm_unstaged", "circulant_neumann_step_comm",
             "ring_laplacian_matvec", "circulant_mix_matvec_halo",
