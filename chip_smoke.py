@@ -26,7 +26,10 @@ Phases, in order (any failure exits non-zero before the last line):
                and at n = 16 on every stripe width and their unstaged
                kernels (output and payload bitwise, through a lower
                shared-memory budget), the unstaged kernels timed beside
-               each; the sparse gather's column stripe also at
+               each; the comm-fused Neumann step on its decoded stripe
+               and on its unstaged kernel at (16, d2) int4 and int8 and
+               (128, d1) and (454, d1) int8, each bitwise against the
+               plain version and the other, both timed; the sparse gather's column stripe also at
                the paper's Fig. 2 size (100, d1) and, at n = 16, on every
                stripe width and its unstaged kernel (bitwise, through a
                lower shared-memory budget), the unstaged kernel timed;
@@ -49,7 +52,9 @@ Phases, in order (any failure exits non-zero before the last line):
                (circulant + Neumann kernels) and an Erdős–Rényi graph
                (sparse-gather kernel) on the identity wire, then
                compressed: ring int8+ef, ring int4 and ER int8+ef (the
-               comm-fused kernels).  Each run has exact launch counts,
+               comm-fused kernels; ring int4 also bitwise against its
+               run through the plain versions, its 15 Neumann steps'
+               launches and device time by route).  Each run has exact launch counts,
                exact ledger bytes and finite metrics.  The identity runs
                agree with the same run on the CPU; the compressed ones
                with the same run on the card through the kernels' plain
@@ -84,7 +89,9 @@ Phases, in order (any failure exits non-zero before the last line):
                and bf16), mixtral-8x7b (prefill_32k, window 4096, f32
                and bf16) and rwkv6-7b (train_4k), and at head dims
                outside the powers of two (attention 80 and 256, f32 and
-               bf16; WKV 96 and 256), timed beside
+               bf16; WKV 96, 256 and 320, and rwkv6-7b with bf16
+               inputs; the WKV scan's 3xTF32 HMMA counted in its
+               SASS), timed beside
                scaled_dot_product_attention; then `ops.attention` and
                `ops.wkv` for OPS_LAYERS calls each with exact launch
                counts, and off the kernel route (switch off, S % 128,
@@ -768,42 +775,73 @@ def kernel_phase(torch, results: dict) -> None:
                 del operands
 
     # -- circulant_neumann_step, comm-fused (no EF) ----------------------
-    print("kernel circulant_neumann_step_comm (ring, Eq. 14, int8/int4)")
-    for n, d in shapes + [(128, D1)]:
-        s, tabs = ring_case(n)
-        k = len(s.offsets)
+    # both routes at every shape: the decoded stripe
+    # (`circulant_neumann_stripe_comm_kernel`, at the comm-fused gossips'
+    # width `plan_comm_stripe_cols`) and the unstaged kernel, each bitwise
+    # against the plain version and the other; the planner's choice
+    # (`plan_neumann_comm_stripe_cols`) is the route of the main path
+    print("kernel circulant_neumann_step_comm (ring, Eq. 14, int8/int4; "
+          "decoded stripe and unstaged kernel)")
+    sms = mm._card_sms(dev)
+    for n, d, comm in ((N_AGENTS, D2, "int4"), (N_AGENTS, D2, "int8"),
+                       (N_AGENTS, D1, "int4"), (N_AGENTS, D1, "int8"),
+                       (128, D1, "int4"), (128, D1, "int8"),
+                       (N_STRIPE_MAX, D1, "int8")):
+        s_, tabs = ring_case(n)
+        k = len(s_.offsets)
         dsc = 1.5 + 1.5 * torch.rand((n, 1), generator=gen, device=dev)
-        for comm in ("int8", "int4"):
-            bits, _, pool = wire_pool(n, d, comm, extra=2)
-            kw = dict(tabs, beta=beta, comm=comm)
-            ref_kw = dict(w_self=s.w_self, offsets=s.offsets,
-                          weights=s.weights, beta=beta, bits=bits)
+        bits, _, pool = wire_pool(n, d, comm, extra=2)
+        kw = dict(tabs, beta=beta, comm=comm)
+        ref_kw = dict(w_self=s_.w_self, offsets=s_.offsets,
+                      weights=s_.weights, beta=beta, bits=bits)
+        stripe = mm.plan_comm_stripe_cols(n, d, sms)
+        planned = mm.plan_neumann_comm_stripe_cols(n, d, sms)
 
-            def launch(t):
-                return mm.circulant_neumann_step(t[0], t[4], t[5], dsc,
-                                                 *t[1:3], SEED, **kw)
-
-            def plain_fn(t):
-                return ref.neumann_step_fused_ref(t[0], t[4], t[5], dsc,
-                                                  *t[1:3], SEED, **ref_kw)
+        def plain_fn(t):
+            return ref.neumann_step_fused_ref(t[0], t[4], t[5], dsc,
+                                              *t[1:3], SEED, **ref_kw)
+        want = plain_fn(pool[0])
+        # reads h, hvp_h, p, D̃, zp/scale, writes h⁺
+        b_ms, b_by = bound(4 * n * d * 4 + 12 * n + 8 * k,
+                           (2 * (k + 1) + 6 + QUANT_F32_OPS) * n * d,
+                           QUANT_INT_OPS * n * d)
+        big = n == N_STRIPE_MAX
+        plain = cuda_ms(torch, plain_fn, pool, iters=3 if big else 20,
+                        warmup=1)
+        outs = {}
+        for kname, cols, symbol in (
+                ("circulant_neumann_step_comm", stripe,
+                 "circulant_neumann_stripe_comm_kernel"),
+                ("circulant_neumann_step_comm_unstaged", 0,
+                 "circulant_neumann_comm_kernel")):
+            def launch(t, cols=cols):
+                return mm._neumann_comm_launch(t[0], t[4], t[5], dsc,
+                                               *t[1:3], SEED, cols=cols,
+                                               **kw)
             got = launch(pool[0])
-            want = plain_fn(pool[0])
             torch.cuda.synchronize()
-            err = check_fused(f"({n}, {d}) {comm}", got, want, False)
-            ms = cuda_ms(torch, launch, pool)
-            dev_ms = device_ms(torch, launch, pool,
-                               "circulant_neumann_comm_kernel")
-            plain = cuda_ms(torch, plain_fn, pool, iters=20)
-            # reads h, hvp_h, p, D̃, zp/scale, writes h⁺
-            b_ms, b_by = bound(4 * n * d * 4 + 12 * n + 8 * k,
-                               (2 * (k + 1) + 6 + QUANT_F32_OPS) * n * d,
-                               QUANT_INT_OPS * n * d)
+            tag = (f"({n}, {d}) {comm} " + (f"stripe c={cols}" if cols
+                                            else "unstaged"))
+            err = check(tag, got, want, "float32")
+            bitwise(tag, got, want, "the plain version")
+            outs[kname] = got
+            ms = cuda_ms(torch, launch, pool, iters=50 if big else 200)
+            dev_ms = device_ms(torch, launch, pool, symbol,
+                               iters=20 if big else 50)
             print(f"    ms={ms:.5f} device_ms={dev_ms:.5f} "
                   f"plain_ms={plain:.5f} library_ms=n/a "
-                  f"bound_ms={b_ms:.5f} ({b_by})")
-            record("circulant_neumann_step_comm", (n, d, comm, None),
+                  f"bound_ms={b_ms:.5f} ({b_by}); share of the bound "
+                  f"{b_ms / dev_ms:.3f}")
+            record(kname, (n, d, comm, None),
                    dict(err=err, ms=ms, dev=dev_ms, plain=plain, lib=None,
-                        bound=b_ms, by=b_by))
+                        bound=b_ms, by=b_by,
+                        stripe_cols=cols or None))
+        bitwise(f"({n}, {d}) {comm} stripe", outs[
+            "circulant_neumann_step_comm"], outs[
+            "circulant_neumann_step_comm_unstaged"], "the unstaged kernel")
+        print(f"  planner's route at ({n}, {d}): "
+              + (f"stripe c={planned}" if planned else "unstaged"))
+        del pool, want, outs
 
     # -- ring_laplacian_matvec -------------------------------------------
     print("kernel ring_laplacian_matvec ((I−W)·Y on a ring, over the "
@@ -1378,7 +1416,7 @@ def main_path_phase(torch, counts_out: dict) -> None:
          {**zero, "circulant_mix_matvec_comm": gossips}, 865580),
         ("ring int4", ring, "int4",
          {**zero, "circulant_mix_matvec_comm": K * (M + 1),
-          "circulant_neumann_step_comm": K * U}, 432880),
+          neumann_comm_counter(N_AGENTS): K * U}, 432880),
         ("erdos_renyi int8+ef", er, "int8+ef",
          {**zero, "sparse_mix_matvec_comm": gossips}, 865580),
     ]
@@ -1434,6 +1472,11 @@ def main_path_phase(torch, counts_out: dict) -> None:
                 plain = run("cuda")
             compare_runs(torch, "the card's plain versions", res, plain,
                          compressed=True)
+            if comm == "int4":
+                # the kernels equal their plain versions bit for bit, and
+                # nothing else differs between the two runs
+                same_bits(torch, f"{label} vs the card's plain versions",
+                          res, plain)
             compare_with_noise(torch, res, cpu, run("cpu", seed=1),
                                run("cpu", x0=x0 * np.float32(1 + 1e-7)))
         preview = spec.comm_ledger(D1, D2).total_bytes
@@ -1450,6 +1493,27 @@ def main_path_phase(torch, counts_out: dict) -> None:
         elif net is ring:
             ring_route_run(torch, label, run, res, K, by_kernel)
     idle_shares(busy, time_in_turns(torch, timed), K)
+
+
+def neumann_comm_counter(n: int) -> str:
+    """The counter of the comm-fused Neumann step's route at the n-agent
+    solve's (n, d2) operands, by the planner."""
+    from repro_torch.kernels import mixing_matvec as mm
+    return "circulant_neumann_step_comm" if \
+        mm.plan_neumann_comm_stripe_cols(n, D2) \
+        else "circulant_neumann_step_comm_unstaged"
+
+
+def same_bits(torch, what, res, other) -> None:
+    """x, y and every metric of two runs equal bit for bit."""
+    for name in ("x", "y"):
+        diff = int((getattr(res, name) != getattr(other, name)).sum().item())
+        print(f"  {what} {name}: elements differing {diff} (bitwise)")
+        if diff:
+            raise AssertionError(f"{what}: {name} differs")
+    for key, val in res.metrics.items():
+        if not torch.equal(val, other.metrics[key]):
+            raise AssertionError(f"{what}: metric {key} differs")
 
 
 def ring_identity_counts(n: int, rounds: int) -> dict:
@@ -1536,7 +1600,8 @@ def unstaged_run(torch, label, run, res, expected, by_kernel) -> None:
     solve on each route from one profiled run."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels import mixing_matvec as mm
-    fused = ("circulant_mix_matvec_comm", "sparse_mix_matvec_comm")
+    fused = ("circulant_mix_matvec_comm", "sparse_mix_matvec_comm",
+             "circulant_neumann_step_comm")
     moved = {**dict.fromkeys(expected, 0),
              **{name + "_unstaged" if name in fused else name: c
                 for name, c in expected.items() if c}}
@@ -1564,12 +1629,28 @@ def unstaged_run(torch, label, run, res, expected, by_kernel) -> None:
             raise AssertionError(f"{label}: metric {key} differs between "
                                  f"the routes")
     new_us = sum(us for key, us in by_kernel.items()
-                 if "stripe_comm_kernel" in key)
+                 if "stripe_comm_kernel" in key and "neumann" not in key)
     old_us = sum(us for key, us in old_kernels.items()
                  if "comm_unstaged_kernel" in key)
     print(f"  fused full-operand gossips, device time per solve: decoded "
           f"stripe {new_us:.1f} us, unstaged kernels {old_us:.1f} us "
           f"(saved {old_us - new_us:.1f} us)")
+    steps = expected.get("circulant_neumann_step_comm", 0) \
+        + expected.get("circulant_neumann_step_comm_unstaged", 0)
+    if steps:
+        for route, by, counts in (("planner", by_kernel, expected),
+                                  ("unstaged", old_kernels, moved)):
+            parts = []
+            for symbol, counter in (
+                    ("circulant_neumann_stripe_comm_kernel",
+                     "circulant_neumann_step_comm"),
+                    ("circulant_neumann_comm_kernel",
+                     "circulant_neumann_step_comm_unstaged")):
+                us = sum(v for key, v in by.items() if symbol in key)
+                parts.append(f"{counter} x{counts.get(counter, 0)} "
+                             f"{us:.1f} us")
+            print(f"  Neumann steps ({steps} a solve), device time per "
+                  f"solve, {route} route: " + "; ".join(parts))
 
 
 def fig2_network_phase(torch, counts_out: dict) -> None:
@@ -1944,10 +2025,17 @@ ATTN_CASES = {
     "head dim 256 bf16": (1, 2048, 8, 8, 256, True, 0, "bfloat16"),
 }
 WKV_CASE = ("rwkv6-7b train_4k f32", (4, 4096, 64, 64))   # B, T, H, hd
-# the WKV kernel's masked rows (hd 96 in the 128-row template) and its
-# columns split over two blocks (hd 256)
-WKV_HD_CASES = [("head dim 96 f32", (1, 2048, 16, 96)),
-                ("head dim 256 f32", (1, 2048, 8, 256))]
+# rwkv6-7b with bf16 inputs, and head dims off the 64-row tiles (hd 96:
+# a half tile; 320: five tiles, above the old kernel's limit of 256);
+# name: ((B, T, H, hd), input dtype, the replaced kernel's device ms on
+# the H100 at 700 W (PR 16 chip_smoke, PERF.md row 8), or None)
+WKV_CASES = {
+    WKV_CASE[0]: (WKV_CASE[1], "float32", 2.36928),
+    "rwkv6-7b train_4k bf16": (WKV_CASE[1], "bfloat16", None),
+    "head dim 96 f32": ((1, 2048, 16, 96), "float32", 2.73199),
+    "head dim 256 f32": ((1, 2048, 8, 256), "float32", 5.21522),
+    "head dim 320 f32": ((1, 2048, 8, 320), "float32", None),
+}
 OPS_LAYERS = 4           # calls per configuration on the path: 4 layers
 # tensor-core peaks.  f32 attention's least time is taken at the fastest
 # f32-accurate rate: 3xTF32 (three TF32 mma per product, each input split
@@ -2069,7 +2157,8 @@ def ops_kernel_phase(torch, out: dict) -> None:
                                      reset_launch_counts)
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels._cuda_lib import card_sms
+    from repro_torch.kernels.rwkv6_scan import plan_wkv_cols, rwkv6_scan
 
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(SEED)
@@ -2086,10 +2175,10 @@ def ops_kernel_phase(torch, out: dict) -> None:
                 for _ in range(2))
         return q, k, v
 
-    def wkv_inputs(B, T, H, hd):
-        """Drawn as tests/test_kernels.py draws them."""
-        r, k, v = (randn((B, T, H, hd), scale=0.5) for _ in range(3))
-        logw = -torch.exp(randn((B, T, H, hd)).clamp(-8, 2))
+    def wkv_inputs(B, T, H, hd, dtype=torch.float32):
+        """Drawn as tests/test_kernels.py draws them, in dtype (u f32)."""
+        r, k, v = (randn((B, T, H, hd), dtype, scale=0.5) for _ in range(3))
+        logw = (-torch.exp(randn((B, T, H, hd)).clamp(-8, 2))).to(dtype)
         return r, k, v, logw, randn((H, hd), scale=0.5)
 
     rows = out.setdefault("rows", {})
@@ -2152,9 +2241,12 @@ def ops_kernel_phase(torch, out: dict) -> None:
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
-    for name, (B, T, H, hd) in [WKV_CASE] + WKV_HD_CASES:
-        print(f"kernel rwkv6_scan: {name} (B={B}, T={T}, H={H}, hd={hd})")
-        ins = wkv_inputs(B, T, H, hd)
+    for name, ((B, T, H, hd), dt, old_ms) in WKV_CASES.items():
+        dtype = getattr(torch, dt)
+        cols = plan_wkv_cols(B, H, hd, card_sms(dev))
+        print(f"kernel rwkv6_scan: {name} (B={B}, T={T}, H={H}, hd={hd}, "
+              f"{dt} inputs; {cols}-column state tiles)")
+        ins = wkv_inputs(B, T, H, hd, dtype)
         got = rwkv6_scan(*ins)
         want = ref.rwkv6_scan_ref(*ins)
         torch.cuda.synchronize()
@@ -2165,19 +2257,54 @@ def ops_kernel_phase(torch, out: dict) -> None:
                                        "rwkv6_scan_kernel", iters=5)
         plain = cuda_ms(torch, lambda t: ref.rwkv6_scan_ref(*t), [ins],
                         iters=1, warmup=0)
-        # r, k, v, logw read once, u read once, out written once; the
-        # kernel's 5·hd² FLOP per step (out: r·S, 2 hd²; S: w·S + k·v, 3 hd²)
-        nbytes = 5 * B * T * H * hd * 4 + H * hd * 4
+        # r, k, v, logw read once, u read once, out (f32) written once;
+        # 5·hd² FLOP per step: the products r·S and k·v (4 hd²) at the
+        # fastest f32-accurate rate, 3xTF32's (as attention's f32 bound),
+        # the decay w·S (hd²) at the f32 rate
+        item = ins[0].element_size()
+        nbytes = B * T * H * hd * (4 * item + 4) + H * hd * 4
         flops = 5 * B * T * H * hd * hd
-        b_ms, b_by = bound(nbytes, flops)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (0.8 * flops / (TF32_FLOP_PER_S / TF32_SPLIT)
+                 + 0.2 * flops / F32_FLOP_PER_S) * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+        old = (f"; PR 16's kernel {old_ms:.5f} ms (PERF.md row 8)"
+               if old_ms else "")
         print(f"    ms={ms:.5f} device_ms={dev_ms} ({dev_how}) "
               f"plain_ms={plain:.5f} library_ms=n/a (no PyTorch call "
               f"computes the WKV recurrence) bound_ms={b_ms:.5f} ({b_by}: "
-              f"{nbytes} bytes; {flops:.4e} FLOP)")
+              f"{nbytes} bytes; {flops:.4e} FLOP){old}")
+        if (B, T, H, hd) == WKV_CASE[1]:
+            # the staging's copy width: every row 16-byte aligned against
+            # the same operands one element past alignment (4-byte copies
+            # in f32, 2-byte loads in bf16), the same bits, device ms by
+            # CUDA events in turns
+            def shifted(t):
+                buf = torch.empty(t.numel() + 1, dtype=t.dtype,
+                                  device=t.device)
+                buf[1:] = t.flatten()
+                return buf[1:].view(t.shape)
+            off = (*(shifted(a) for a in ins[:4]), ins[4])
+            if not torch.equal(rwkv6_scan(*off), got):
+                raise AssertionError(f"{name}: the views one element past "
+                                     f"alignment give other bits")
+            turns = {"aligned": [], "one element off": []}
+            for _ in range(3):
+                for key, args in (("aligned", ins),
+                                  ("one element off", off)):
+                    turns[key].append(events_ms(torch, rwkv6_scan, args,
+                                                10))
+            print("    staging, device ms by CUDA events (3 turns of 10): "
+                  + "; ".join(f"{key} median {median(v):.5f} all "
+                              + " ".join(f"{x:.5f}" for x in v)
+                              for key, v in turns.items())
+                  + "; bitwise equal")
+            del off
         rows[("rwkv6_scan", name)] = dict(
             err=err, ms=ms, dev=dev_ms, dev_how=dev_how, plain=plain,
-            lib=None, bound=b_ms, by=b_by, shape=[B, T, H, hd],
-            dtype="float32")
+            lib=None, bound=b_ms, by=b_by, shape=[B, T, H, hd], dtype=dt,
+            cols=cols)
         del got, want, ins
 
     # -- the path: kernels.ops.attention and .wkv ------------------------
@@ -2529,6 +2656,13 @@ def main() -> int:
               f"e.g. {first}")
         if not n_hmma:
             raise AssertionError(f"flash_attention has no {itype} HMMA")
+    # the chunked WKV scan's inter product, state update and intra term:
+    # 3xTF32 mma
+    n_hmma, first = tensor_core_instructions(
+        _build.library_path("rwkv6_scan")).get("TF32", (0, ""))
+    print(f"sass rwkv6_scan: {n_hmma} HMMA .TF32 instructions, e.g. {first}")
+    if not n_hmma:
+        raise AssertionError("rwkv6_scan has no TF32 HMMA")
 
     results: dict = {}
     counts: dict = {}
@@ -2568,6 +2702,7 @@ def main() -> int:
     # slabs' entries their narrower routes (and the plain slab the steps
     # of its walk)
     src = "src/repro/kernels/mixing_matvec.py"
+    neumann_on_path = neumann_comm_counter(N_AGENTS)
     pick = {
         "circulant_mix_matvec": ((N_AGENTS, D1, "float32", True), 274),
         "circulant_mix_matvec_unstaged": ((N_AGENTS, D2, "float32", True),
@@ -2585,7 +2720,16 @@ def main() -> int:
         "sparse_mix_matvec_comm": ((N_AGENTS, D1, "int8+ef", True), 551),
         "sparse_mix_matvec_comm_unstaged": ((N_AGENTS, D1, "int8+ef", True),
                                             551),
-        "circulant_neumann_step_comm": ((N_AGENTS, D2, "int4", None), 826),
+        # the comm-fused Neumann step's route on the main path at the n = 16
+        # ring int4 solve's (16, d2), the other at (128, d1) int8
+        "circulant_neumann_step_comm": (
+            (N_AGENTS, D2, "int4", None) if neumann_on_path
+            == "circulant_neumann_step_comm" else (128, D1, "int8", None),
+            826),
+        "circulant_neumann_step_comm_unstaged": (
+            (N_AGENTS, D2, "int4", None) if neumann_on_path
+            == "circulant_neumann_step_comm_unstaged"
+            else (128, D1, "int8", None), 826),
         "ring_laplacian_matvec": ((N_AGENTS, D1, "float32", True), 923),
         "circulant_mix_matvec_halo": ((N_LARGE, D1, "float32", True), 439),
         "circulant_mix_matvec_halo_comm": ((N_LARGE, D1, "int8+ef", True),
@@ -2600,7 +2744,10 @@ def main() -> int:
                 "circulant_mix_matvec_comm_unstaged",
                 "sparse_mix_matvec_comm_unstaged",
                 "sparse_mix_matvec_halo_rows",
-                "sparse_mix_matvec_halo_comm_rows")
+                "sparse_mix_matvec_halo_comm_rows",
+                {"circulant_neumann_step_comm":
+                 "circulant_neumann_step_comm_unstaged"}.get(
+                     neumann_on_path, "circulant_neumann_step_comm"))
     kernels = []
     for name, (key, line) in pick.items():
         row = results[name][key]

@@ -7,6 +7,7 @@ Nothing loads or builds at import: the first `launch` builds the library
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -15,6 +16,13 @@ from . import _build
 P, I, F, LL, U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong, ctypes.c_uint32
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+CARD_SMS = 132          # the H100's SMs, which the planners' rules fill
+
+
+@functools.lru_cache(maxsize=None)
+def card_sms(dev: torch.device) -> int:
+    """The SMs of the card `dev` (read once per device)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 class CudaLibrary:

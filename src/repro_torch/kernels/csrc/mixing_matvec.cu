@@ -11,7 +11,8 @@
 // quantized payload instead of Y (compressed gossip, comm="int8|int4[+ef]"):
 //
 //   circulant_mix_comm, sparse_mix_comm   (+ EF: also write the payload)
-//   circulant_neumann_comm                (no EF)
+//   circulant_neumann_comm                (no EF; on the decoded stripe
+//                                          where the planner gives one)
 //
 // Plain C entry points (bottom of the file), loaded with ctypes by
 // repro_torch/kernels/mixing_matvec.py.  Each launches on the caller's
@@ -1712,8 +1713,10 @@ struct OffsetSlots {
 // the plain stripe does, RB / 16 lanes a row, each lane 4 columns: w_self*y_i
 // with y_i exact from device memory (L2: the block staged those bytes), then
 // the row's k slots in order, four at a time, each neighbor's vector one
-// 16-byte shared-memory read of the decoded stripe, then y_i - acc for the
-// Laplacian; the row leaves in sw-byte stores, masked past d.  The terms are
+// 16-byte shared-memory read of the decoded stripe, then the epilogue
+// (StripeMix: y_i - acc for the Laplacian; StripeNeumann: the Neumann
+// update of circulant_neumann_stripe_comm_kernel below); the row leaves in
+// sw-byte stores, masked past d.  The terms are
 // the plain version's in its order, so output and payload are bitwise
 // sparse_mix_fused_ref's and circulant_mix_fused_ref's, and the unstaged
 // kernels'.  The block's threads are sized for the decode pass
@@ -1722,11 +1725,53 @@ struct OffsetSlots {
 // with fewer warps (the fused circulant halo's finding).
 constexpr int kStripeCommMaxThreads = 1024;
 
-template <int RB, typename Slots>
+// The mixes' epilogue: y_i - acc for the Laplacian.
+struct StripeMix {
+  int laplacian;
+  struct Ahead {};
+  __device__ __forceinline__ void load(int, int, int, Ahead&) const {}
+  __device__ __forceinline__ void finish(float* acc, const float* yi,
+                                         const Ahead&) const {
+    if (laplacian) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[v] = __fsub_rn(yi[v], acc[v]);
+    }
+  }
+};
+
+// The DIHGP Neumann step's epilogue: `neumann_update` on the exact h_i,
+// with the row's hvp_h and p vectors (ew-byte loads) and D~[i] read one
+// row ahead of their use, as y_i is.
+struct StripeNeumann {
+  const float* __restrict__ hvp;
+  const float* __restrict__ p;
+  const float* __restrict__ dsc;
+  float beta;
+  int n, d, ew;
+  struct Ahead {
+    float hv[4], pv[4], di;
+  };
+  __device__ __forceinline__ void load(int i, int j0, int, Ahead& a) const {
+    if (i < n && j0 < d) {
+      ldg_f32x4(hvp + (size_t)i * d + j0, ew, d - j0, a.hv);
+      ldg_f32x4(p + (size_t)i * d + j0, ew, d - j0, a.pv);
+      a.di = __ldg(dsc + i);
+    }
+  }
+  __device__ __forceinline__ void finish(float* acc, const float* hi,
+                                         const Ahead& a) const {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      acc[v] = neumann_update(hi[v], acc[v], a.hv[v], a.pv[v], a.di, beta);
+    }
+  }
+};
+
+template <int RB, typename Slots, typename Epi>
 __device__ __forceinline__ void stripe_comm_body(
     const float* __restrict__ y, float* __restrict__ out,
     float* __restrict__ pay, int n, int d, const Slots& sl, const Wire& w,
-    int laplacian, int cw, int hw, int sw) {
+    const Epi& ep, int cw, int hw, int sw) {
   constexpr int BC = RB / 4;    // stripe columns
   constexpr int LPR = RB / 16;  // lanes (4-column vectors) per row
   constexpr int RPW = 32 / LPR;  // rows per warp and pass
@@ -1754,6 +1799,7 @@ __device__ __forceinline__ void stripe_comm_body(
     if (i < n && j0 < d) ldg_f32x4(y + (size_t)i * d + j0, cw, d - j0, v);
   };
   float hn[4] = {0.f, 0.f, 0.f, 0.f}, yn[4] = {0.f, 0.f, 0.f, 0.f};
+  typename Epi::Ahead en{};
   // (1) stage the (n, BC) stripe of y
   if (cw == 16) {
     stage_slab<float, RB, 16>(stripe, y, n, d, c0, nt);
@@ -1764,6 +1810,7 @@ __device__ __forceinline__ void stripe_comm_body(
   }
   load_hat(threadIdx.x, hn);
   load_y(i0, yn);
+  ep.load(i0, j0, d, en);
   cp_async_wait_all();
   __syncthreads();
   // (2) decode it in place, one hash per element; under EF the payload
@@ -1797,7 +1844,9 @@ __device__ __forceinline__ void stripe_comm_body(
     float yi[4], acc[4];
 #pragma unroll
     for (int v = 0; v < 4; ++v) yi[v] = yn[v];
+    const typename Epi::Ahead ea = en;
     load_y(i + step, yn);
+    ep.load(i + step, j0, d, en);
     const float ws = sl.self(i);
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[v] = __fmul_rn(ws, yi[v]);
@@ -1824,10 +1873,7 @@ __device__ __forceinline__ void stripe_comm_body(
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[v] = term(acc[v], wq, x[v]);
     }
-    if (laplacian) {
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[v] = __fsub_rn(yi[v], acc[v]);
-    }
+    ep.finish(acc, yi, ea);
     stg_f32x4(out + at, sw, acc, d - j0);
   }
 }
@@ -1845,8 +1891,8 @@ __global__ void __launch_bounds__(kStripeCommMaxThreads)
   const bool vec = k % 4 == 0 && ((size_t)nbr & 15) == 0 &&
                    ((size_t)wts & 15) == 0;
   stripe_comm_body<RB>(y, out, pay, n, d,
-                       TableSlots{w_self, nbr, wts, k, vec}, w, laplacian,
-                       cw, hw, sw);
+                       TableSlots{w_self, nbr, wts, k, vec}, w,
+                       StripeMix{laplacian}, cw, hw, sw);
 }
 
 template <int RB>
@@ -1856,8 +1902,39 @@ __global__ void __launch_bounds__(kStripeCommMaxThreads)
                                      float* __restrict__ pay, int n, int d,
                                      Circ c, Wire w, int laplacian, int cw,
                                      int hw, int sw) {
-  stripe_comm_body<RB>(y, out, pay, n, d, OffsetSlots{c, n}, w, laplacian,
-                       cw, hw, sw);
+  stripe_comm_body<RB>(y, out, pay, n, d, OffsetSlots{c, n}, w,
+                       StripeMix{laplacian}, cw, hw, sw);
+}
+
+// Replaces repro/kernels/mixing_matvec.py:circulant_neumann_step with comm=
+// (_neumann_fused_body: the resident (n, bd) stripe of h quantized once,
+// the neighbor rows of W.h mixed from it; no EF, as repro) wherever
+// plan_neumann_comm_stripe_cols in mixing_matvec.py gives a stripe;
+// circulant_neumann_comm_kernel above takes the rest.
+// Bound: bytes, one read of h, hvp_h and p and one write of h+: 0.096 ms
+// at (128, 157000) at 3.35 TB/s; besides, one hash per element and the
+// quantizer's ~10 f32 operations, the mix's k shared-memory reads and the
+// update's 6 operations per element.
+// Design: circulant_mix_stripe_comm_kernel's decoded stripe
+// (stripe_comm_body: h's (n, bc) stripe staged and decoded in place, one
+// hash per element, where circulant_neumann_comm_kernel decodes each
+// neighbor value where it is gathered, k hashes per element), with the
+// Neumann epilogue in place of the Laplacian: w_self*h_i with the exact
+// h_i from device memory, the k decoded neighbors in offset order
+// (`term`), then `neumann_update(h_i, mix, hvp, p, D~_i, beta)`, whose
+// hvp_h and p vectors and D~_i are read one row ahead of their use, as
+// h_i is.  The order of terms is the plain version's, so the output is
+// bitwise neumann_step_fused_ref's and circulant_neumann_comm_kernel's.
+template <int RB>
+__global__ void __launch_bounds__(kStripeCommMaxThreads)
+    circulant_neumann_stripe_comm_kernel(
+        const float* __restrict__ h, const float* __restrict__ hvp,
+        const float* __restrict__ p, const float* __restrict__ dsc,
+        float* __restrict__ out, int n, int d, Circ c, Wire w, float beta,
+        int ew, int cw, int hw, int sw) {
+  stripe_comm_body<RB>(h, out, nullptr, n, d, OffsetSlots{c, n}, w,
+                       StripeNeumann{hvp, p, dsc, beta, n, d, ew}, cw, hw,
+                       sw);
 }
 
 // Dynamic shared memory of a halo launch: `buffers` tiles of `rows`
@@ -2159,6 +2236,9 @@ extern "C" int sparse_mix_comm(const float* y, float* out, float* pay,
   }
 }
 
+// stripe_cols, smem_bytes: the decoded stripe's width bc and n * bc * 4
+// bytes (circulant_neumann_stripe_comm_kernel), or 0 and 0 for the
+// unstaged kernel (circulant_neumann_comm_kernel).
 extern "C" int circulant_neumann_comm(const float* h, const float* hvp,
                                       const float* p, const float* dsc,
                                       float* out, const float* zp,
@@ -2167,13 +2247,32 @@ extern "C" int circulant_neumann_comm(const float* h, const float* hvp,
                                       float w_self, int k,
                                       const int* offsets,
                                       const float* weights, float beta,
+                                      int stripe_cols, int smem_bytes,
                                       void* stream) {
   const Circ c{w_self, k, offsets, weights};
-  circulant_neumann_comm_kernel<<<grid_for(n, d), kThreads, 0,
-                                  (cudaStream_t)stream>>>(
-      h, hvp, p, dsc, out, n, d, c,
-      make_wire(zp, scale, nullptr, seed, levels), beta);
-  return (int)cudaGetLastError();
+  const Wire w = make_wire(zp, scale, nullptr, seed, levels);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (stripe_cols == 0) {
+    if (smem_bytes != 0) return (int)cudaErrorInvalidValue;
+    circulant_neumann_comm_kernel<<<grid_for(n, d), kThreads, 0, s>>>(
+        h, hvp, p, dsc, out, n, d, c, w, beta);
+    return (int)cudaGetLastError();
+  }
+  const int ew = vec_bytes(hvp, p, d, 4, 16);
+  const auto go = [&](auto kernel) {
+    return launch_stripe_comm(kernel, h, out, nullptr, nullptr, d,
+                              stripe_cols, smem_bytes, s, h, hvp, p, dsc,
+                              out, n, d, c, w, beta, ew);
+  };
+  switch (stripe_comm_row_bytes(n, stripe_cols, smem_bytes)) {
+    case 512: return go(circulant_neumann_stripe_comm_kernel<512>);
+    case 256: return go(circulant_neumann_stripe_comm_kernel<256>);
+    case 128: return go(circulant_neumann_stripe_comm_kernel<128>);
+    case 64: return go(circulant_neumann_stripe_comm_kernel<64>);
+    case 32: return go(circulant_neumann_stripe_comm_kernel<32>);
+    case 16: return go(circulant_neumann_stripe_comm_kernel<16>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Halo entry points.  soff: (k,) int32 signed offsets, each in

@@ -46,7 +46,10 @@ gossips' unstaged kernels
 (`sparse_mix_matvec_unstaged`, `sparse_mix_matvec_comm_unstaged`,
 `circulant_mix_matvec_comm_unstaged`, n > 14,528) apart from their
 column stripes (`sparse_mix_matvec`, `sparse_mix_matvec_comm`,
-`circulant_mix_matvec_comm`), and the sparse halo gathers' row-tiled kernels
+`circulant_mix_matvec_comm`), the comm-fused Neumann step's unstaged
+kernel (`circulant_neumann_step_comm_unstaged`) apart from its decoded
+stripe (`circulant_neumann_step_comm`), and the sparse halo gathers'
+row-tiled kernels
 (`sparse_mix_matvec_halo_rows`, `sparse_mix_matvec_halo_comm_rows`) apart
 from their column slabs (`sparse_mix_matvec_halo`,
 `sparse_mix_matvec_halo_comm`).  `reset_launch_counts` zeroes them all.  Every
@@ -124,7 +127,11 @@ writing the EF payload from that pass, then gather every neighbor's
 decoded row from there (`plan_comm_stripe_cols`: the plain f32 widths,
 narrowed where an operand as narrow as d2 = 2,010 would leave SMs
 idle).  Above n = 14,528 their unstaged kernels decode each neighbor
-value where it is gathered, k hashes per element.
+value where it is gathered, k hashes per element.  The comm-fused
+Neumann step decodes h's stripe the same way, with the Neumann update
+as its epilogue, wherever `plan_neumann_comm_stripe_cols` gives a
+stripe; its unstaged kernel keeps the operands with fewer 128-column
+tiles than SMs (the n = 16 path's d2).
 """
 from __future__ import annotations
 
@@ -134,12 +141,14 @@ import functools
 import numpy as np
 import torch
 
+from ._cuda_lib import CARD_SMS
 from ._cuda_lib import DTYPE_CODE as _DTYPE_CODE
 from ._cuda_lib import CudaLibrary
 from ._cuda_lib import F as _F
 from ._cuda_lib import I as _I
 from ._cuda_lib import P as _P
 from ._cuda_lib import U32 as _U
+from ._cuda_lib import card_sms as _card_sms
 from .ref import (check_halo_tile, circulant_mix_fused_ref,
                   circulant_mix_halo_ref, circulant_mix_ref, halo_extents,
                   neumann_step_fused_ref, neumann_step_ref,
@@ -168,8 +177,9 @@ _LIB = CudaLibrary("mixing_matvec", {
                            _I, _I, _I),
     "sparse_mix_comm": (_P, _P, _P, _P, *_WIRE, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I),
+    # ..., beta, stripe columns (0: the unstaged kernel), smem bytes
     "circulant_neumann_comm": (_P, _P, _P, _P, _P, *_WIRE, _I, _I, _F, _I,
-                               _P, _P, _F),
+                               _P, _P, _F, _I, _I),
     # ..., bn, h_lo, h_hi, stages, smem bytes
     "circulant_mix_halo": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _I, _I,
                            _I, _I, _I),
@@ -192,7 +202,8 @@ _LAUNCHES = dict.fromkeys((
     "circulant_neumann_step", "circulant_neumann_step_unstaged",
     "circulant_mix_matvec_comm", "circulant_mix_matvec_comm_unstaged",
     "sparse_mix_matvec_comm", "sparse_mix_matvec_comm_unstaged",
-    "circulant_neumann_step_comm", "ring_laplacian_matvec",
+    "circulant_neumann_step_comm", "circulant_neumann_step_comm_unstaged",
+    "ring_laplacian_matvec",
     "circulant_mix_matvec_halo", "circulant_mix_matvec_halo_comm",
     "sparse_mix_matvec_halo", "sparse_mix_matvec_halo_rows",
     "sparse_mix_matvec_halo_comm", "sparse_mix_matvec_halo_comm_rows"), 0)
@@ -545,61 +556,89 @@ def circulant_neumann_step(h: torch.Tensor, hvp_h: torch.Tensor,
 
     ``comm="int8" | "int4"`` with zp, scale and seed quantizes the W·h
     gossip in the same pass; error feedback is refused, as `repro`
-    refuses it (no payload write-back)."""
-    fused = parse_kernel_comm(comm)
+    refuses it (no payload write-back).  The fused step decodes h's
+    (n, bc) column stripe once per block wherever
+    `plan_neumann_comm_stripe_cols` gives one, counted as
+    `circulant_neumann_step_comm`, else runs its unstaged kernel,
+    counted as `circulant_neumann_step_comm_unstaged`; both equal the
+    plain version bit for bit."""
+    if parse_kernel_comm(comm) is not None:
+        if ring is not None:
+            raise ValueError("ring= sizes the plain Neumann step's tile; "
+                             "the comm-fused step has none")
+        return _neumann_comm_launch(h, hvp_h, p, d_scalar, zp, scale, seed,
+                                    w_self=w_self, offsets=offsets,
+                                    weights=weights, beta=beta, comm=comm)
     _check_state("h", h)
     _check_state("hvp_h", hvp_h, h.shape, like=h)
     _check_state("p", p, h.shape, like=h)
     n, d = h.shape
     _check_table("d_scalar", d_scalar, (n, 1), torch.float32, h.device)
-    if fused is None:
-        offs, ws = _circulant_host(n, offsets, weights, h.device)
-        item = h.element_size()
-        h_lo, h_hi = halo_extents(offs, n)
-        plan = neumann_ring_plan(n, h_lo, h_hi, itemsize=item, d=d) \
-            if ring is None else ring
-        if plan is not None:
-            bn, stages = plan
-            check_halo_tile(n, bn, h_lo, h_hi)
-            smem = stages * neumann_stage_bytes(bn, h_lo, h_hi,
-                                                itemsize=item)
-            if not 1 <= stages <= HALO_STAGES \
-                    or smem > SMEM_BUDGET_BYTES:
-                raise ValueError(
-                    f"ring={plan}: {stages} stages of "
-                    f"{neumann_stage_bytes(bn, h_lo, h_hi, itemsize=item)}"
-                    f" B; the kernel takes 1 to {HALO_STAGES} "
-                    f"within {SMEM_BUDGET_BYTES} B")
-        if h.device.type == "cpu":
-            return neumann_step_ref(h.float(), hvp_h.float(), p.float(),
-                                    d_scalar, w_self=float(w_self),
-                                    offsets=offs, weights=ws,
-                                    beta=float(beta)).to(h.dtype)
-        out = torch.empty_like(h)
-        operands = (h.data_ptr(), hvp_h.data_ptr(), p.data_ptr(),
-                    d_scalar.data_ptr(), out.data_ptr(), n, d,
-                    _DTYPE_CODE[h.dtype], float(w_self))
-        if plan is not None:
-            soff, w = _signed_tables(n, offs, ws, h.device)
-            _launch("circulant_neumann_ring", "circulant_neumann_step",
-                    h.device, *operands, len(offs), soff.data_ptr(),
-                    w.data_ptr(), float(beta), bn, h_lo, h_hi, stages,
-                    smem)
-            return out
-        k, off, w = _circulant_device(n, offsets, weights, h.device)
-        _launch("circulant_neumann", "circulant_neumann_step_unstaged",
-                h.device, *operands, k, off.data_ptr(), w.data_ptr(),
-                float(beta))
+    offs, ws = _circulant_host(n, offsets, weights, h.device)
+    item = h.element_size()
+    h_lo, h_hi = halo_extents(offs, n)
+    plan = neumann_ring_plan(n, h_lo, h_hi, itemsize=item, d=d) \
+        if ring is None else ring
+    if plan is not None:
+        bn, stages = plan
+        check_halo_tile(n, bn, h_lo, h_hi)
+        smem = stages * neumann_stage_bytes(bn, h_lo, h_hi,
+                                            itemsize=item)
+        if not 1 <= stages <= HALO_STAGES \
+                or smem > SMEM_BUDGET_BYTES:
+            raise ValueError(
+                f"ring={plan}: {stages} stages of "
+                f"{neumann_stage_bytes(bn, h_lo, h_hi, itemsize=item)}"
+                f" B; the kernel takes 1 to {HALO_STAGES} "
+                f"within {SMEM_BUDGET_BYTES} B")
+    if h.device.type == "cpu":
+        return neumann_step_ref(h.float(), hvp_h.float(), p.float(),
+                                d_scalar, w_self=float(w_self),
+                                offsets=offs, weights=ws,
+                                beta=float(beta)).to(h.dtype)
+    out = torch.empty_like(h)
+    operands = (h.data_ptr(), hvp_h.data_ptr(), p.data_ptr(),
+                d_scalar.data_ptr(), out.data_ptr(), n, d,
+                _DTYPE_CODE[h.dtype], float(w_self))
+    if plan is not None:
+        soff, w = _signed_tables(n, offs, ws, h.device)
+        _launch("circulant_neumann_ring", "circulant_neumann_step",
+                h.device, *operands, len(offs), soff.data_ptr(),
+                w.data_ptr(), float(beta), bn, h_lo, h_hi, stages,
+                smem)
         return out
-    bits, ef = fused
+    k, off, w = _circulant_device(n, offsets, weights, h.device)
+    _launch("circulant_neumann", "circulant_neumann_step_unstaged",
+            h.device, *operands, k, off.data_ptr(), w.data_ptr(),
+            float(beta))
+    return out
+
+
+def _neumann_comm_launch(h, hvp_h, p, d_scalar, zp, scale, seed, *,
+                         w_self, offsets, weights, beta, comm,
+                         cols: int | None = None) -> torch.Tensor:
+    """`circulant_neumann_step` with comm=: the decoded stripe at
+    `plan_neumann_comm_stripe_cols`' width, or, given cols, at that
+    width, or the unstaged kernel at cols=0 (sweeps and tests), held to
+    the same checks."""
+    bits, ef = parse_kernel_comm(comm)
+    _check_state("h", h)
+    _check_state("hvp_h", hvp_h, h.shape, like=h)
+    _check_state("p", p, h.shape, like=h)
+    n, d = h.shape
+    _check_table("d_scalar", d_scalar, (n, 1), torch.float32, h.device)
     if ef:
         raise ValueError("the fused Neumann kernel does not lower '+ef' "
                          "comm (no payload write-back); compose it from "
                          "mix_c and the Neumann update instead")
-    if ring is not None:
-        raise ValueError("ring= sizes the plain Neumann step's tile; the "
-                         "comm-fused step has none")
     _check_wire(h, zp, scale, seed, None, False)
+    if cols is not None and cols != 0 and (
+            cols not in stripe_cols_for(4)
+            or stripe_bytes(n, cols) > SMEM_BUDGET_BYTES):
+        raise ValueError(f"cols={cols}: the decoded stripe takes one of "
+                         f"{stripe_cols_for(4)} columns within "
+                         f"{SMEM_BUDGET_BYTES} B (n = {n}), or 0 for the "
+                         f"unstaged kernel")
     if h.device.type == "cpu":
         offs, ws = _circulant_host(n, offsets, weights, h.device)
         return neumann_step_fused_ref(h, hvp_h, p, d_scalar, zp, scale,
@@ -608,11 +647,17 @@ def circulant_neumann_step(h: torch.Tensor, hvp_h: torch.Tensor,
                                       beta=float(beta), bits=bits)
     k, off, w = _circulant_device(n, offsets, weights, h.device)
     out = torch.empty_like(h)
-    _launch("circulant_neumann_comm", "circulant_neumann_step_comm",
+    if cols is None:
+        cols = plan_neumann_comm_stripe_cols(n, d, _card_sms(h.device)) or 0
+    smem = stripe_bytes(n, cols) if cols else 0
+    assert smem <= SMEM_BUDGET_BYTES
+    _launch("circulant_neumann_comm", "circulant_neumann_step_comm"
+            if cols else "circulant_neumann_step_comm_unstaged",
             h.device, h.data_ptr(), hvp_h.data_ptr(), p.data_ptr(),
             d_scalar.data_ptr(), out.data_ptr(), zp.data_ptr(),
             scale.data_ptr(), seed & 0xFFFFFFFF, float(2 ** bits - 1), n, d,
-            float(w_self), k, off.data_ptr(), w.data_ptr(), float(beta))
+            float(w_self), k, off.data_ptr(), w.data_ptr(), float(beta),
+            cols, smem)
     return out
 
 
@@ -660,7 +705,6 @@ def halo_smem_bytes(rows: int, *, itemsize: int = 4,
 
 
 HALO_STAGES = 3
-CARD_SMS = 132          # the H100's SMs, which the planners' rules fill
 
 
 def halo_stages(rows: int, *, itemsize: int = 4) -> int:
@@ -932,9 +976,37 @@ def plan_comm_stripe_cols(n: int, d: int | None = None,
     return cols
 
 
-@functools.lru_cache(maxsize=None)
-def _card_sms(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+# The comm-fused Neumann step's decoded stripe
+# (`circulant_neumann_stripe_comm_kernel`): the comm-fused gossips' stripe
+# with the Neumann update as its epilogue.  Where the operand has fewer
+# 128-column tiles than the card has SMs (the n = 16 path's d2 = 2,010
+# operands, its only width on the main path) the unstaged kernel keeps
+# the launch, as the circulant ring's rule does (`_fills_card`): there a
+# staged design's chain of copy, wait and mix loses to the unstaged
+# kernel's one round of independent loads.  chip_smoke.py's kernel phase
+# (H100 80GB HBM3, 700 W; device ms from torch.profiler, both routes in
+# one run, bitwise the plain version and each other), stripe against
+# unstaged:
+#
+#   (16, 2010) int4: 0.00284 (8 columns) against 0.00229;
+#   (16, 2010) int8: 0.00284 against 0.00231;
+#   (16, 157000) int4: 0.01895 (128 columns) against 0.03096;
+#   (16, 157000) int8: 0.01908 against 0.03106;
+#   (128, 157000) int4: 0.13945 against 0.22768;
+#   (128, 157000) int8: 0.13964 against 0.22919;
+#   (454, 157000) int8: 0.66666 against 0.78897.
+
+
+def plan_neumann_comm_stripe_cols(n: int, d: int | None = None,
+                                  sms: int = CARD_SMS) -> int | None:
+    """The decoded stripe's width bc for the comm-fused Neumann step at
+    n agents: `plan_comm_stripe_cols(n, d, sms)` (128 at (128, 157000) and
+    (454, 157000)), or None, for the unstaged kernel, where that gives
+    none (n > 14,528) or, given d, where the operand has fewer 128-column
+    tiles than the card's `sms` SMs (d ≤ 16,768 on the H100)."""
+    if not _fills_card(n, n, d, sms):
+        return None
+    return plan_comm_stripe_cols(n, d, sms)
 
 
 def _comm_stripe(y: torch.Tensor) -> tuple[int, int]:

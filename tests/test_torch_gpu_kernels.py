@@ -281,6 +281,14 @@ def _wire(y, comm, dev, seed=5):
     return bits, ef, zp, sc, hat
 
 
+def _neumann_comm_route(n, d, dev):
+    """The counter of the comm-fused Neumann step's route by the planner:
+    the decoded stripe or the unstaged kernel."""
+    return "circulant_neumann_step_comm" if \
+        mm.plan_neumann_comm_stripe_cols(n, d, mm._card_sms(dev)) \
+        else "circulant_neumann_step_comm_unstaged"
+
+
 def _close_fused(got, want, ef):
     if ef:
         assert torch.equal(got[1], want[1])
@@ -340,11 +348,12 @@ def test_circulant_neumann_comm_kernel(cuda, shape, comm):
     dsc = torch.as_tensor(np.random.default_rng(3).uniform(
         1.5, 3.0, (n, 1)), dtype=torch.float32).to(cuda)
     bits, _, zp, sc, _ = _wire(h, comm, cuda)
-    before = mm.launch_counts()["circulant_neumann_step_comm"]
+    route = _neumann_comm_route(n, shape[1], cuda)
+    before = mm.launch_counts()[route]
     got = mm.circulant_neumann_step(h, hvp, p, dsc, zp, sc, 7, beta=0.1,
                                     comm=comm, **_tables(s, cuda))
     torch.cuda.synchronize()
-    assert mm.launch_counts()["circulant_neumann_step_comm"] == before + 1
+    assert mm.launch_counts()[route] == before + 1
     want = ref.neumann_step_fused_ref(h, hvp, p, dsc, zp, sc, 7,
                                       w_self=s.w_self, offsets=s.offsets,
                                       weights=s.weights, beta=0.1,
@@ -572,12 +581,13 @@ TIER_CASES = [
                                "circulant_neumann_step_unstaged": 1}),
     ("erdos_renyi", 16, "identity", {"sparse_mix_matvec": 3}),
     ("erdos_renyi", 1024, "identity", {"sparse_mix_matvec_halo": 3}),
+    # (the comm-fused Neumann step's 3 column tiles: its unstaged kernel)
     ("ring", 16, "int8", {"circulant_mix_matvec_comm": 2,
-                          "circulant_neumann_step_comm": 1}),
+                          "circulant_neumann_step_comm_unstaged": 1}),
     ("ring", 1024, "int8", {"circulant_mix_matvec_halo_comm": 3}),
     ("ring", 1024, "int8+ef", {"circulant_mix_matvec_halo_comm": 3}),
     ("far", 1024, "int8", {"circulant_mix_matvec_comm": 2,
-                           "circulant_neumann_step_comm": 1}),
+                           "circulant_neumann_step_comm_unstaged": 1}),
     ("erdos_renyi", 16, "int8+ef", {"sparse_mix_matvec_comm": 3}),
     ("erdos_renyi", 1024, "int8", {"sparse_mix_matvec_halo_comm": 3}),
     ("erdos_renyi", 1024, "int8+ef", {"sparse_mix_matvec_halo": 3}),
@@ -1068,6 +1078,151 @@ def test_comm_stripe_row_counts_bitwise(cuda, n, d, comm, kind):
     torch.cuda.synchronize()
     for g, w in (zip(got, want) if ef else [(got, want)]):
         _bits_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# The comm-fused Neumann step on the decoded stripe
+# (`circulant_neumann_stripe_comm_kernel`) and its unstaged kernel: every
+# width through `_neumann_comm_launch`'s `cols=` and through the
+# planner's budget, the planner's route, bitwise against the plain version and against each other.
+# ---------------------------------------------------------------------------
+
+def _neumann_comm_case(n, d, comm, dev, offsets=(1, 2), offset=False):
+    """(launch(cols), plain version, h) of one comm-fused Neumann step on
+    a circulant of the given offsets (the ring below n = 5); tiny rows,
+    NaN, ±inf and −0 in h; D̃ in [1.5, 3]."""
+    h = _randn((n, d), torch.float32, "cpu", seed=d)
+    if d >= 4:
+        _tiny_and_special_rows(h)
+    else:
+        h[1 % n], h[3 % n] = 3e-40, float("nan")
+    h = h.to(dev)
+    hvp, p = (_randn((n, d), torch.float32, dev, seed=d + i)
+              for i in (1, 2))
+    dsc = torch.as_tensor(np.random.default_rng(n).uniform(
+        1.5, 3.0, (n, 1)), dtype=torch.float32).to(dev)
+    bits, _, zp, sc, _ = _wire(h, comm, dev)
+    if offset:
+        h, hvp, p = (_offset_by_4_bytes(t) for t in (h, hvp, p))
+    s = circulant_structure(
+        make_network("circulant", n, offsets=offsets).W if n >= 5
+        else make_network("ring", n).W)
+    want = ref.neumann_step_fused_ref(h, hvp, p, dsc, zp, sc, 17,
+                                      w_self=s.w_self, offsets=s.offsets,
+                                      weights=s.weights, beta=0.1,
+                                      bits=bits)
+
+    def launch(cols=None):
+        if cols is None:
+            return mm.circulant_neumann_step(h, hvp, p, dsc, zp, sc, 17,
+                                             beta=0.1, comm=comm,
+                                             **_tables(s, dev))
+        return mm._neumann_comm_launch(h, hvp, p, dsc, zp, sc, 17, beta=0.1,
+                                       comm=comm, cols=cols,
+                                       **_tables(s, dev))
+    return launch, want, h
+
+
+@pytest.mark.parametrize("d", [1, 129, 2010, 157000, "2012, 4 bytes off"])
+@pytest.mark.parametrize("comm", ["int8", "int4"])
+def test_neumann_comm_every_route_bitwise(cuda, d, comm):
+    """At n = 16: the planner's route, every stripe width through cols=
+    and through a budget of exactly its stripe, and the unstaged kernel
+    (cols=0, and one byte under the narrowest stripe); each launch counted
+    under its route's name and bitwise the plain version.  "2012, 4
+    bytes off" holds h, hvp_h and p 4 bytes past alignment (4-byte
+    copies and loads)."""
+    n, offset = 16, isinstance(d, str)
+    d = 2012 if offset else d
+    launch, want, h = _neumann_comm_case(n, d, comm, cuda, offset=offset)
+    widths = mm.stripe_cols_for(4)
+    runs = [({}, _neumann_comm_route(n, d, cuda))]
+    runs += [(dict(cols=c), "circulant_neumann_step_comm") for c in widths]
+    runs += [(dict(cols=0), "circulant_neumann_step_comm_unstaged")]
+    runs += [(dict(budget=mm.stripe_bytes(n, c)),
+              "circulant_neumann_step_comm"
+              if mm.plan_neumann_comm_stripe_cols(n, d, mm._card_sms(cuda))
+              else "circulant_neumann_step_comm_unstaged") for c in widths]
+    runs += [(dict(budget=mm.stripe_bytes(n, widths[-1]) - 1),
+              "circulant_neumann_step_comm_unstaged")]
+    for kw, name in runs:
+        mm.reset_launch_counts()
+        if "budget" in kw:
+            with mm.smem_budget(kw["budget"]):
+                got = launch()
+        else:
+            got = launch(**kw)
+        torch.cuda.synchronize()
+        counts = mm.launch_counts()
+        assert counts == {**dict.fromkeys(counts, 0), name: 1}, kw
+        _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("n,d", [(3, 1), (7, 129), (100, 1001),
+                                 (128, 2010), (454, 600), (455, 600),
+                                 (4121, 129), (128, 157000)])
+@pytest.mark.parametrize("comm", ["int8", "int4"])
+def test_neumann_comm_stripe_row_counts_bitwise(cuda, n, d, comm):
+    """Row counts that leave warps partly idle, n = 454 (the widest
+    stripe at its largest n, one block per SM), 455 (64 columns), 4121
+    (8 columns) and (128, d1), the stripe's shape on a wide operand: the
+    stripe at the comm-fused gossips' width and the unstaged kernel,
+    bitwise the plain version and each other."""
+    launch, want, _ = _neumann_comm_case(n, d, comm, cuda)
+    stripe = launch(cols=mm.plan_comm_stripe_cols(n, d, mm._card_sms(cuda)))
+    unstaged = launch(cols=0)
+    torch.cuda.synchronize()
+    _bits_equal(stripe, want)
+    _bits_equal(unstaged, want)
+    _bits_equal(stripe, unstaged)
+
+
+@pytest.mark.parametrize("comm", ["int8", "int4"])
+def test_neumann_comm_stripe_many_offsets_bitwise(cuda, comm):
+    """A circulant of 18 offsets (k = 18 neighbor terms, some repeated
+    mod n) at n = 16 on every stripe width."""
+    offsets = tuple(1 + t % 15 for t in range(18))
+    launch, want, _ = _neumann_comm_case(16, 2010, comm, cuda,
+                                         offsets=offsets)
+    for cols in (0, *mm.stripe_cols_for(4)):
+        got = launch(cols=cols)
+        torch.cuda.synchronize()
+        _bits_equal(got, want)
+
+
+def test_neumann_comm_entry_refuses_what_it_does_not_take(cuda):
+    """The stripe entry point refuses a shared-memory size that is not
+    its width's stripe and a width it does not take, and a stripe over
+    what a block may use (planned under a raised budget) fails the launch:
+    no retry on the unstaged kernel."""
+    from repro_torch.comm import row_quant_params
+    s = circulant_structure(make_network("ring", 8).W)
+    kw = _tables(s, cuda)
+    h = _randn((8, 8), torch.float32, cuda)
+    out = torch.empty_like(h)
+    zp, sc = row_quant_params(h, 8)
+    wire = (zp.data_ptr(), sc.data_ptr(), 1, 255.0)
+    for cols, smem in ((128, 8 * 128 * 4 + 4), (96, 8 * 96 * 4), (128, 0),
+                       (0, 4)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mm._LIB.launch("circulant_neumann_comm", cuda, h.data_ptr(),
+                           h.data_ptr(), h.data_ptr(), zp.data_ptr(),
+                           out.data_ptr(), *wire, 8, 8, s.w_self, 2,
+                           kw["offsets"].data_ptr(), kw["weights"].data_ptr(),
+                           0.1, cols, smem)
+    n, d = 500, 128 * 132       # 500 x 128 x 4 bytes > 232,448
+    s500 = circulant_structure(make_network("ring", n).W)
+    h = _randn((n, d), torch.float32, cuda)
+    zp, sc = row_quant_params(h, 8)
+    dsc = torch.full((n, 1), 2.0, device=cuda)
+    mm.reset_launch_counts()
+    with mm.smem_budget(n * 128 * 4):
+        assert mm.plan_neumann_comm_stripe_cols(n, d, mm._card_sms(cuda)) \
+            == 128
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mm.circulant_neumann_step(h, h, h, dsc, zp, sc, 1, beta=0.1,
+                                      comm="int8", **_tables(s500, cuda))
+    assert sum(mm.launch_counts().values()) == 0
 
 
 @pytest.mark.parametrize("kind,backend", [("ring", "circulant"),

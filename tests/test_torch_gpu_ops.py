@@ -156,6 +156,49 @@ def test_rwkv6_scan_reads_strided_views(cuda):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("shape,cols", [
+    ((1, 40, 132, 64), 64), ((1, 40, 66, 64), 32), ((1, 33, 2, 100), 16),
+    ((1, 40, 132, 32), 32), ((1, 20, 17, 520), 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_every_route(cuda, shape, cols, dtype):
+    """Each state-tile width the planner gives, reached by shape, T past
+    a multiple of the kernel's 16-step chunk; at hd 520 on 64 columns the
+    state tile lives in device memory (f32; bf16 keeps it in shared
+    memory up to hd 640)."""
+    B, T, H, hd = shape
+    assert twkv.plan_wkv_cols(B, H, hd) == cols
+    ins = _wkv_inputs(*shape, dtype, cuda, seed=sum(shape))
+    got = twkv.rwkv6_scan(*ins, chunk=T)
+    torch.cuda.synchronize()
+    _close(got, ref.rwkv6_scan_ref(*ins), WKV_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_staging_routes_agree(cuda, dtype):
+    """The same operands staged by TMA (every row 16-byte aligned) and by
+    cp.async (the operands 4 bytes past alignment in f32, 2 in bf16):
+    the same bits."""
+    ins = _wkv_inputs(2, 48, 3, 64, dtype, cuda, seed=9)
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:] = t.flatten()
+        return buf[1:].view(t.shape)
+    aligned = twkv.rwkv6_scan(*ins, chunk=16)
+    shifted = twkv.rwkv6_scan(*(offset(a) for a in ins[:4]), ins[4],
+                              chunk=16)
+    torch.cuda.synchronize()
+    assert torch.equal(aligned, shifted)
+    _close(aligned, ref.rwkv6_scan_ref(*ins), WKV_TOL)
+
+
+def test_rwkv6_scan_kernel_full_width_bf16(cuda):
+    """rwkv6-7b's 64 heads of 64 at train_4k, B = 4, bf16 inputs."""
+    ins = _wkv_inputs(4, 4096, 64, 64, torch.bfloat16, cuda, seed=1)
+    got = twkv.rwkv6_scan(*ins)
+    _close(got, ref.rwkv6_scan_ref(*ins), WKV_TOL)
+
+
 def test_ops_route_and_switch_on_the_card(cuda):
     q, k, v = (_randn((1, 256, 2, 64), torch.bfloat16, cuda, s)
                for s in (1, 2, 3))
@@ -179,7 +222,9 @@ def test_ops_route_and_switch_on_the_card(cuda):
 
 def test_launch_errors_raise(cuda):
     """A dtype code or a head dim the C entry points refuse fails the
-    launch; the wrappers refuse hd > 256, the kernels' one limit."""
+    launch (attention above 256, the WKV scan below 1); the attention
+    wrapper refuses hd > 256, the one limit left, and the WKV scan runs
+    hd 264 and 320 against its plain version."""
     q = torch.zeros((1, 128, 1, 64), device=cuda)
     out = torch.empty_like(q)
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -190,14 +235,17 @@ def test_launch_errors_raise(cuda):
         tfa._LIB.launch("flash_attention", q.device, q.data_ptr(),
                         q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 128,
                         1, 264, 0, *(0,) * 9, 0.125, 1, 0)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        twkv._LIB.launch("rwkv6_scan", q.device, *(q.data_ptr(),) * 5,
-                         out.data_ptr(), 1, 128, 1, 300, 0, *(0,) * 12)
+    for hd, cols in ((0, 64), (-1, 64), (64, 8)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            twkv._LIB.launch("rwkv6_scan", q.device, *(q.data_ptr(),) * 5,
+                             out.data_ptr(), None, 1, 128, 1, hd, 0, cols,
+                             *(0,) * 12)
     z = torch.zeros((1, 128, 1, 264), device=cuda)
     with pytest.raises(ValueError, match="up to 256"):
         tfa.flash_attention(z, z, z)
-    with pytest.raises(ValueError, match="up to 256"):
-        twkv.rwkv6_scan(z, z, z, z, torch.zeros((1, 264), device=cuda))
+    for hd in (264, 320):
+        ins = _wkv_inputs(1, 128, 2, hd, torch.float32, cuda, seed=hd)
+        _close(twkv.rwkv6_scan(*ins), ref.rwkv6_scan_ref(*ins), WKV_TOL)
 
 
 # -- head dims outside the powers of two (padded in shared memory) -------
@@ -240,11 +288,13 @@ def test_flash_attention_kernel_any_head_dim_ragged_strided(cuda, hd,
         bk=32))
 
 
-@pytest.mark.parametrize("hd", [24, 96, 130, 256])
+@pytest.mark.parametrize("hd", [5, 24, 96, 130, 256, 264, 320])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rwkv6_scan_kernel_any_head_dim(cuda, hd, dtype):
-    """Masked rows and columns past hd (hd < the template's 16, 32, 64,
-    128 or 256), and above 128 the columns of S split over two blocks."""
+    """Row tiles of 64 with rows past hd (hd 5, 24, 96, 130, 264, 320),
+    state tiles with columns past hd, several column tiles a head; hd 5
+    takes 4-byte copies in f32 and 2-byte loads in bf16, the others the
+    TMA route."""
     r, k, v, logw, u = _wkv_inputs(2, 96, 3, hd, dtype, cuda, seed=hd)
     before = twkv.launch_counts()["rwkv6_scan"]
     got = twkv.rwkv6_scan(r, k, v, logw, u, chunk=32)

@@ -1,7 +1,8 @@
 """Head dims outside the powers of two: the plain versions of the port's
 flash-attention and WKV-scan kernels against `repro`'s Pallas kernels (in
 interpret mode), which take any hd, on the same numpy inputs.  The CUDA
-kernels pad hd in shared memory up to 256; `tests/test_torch_gpu_ops.py`
+attention kernel pads hd in shared memory up to 256 and the chunked WKV
+scan takes any hd by row tiles of 64; `tests/test_torch_gpu_ops.py`
 holds them against these plain versions on the card.
 
 Tolerances as `tests/test_kernels.py` holds `repro`'s kernels: attention
@@ -67,8 +68,12 @@ def test_rwkv6_scan_head_dims_match_pallas(hd):
 
 def test_kernel_head_dim_limit_is_256():
     """The CUDA kernels' one limit left against `repro` (ROADMAP queue 3):
-    hd ≤ 256, stated by both wrappers; the CPU plain versions take any
-    hd, as `repro`'s kernels do."""
-    assert tfa.MAX_HEAD_DIM == twkv.MAX_HEAD_DIM == 256
+    attention's hd ≤ 256, stated by its wrapper; the chunked WKV scan
+    takes any hd, as `repro`'s kernels do, and states no limit.  The CPU
+    plain versions take any hd."""
+    assert tfa.MAX_HEAD_DIM == 256
+    assert not hasattr(twkv, "MAX_HEAD_DIM")
     x = torch.zeros((1, 128, 1, 264))
     assert tfa.flash_attention(x, x, x).shape == x.shape
+    assert twkv.rwkv6_scan(x, x, x, x, torch.zeros((1, 264))).shape \
+        == x.shape
