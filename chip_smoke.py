@@ -96,7 +96,27 @@ Phases, in order (any failure exits non-zero before the last line):
                `ops.wkv` for OPS_LAYERS calls each with exact launch
                counts, and off the kernel route (switch off, S % 128,
                T % chunk) with none;
-  7. the kernel list as one JSON line, then the device JSON line last.
+  7. baselines — `solve(method=...)` for DGBO (b = 3), MA-DBO and
+               FedNest (U = 3) on the n = 16 ring and Erdős–Rényi graph,
+               DGBO and MA-DBO with int8+ef on both, and DGTBO
+               (N = 3) on an n = 8 ring (its (n, d1, d2) state cut n for
+               memory), at the published widths, K = 3: exact launches
+               (rows 1, 1f, 3 and 3f at DGBO's d2² = 4,040,100 columns,
+               row 1 at DGTBO's d1·d2 = 315,570,000), ledger floats per
+               agent per round against the closed forms, peak memory,
+               each bitwise against its run through the plain versions,
+               seconds per round in turns and the device time split
+               between the gossip kernels and the rest; then all four at
+               fig4's reduced size, card against CPU;
+  8. faults  — DAGM under FaultSpec(drop_prob=0.3, stragglers=(3,),
+               churn=((5, 1, 3),)) at n = 16 on the ring and the
+               Erdős–Rényi graph, identity and int8+ef: every gossip on
+               the masked sparse gather (row 3, 45 launches a solve),
+               bitwise against the plain versions, every realized W_k
+               symmetric and doubly stochastic; an all-ones mask bitwise
+               against the unfaulted "sparse_gather_pallas" solve; the
+               faulted Erdős–Rényi solve at n = 4096 (row 4's slab);
+  9. the kernel list as one JSON line, then the device JSON line last.
 
 Imports torch and the port only; needs no network.
 """
@@ -1523,18 +1543,12 @@ def ring_identity_counts(n: int, rounds: int) -> dict:
     halo kernel) and U Neumann steps at d2 (the ring or its unstaged
     kernel)."""
     from repro_torch.kernels import mixing_matvec as mm
-    h_lo, h_hi = 1, 1
     counts: dict = {}
     for d, c in ((D2, rounds * M), (D1, rounds)):
-        if mm.plan_row_tile(n, h_lo=h_lo, h_hi=h_hi)[0] == "halo":
-            name = "circulant_mix_matvec_halo"
-        elif mm.circulant_ring_stages(n, h_lo, h_hi, d=d):
-            name = "circulant_mix_matvec"
-        else:
-            name = "circulant_mix_matvec_unstaged"
+        name = ring_mix_counter(n, d)
         counts[name] = counts.get(name, 0) + c
     name = "circulant_neumann_step" if mm.neumann_ring_plan(
-        n, h_lo, h_hi, d=D2) else "circulant_neumann_step_unstaged"
+        n, 1, 1, d=D2) else "circulant_neumann_step_unstaged"
     counts[name] = rounds * U
     return counts
 
@@ -2376,6 +2390,419 @@ def ops_kernel_phase(torch, out: dict) -> None:
                          tol)
 
 
+# The paper's baselines (Table 2) at the §6.2 MLP's published widths.
+# DGTBO's JHIP state is (n, d1, d2) f32, n x 1.26 GB: a solve peaked at
+# 4.74 GiB per agent at n = 4 (H100 80GB HBM3), and its plain-version
+# twin holds two more such arrays in the ring's rolls, so it runs at
+# n = N_DGTBO, cut from 16 for memory: a ring whose 315,570,000-column
+# gossips take the circulant kernel (row 1), over 2^31 elements.
+K_BASE, B_DGBO, N_JHIP, N_DGTBO = 3, 3, 3, 8
+# ledger floats per agent per outer round at the published widths (M =
+# 5, U = 3, b = 3, N = 3): (measured — what runs, Appendix-S1 closed
+# form — `comm_floats_per_round`)
+BASE_FLOATS = {"dgbo": (M * D2 + B_DGBO * D2 * D2 + D1, 328018370),
+               "dgtbo": (M * D2 + N_JHIP * D1 * D2 + D1, 946877050),
+               "fednest": (354200, 354200),
+               "ma_dbo": (M * D2 + U * D2 + 2 * D1, 330080)}
+# fig4's reduced size (benchmarks/fig4_hyperrep.py): d = 20, hidden = 40,
+# n = 10 agents on an Erdős–Rényi graph (r = 0.5), card against CPU
+FIG4_N, FIG4_D, FIG4_HIDDEN = 10, 20, 40
+BASE_RTOL, BASE_ATOL = 1e-4, 1e-5
+
+
+def ring_mix_counter(n: int, d: int) -> str:
+    """The counter of the plain ring mix's route at (n, d) by the
+    planners: the halo kernel on the halo tier, else the ring at bn = n
+    or its unstaged kernel."""
+    from repro_torch.kernels import mixing_matvec as mm
+    if mm.plan_row_tile(n, h_lo=1, h_hi=1)[0] == "halo":
+        return "circulant_mix_matvec_halo"
+    return "circulant_mix_matvec" if mm.circulant_ring_stages(n, 1, 1, d=d) \
+        else "circulant_mix_matvec_unstaged"
+
+
+def baseline_gossips(method: str) -> list[tuple[int, int]]:
+    """(width, gossips per round) of a baseline's gossips at the
+    published widths (`core.baselines`)."""
+    return {"dgbo": [(D2, M), (D2 * D2, B_DGBO), (D1, 1)],
+            "dgtbo": [(D2, M), (D1 * D2, N_JHIP), (D1, 1)],
+            "fednest": [],
+            "ma_dbo": [(D2, M + U), (D1, 2)]}[method]
+
+
+def baseline_counts(method: str, backend: str, comm: str, n: int) -> dict:
+    """A baseline solve's launches per kernel over K_BASE rounds."""
+    counts: dict = {}
+    for d, c in baseline_gossips(method):
+        if backend == "sparse_gather":
+            name = "sparse_mix_matvec" if comm == "identity" \
+                else "sparse_mix_matvec_comm"
+        elif comm == "identity":
+            name = ring_mix_counter(n, d)
+        else:
+            name = "circulant_mix_matvec_comm"
+        counts[name] = counts.get(name, 0) + K_BASE * c
+    return counts
+
+
+def inputs(torch, n: int, d1: int, d2: int, dev):
+    """x0 = 0.3·N(0, I) with seed 42, the same for every agent, as
+    `benchmarks/fig4_hyperrep.py`; y0 = 0.01·N(0, I) with seed 0."""
+    import numpy as np
+    x0 = torch.as_tensor(np.broadcast_to(
+        0.3 * np.random.default_rng(42).standard_normal(d1),
+        (n, d1)).astype(np.float32), device=dev)
+    y0 = torch.as_tensor((0.01 * np.random.default_rng(0)
+                          .standard_normal((n, d2))).astype(np.float32),
+                         device=dev)
+    return x0, y0
+
+
+def check_finite(torch, label, res, rounds, n, d1, d2) -> None:
+    """Finite (rounds,) metrics and finite final iterates of shape
+    (n, d1) and (n, d2)."""
+    for key, val in res.metrics.items():
+        if val.shape != (rounds,) or not torch.isfinite(val).all():
+            raise AssertionError(f"{label}: metric {key} not finite "
+                                 f"(K,): {val}")
+    for name, t, shape in (("x", res.x, (n, d1)), ("y", res.y, (n, d2))):
+        if tuple(t.shape) != shape or not torch.isfinite(t).all():
+            raise AssertionError(f"{label}: final {name} bad")
+
+
+def device_split(by_kernel: dict, busy_us) -> str:
+    """The profiled run's device time: the port's gossip kernels and the
+    rest."""
+    gossip = sum(by_kernel.values())
+    if busy_us is None:
+        return "device split not measured (the profiler saw no device time)"
+    return (f"device {busy_us:.1f} us: gossip kernels {gossip:.1f} us, the "
+            f"rest {busy_us - gossip:.1f} us")
+
+
+def baselines_phase(torch, counts_out: dict) -> None:
+    """`solve(method=...)` for the paper's four baselines on the §6.2 MLP
+    at its published widths, K = K_BASE rounds: DGBO (b = 3), MA-DBO
+    (U = 3) and FedNest (U = 3) on the n = 16 ring and Erdős–Rényi graph,
+    DGBO and MA-DBO again with comm="int8+ef" on both, and DGTBO (N = 3)
+    on an n = N_DGTBO ring.  Each run: exact launches per kernel, ledger
+    floats and bytes per agent per round against the closed forms, peak
+    memory, bitwise against the same solve through the plain versions,
+    device time split between the gossip kernels and the rest, and
+    seconds per round (median of three in turns).  Then all four
+    methods at fig4's reduced size, card against CPU.  DGBO's batched
+    LU and MA-DBO's Cholesky run where `core.baselines` puts them
+    (cuSOLVER, `_cusolver`); this phase sets no library."""
+    from repro_torch.core.problems import hyper_representation
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solve import CommSpec, ScheduleSpec, SolverSpec, solve
+    from repro_torch.topology import make_mixing_op, make_network
+
+    probs = {n: hyper_representation(n, d=D_IN, hidden=HIDDEN,
+                                     n_classes=N_CLASSES, m_per=M_PER,
+                                     seed=0, device="cuda")
+             for n in (N_AGENTS, N_DGTBO)}
+    iterates = {n: inputs(torch, n, D1, D2, "cuda") for n in probs}
+    ring = make_network("ring", N_AGENTS)
+    er = make_network("erdos_renyi", N_AGENTS, r=0.5, seed=0)
+    small_ring = make_network("ring", N_DGTBO)
+    zero = dict.fromkeys(launch_counts(), 0)
+    runs = [("dgbo", ring, "identity"), ("dgbo", er, "identity"),
+            ("ma_dbo", ring, "identity"), ("ma_dbo", er, "identity"),
+            ("fednest", ring, "identity"), ("fednest", er, "identity"),
+            ("dgbo", ring, "int8+ef"), ("ma_dbo", ring, "int8+ef"),
+            ("dgbo", er, "int8+ef"), ("ma_dbo", er, "int8+ef"),
+            ("dgtbo", small_ring, "identity")]
+    timed, busy = {}, {}
+    for method, net, comm in runs:
+        t_run = time.perf_counter()
+        n = net.n
+        label = f"{method} {net.name} {comm}"
+        backend = make_mixing_op(net, device="cpu").backend
+        expected = {**zero, **baseline_counts(method, backend, comm, n)}
+        spec = SolverSpec(method=method, K=K_BASE, M=M, U=U, b=B_DGBO,
+                          N=N_JHIP, schedule=ScheduleSpec(alpha=0.1,
+                                                          beta=0.1),
+                          comm=CommSpec(comm))
+        print(f"baselines: solve(hyper_representation n={n} d1={D1} "
+              f"d2={D2}, {net.name} ({backend}), method={method}, "
+              f"K={K_BASE} M={M} U={U} b={B_DGBO} N={N_JHIP}, comm={comm})")
+
+        def run(dev="cuda", spec=spec, net=net, n=n):
+            x0, y0 = iterates[n]
+            return solve(probs[n], net, spec, x0=x0, y0=y0, seed=0,
+                         device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        res = run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"  launches {counts} expected {expected}")
+        if counts != expected:
+            raise AssertionError(f"{label}: launch counts {counts} != "
+                                 f"{expected}")
+        for name, c in counts.items():
+            counts_out[name] = counts_out.get(name, 0) + c
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check_finite(torch, label, res, K_BASE, n, D1, D2)
+        print("  metrics", {k: [round(float(v), 6) for v in val.cpu()]
+                            for k, val in res.metrics.items()})
+        floats, closed = BASE_FLOATS[method]
+        per_round = res.ledger.total_floats / K_BASE
+        print(f"  ledger per agent per round: {per_round:.0f} floats "
+              f"(expected {floats}), {res.ledger.total_bytes / K_BASE:.0f} "
+              f"bytes; comm_floats_per_round "
+              f"{res.extras['comm_floats_per_round']} (Appendix S1, "
+              f"expected {closed})")
+        if per_round != floats \
+                or res.extras["comm_floats_per_round"] != closed:
+            raise AssertionError(f"{label}: ledger floats disagree")
+        torch.cuda.reset_peak_memory_stats()
+        with plain_versions():
+            plain = run()
+        torch.cuda.synchronize()
+        print(f"  peak device memory of the plain-version run "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        same_bits(torch, f"{label} vs the card's plain versions", res,
+                  plain)
+        del res, plain
+        by_kernel = {}
+        busy[label] = profile_run(torch, run, by_kernel)
+        print(f"  {device_split(by_kernel, busy[label])} per solve; the "
+              f"run's checks took {time.perf_counter() - t_run:.1f} s")
+        timed[label] = run
+    t0 = time.perf_counter()
+    idle_shares(busy, time_in_turns(torch, timed, reps=3, rounds=K_BASE),
+                K_BASE)
+    print(f"baselines: the timing in turns took "
+          f"{time.perf_counter() - t0:.1f} s")
+    del timed
+    torch.cuda.empty_cache()
+
+    # fig4's reduced size, card against CPU.  After torch.set_num_threads
+    # with more than one thread (main() sets the CPU's), MKL's batched LU
+    # solve on the CPU (DGBO's torch.linalg.solve) fails "Parameter 6 was
+    # incorrect on entry to SLASWP" and hangs (torch 2.11 and 2.13), so
+    # the CPU runs take one thread
+    net = make_network("erdos_renyi", FIG4_N, r=0.5, seed=0)
+    small = {dev: hyper_representation(FIG4_N, d=FIG4_D, hidden=FIG4_HIDDEN,
+                                       n_classes=N_CLASSES, m_per=M_PER,
+                                       seed=0, device=dev)
+             for dev in ("cuda", "cpu")}
+    d1, d2 = small["cpu"].d1, small["cpu"].d2
+    threads = torch.get_num_threads()
+    for method in ("dgbo", "dgtbo", "fednest", "ma_dbo"):
+        spec = SolverSpec(method=method, K=K_BASE, M=M, U=U, b=B_DGBO,
+                          N=N_JHIP, schedule=ScheduleSpec(alpha=0.1,
+                                                          beta=0.1))
+        def run(dev, spec=spec):
+            x0, y0 = inputs(torch, FIG4_N, d1, d2, dev)
+            return solve(small[dev], net, spec, x0=x0, y0=y0, device=dev)
+        t0 = time.perf_counter()
+        got = run("cuda")
+        torch.set_num_threads(1)
+        try:
+            want = run("cpu")
+        finally:
+            torch.set_num_threads(threads)
+        errs = {name: (getattr(got, name).cpu() - getattr(want, name))
+                .abs().max().item() for name in ("x", "y")}
+        errs.update({key: (got.metrics[key].cpu() - val).abs().max().item()
+                     for key, val in want.metrics.items()})
+        print(f"baselines fig4 size (d1={d1} d2={d2} n={FIG4_N} ER) "
+              f"{method}: card vs CPU max_abs_err "
+              + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+              + f" (rtol {BASE_RTOL}, atol {BASE_ATOL}); both runs "
+              f"{time.perf_counter() - t0:.1f} s")
+        for name in ("x", "y"):
+            torch.testing.assert_close(getattr(got, name).cpu(),
+                                       getattr(want, name),
+                                       rtol=BASE_RTOL, atol=BASE_ATOL)
+        for key, val in want.metrics.items():
+            torch.testing.assert_close(got.metrics[key].cpu(), val,
+                                       rtol=BASE_RTOL, atol=BASE_ATOL)
+
+
+def check_realized(trace, W) -> None:
+    """Every realized W_k of a lowered fault trace is nonnegative,
+    symmetric and doubly stochastic (on the host)."""
+    import numpy as np
+    worst = 0.0
+    for k in range(trace.rounds):
+        Wk = trace.realized_W(W, k)
+        err = max(np.abs(Wk - Wk.T).max(), np.abs(Wk.sum(0) - 1).max(),
+                  np.abs(Wk.sum(1) - 1).max())
+        worst = max(worst, err)
+        if Wk.min() < 0 or err > 1e-12:
+            raise AssertionError(f"realized W_{k} is not symmetric doubly "
+                                 f"stochastic (error {err})")
+    print(f"  realized W_k, {trace.rounds} rounds: nonnegative, symmetric "
+          f"and doubly stochastic (largest error {worst:.1e})")
+
+
+def faults_phase(torch, counts_out: dict) -> None:
+    """DAGM (matrix-free DIHGP, M = 5, U = 3) under
+    FaultSpec(drop_prob=0.3, stragglers=(3,), churn=((5, 1, 3),)) at
+    n = 16 on the ring and the Erdős–Rényi graph, K = K rounds, identity
+    and int8+ef: every gossip on the masked sparse gather (row 3), each
+    run bitwise against its run through the plain versions, the realized
+    W_k checked.  An all-ones mask against the unfaulted solve on
+    "sparse_gather_pallas", bitwise.  Then the faulted solve on the
+    n = N_LARGE Erdős–Rényi graph, K = 2, identity: the masked slab
+    (row 4)."""
+    from repro_torch.core.problems import hyper_representation
+    from repro_torch.faults import FaultSpec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import mixing_matvec as mm
+    from repro_torch.solve import (CommSpec, MixingSpec, ScheduleSpec,
+                                   SolverSpec, solve)
+    from repro_torch.topology import make_network
+
+    faults = FaultSpec(drop_prob=0.3, stragglers=(3,), churn=((5, 1, 3),),
+                       seed=0)
+
+    def spec_for(comm="identity", rounds=K, faults=faults, backend="auto"):
+        return SolverSpec(method="dagm", K=rounds, M=M, U=U,
+                          dihgp="matrix_free",
+                          schedule=ScheduleSpec(alpha=0.1, beta=0.1),
+                          mixing=MixingSpec(backend=backend),
+                          comm=CommSpec(comm), faults=faults)
+
+    prob = hyper_representation(N_AGENTS, d=D_IN, hidden=HIDDEN,
+                                n_classes=N_CLASSES, m_per=M_PER, seed=0,
+                                device="cuda")
+    x0, y0 = inputs(torch, N_AGENTS, D1, D2, "cuda")
+    ring = make_network("ring", N_AGENTS)
+    er = make_network("erdos_renyi", N_AGENTS, r=0.5, seed=0)
+    zero = dict.fromkeys(launch_counts(), 0)
+    gossips = K * (M + U + 1)
+    expected = {**zero, "sparse_mix_matvec": gossips}
+    timed, busy = {}, {}
+    for net in (ring, er):
+        for comm in ("identity", "int8+ef"):
+            label = f"faulted {net.name} {comm}"
+            spec = spec_for(comm)
+            print(f"faults: solve(hyper_representation d1={D1} d2={D2}, "
+                  f"{net.name}, K={K} M={M} U={U} dihgp=matrix_free, "
+                  f"comm={comm}, faults={faults})")
+
+            def run(dev="cuda", spec=spec, net=net):
+                return solve(prob, net, spec, x0=x0, y0=y0, seed=0,
+                             device=dev)
+            t_run = time.perf_counter()
+            reset_launch_counts()
+            res = run()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            print(f"  launches {counts} expected {expected}")
+            if counts != expected:
+                raise AssertionError(f"{label}: launch counts {counts} != "
+                                     f"{expected}")
+            for name, c in counts.items():
+                counts_out[name] = counts_out.get(name, 0) + c
+            print(f"  alive fraction "
+                  f"{res.extras['fault_alive_fraction']:.6f}; ledger "
+                  f"{res.ledger.total_bytes / K:.0f} bytes per agent per "
+                  f"round (nominal sends)")
+            check_finite(torch, label, res, K, N_AGENTS, D1, D2)
+            check_realized(res.extras["fault_trace"], net.W)
+            with plain_versions():
+                plain = run()
+            same_bits(torch, f"{label} vs the card's plain versions", res,
+                      plain)
+            del res, plain
+            if net is ring and comm == "identity":  # one profile: the split
+                by_kernel = {}
+                busy[label] = profile_run(torch, run, by_kernel)
+                print(f"  {device_split(by_kernel, busy[label])} per solve")
+            print(f"  the run's checks took {time.perf_counter() - t_run:.1f} "
+                  f"s")
+            timed[label] = run
+        # the same solve without faults, timed in the same turns
+        timed[f"unfaulted {net.name} identity"] = \
+            lambda dev="cuda", net=net: solve(prob, net, spec_for(
+                faults=None), x0=x0, y0=y0, seed=0, device=dev)
+    idle_shares(busy, time_in_turns(torch, timed, reps=3, rounds=K), K)
+    del timed
+
+    # an all-ones mask (a FaultSpec that injects nothing) reproduces the
+    # unfaulted solve on the padded sparse-gather kernel bit for bit
+    t_part = time.perf_counter()
+    for net in (ring, er):
+        reset_launch_counts()
+        ones = solve(prob, net, spec_for(faults=FaultSpec()), x0=x0, y0=y0,
+                     seed=0, device="cuda")
+        bare = solve(prob, net,
+                     spec_for(faults=None, backend="sparse_gather_pallas"),
+                     x0=x0, y0=y0, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {**zero, "sparse_mix_matvec": 2 * gossips}
+        print(f"faults: all-ones mask on {net.name}: alive fraction "
+              f"{ones.extras['fault_alive_fraction']}; launches of both "
+              f"solves {counts} expected {want}")
+        if counts != want or ones.extras["fault_alive_fraction"] != 1.0:
+            raise AssertionError(f"all-ones mask on {net.name}")
+        same_bits(torch, f"all-ones mask vs unfaulted sparse_gather_pallas "
+                  f"on {net.name}", ones, bare)
+        del ones, bare
+    print(f"faults: the all-ones checks took "
+          f"{time.perf_counter() - t_part:.1f} s")
+    del prob, x0, y0
+    torch.cuda.empty_cache()
+
+    # the faulted solve at n = N_LARGE: every gossip on the masked slab
+    t_part = time.perf_counter()
+    n, rounds = N_LARGE, 2
+    prob = hyper_representation(n, d=D_IN, hidden=HIDDEN,
+                                n_classes=N_CLASSES, m_per=M_PER, seed=0,
+                                device="cuda")
+    x0, y0 = inputs(torch, n, D1, D2, "cuda")
+    _, er = large_networks()
+    tier, _ = mm.plan_row_tile(n, itemsize=4, blocks=mm.plan_blocks(False))
+    name = "sparse_mix_matvec_halo" if tier == "halo" \
+        and mm.plan_slab_cols(n) else "sparse_mix_matvec_halo_rows" \
+        if tier == "halo" else "sparse_mix_matvec"
+    expected = {**zero, name: rounds * (M + U + 1)}
+    spec = spec_for(rounds=rounds)
+    print(f"faults: solve(hyper_representation n={n} d1={D1} d2={D2}, "
+          f"{er.name}, K={rounds} M={M} U={U} dihgp=matrix_free, "
+          f"faults={faults})")
+
+    def run(dev="cuda"):
+        return solve(prob, er, spec, x0=x0, y0=y0, seed=0, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"  launches {counts} expected {expected}")
+    if counts != expected:
+        raise AssertionError(f"faulted n={n}: launch counts {counts} != "
+                             f"{expected}")
+    for key, c in counts.items():
+        counts_out[key] = counts_out.get(key, 0) + c
+    print(f"  seconds per round of the first run {dt / rounds:.6f} (host "
+          f"clock, set-up included); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; alive "
+          f"fraction {res.extras['fault_alive_fraction']:.6f}")
+    check_finite(torch, f"faulted n={n}", res, rounds, n, D1, D2)
+    check_realized(res.extras["fault_trace"], er.W)
+    with plain_versions():
+        plain = run()
+    same_bits(torch, f"faulted n={n} {er.name} vs the card's plain "
+              f"versions", res, plain)
+    del res, plain
+    by_kernel = {}
+    us = profile_run(torch, run, by_kernel)
+    print(f"  {device_split(by_kernel, us)} per solve; n = {n} took "
+          f"{time.perf_counter() - t_part:.1f} s with its problem")
+
+
 def median(values):
     return sorted(values)[len(values) // 2]
 
@@ -2595,7 +3022,7 @@ def tensor_core_instructions(lib) -> dict:
 
 
 PHASES = ("kernel", "halo", "ring_sweep", "main", "fig2", "large",
-          "routes", "ops")
+          "routes", "ops", "baselines", "faults")
 
 
 def main() -> int:
@@ -2678,7 +3105,9 @@ def main() -> int:
                 (fig2_network_phase, counts),
                 (large_network_phase, counts),
                 (routes_phase, routes),
-                (ops_kernel_phase, ops_out))):
+                (ops_kernel_phase, ops_out),
+                (baselines_phase, counts),
+                (faults_phase, counts))):
             if only and name not in only:
                 continue
             t0 = time.perf_counter()

@@ -10,9 +10,13 @@ counterpart sits where a reader of the JAX package expects it:
                   (`kernels.ref`) and the wrappers that dispatch between
                   them,
   * `comm`      — the identity gossip wire and its byte ledger,
-  * `core`      — the bilevel problem zoo, penalty/DIHGP/DAGM algebra,
+  * `core`      — the bilevel problem zoo, penalty/DIHGP/DAGM algebra
+                  and the paper's baselines (DGBO, DGTBO, FedNest,
+                  MA-DBO),
+  * `faults`    — fault injection: `FaultSpec`, lowered to per-round
+                  edge masks (`lower_faults`, `FaultTrace`),
   * `solve`     — the `solve(problem, network, spec)` front-end
-                  (method="dagm", tier="reference"),
+                  (every method on tier="reference"),
   * `interop`   — builds port objects from `repro`'s numpy arrays.
 
 The port imports `torch` only.  Entry points run on the CUDA device

@@ -22,7 +22,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..topology.ops import laplacian_apply_c
+from ..topology.ops import MixingOp, laplacian_apply_c
 from .dihgp import dihgp_dense_c, dihgp_matrix_free_c, power_start
 from .penalty import consensus_error, exact_ihgp, inner_dgd_step_c
 from .problems import BilevelProblem
@@ -89,11 +89,23 @@ def dagm_outer_step_c(prob: BilevelProblem, W, cfg,
     """One outer iteration with every gossip on its channel.
 
     `cs` maps {"inner_y", "dihgp_h", "outer_x"} to ChannelStates; `hp`
-    is this round's RoundHP of floats.  Fault masks (`mask`) are ROADMAP
-    queue 1 item 7 and raise."""
+    is this round's RoundHP of floats.
+
+    `mask` is this round's fault mask ((n, k_max) padded-table layout,
+    see `repro_torch.faults`): every gossip of the round — the M inner
+    exchanges, the U DIHGP exchanges and the outer (I−Ẃ)x exchange —
+    runs on the degraded view `W.masked(mask)`, the round's realized
+    W_k.  The DIHGP preconditioner D̃ keeps the *nominal* self-weights:
+    realized self-weights only grow under link drops (w_ii + folded
+    weight ≥ w_ii), so D̃ ⪰ D_k and the Neumann contraction bound still
+    holds (possibly conservatively)."""
     if mask is not None:
-        raise NotImplementedError(
-            "fault masks are ROADMAP queue 1 item 7 (faults)")
+        if not isinstance(W, MixingOp):
+            raise ValueError(
+                "fault masks require a MixingOp (the masked path lives "
+                "in the padded neighbor-table operand space); wrap W "
+                "with make_mixing_op first")
+        W = W.masked(mask)
     # the DIHGP h vector is re-initialized every round: neighbors'
     # error-feedback replicas restart at zero with it
     cs = dict(cs, dihgp_h=cs["dihgp_h"].reset_hat())
@@ -163,12 +175,19 @@ def dagm_run_chunk(prob: BilevelProblem, W, cfg, carry,
     None estimates it every round by power iteration from one fixed
     start vector, `dihgp.power_start`).
 
+    `masks`: optional (rounds, n, k_max) per-round fault masks
+    (`repro_torch.faults.FaultTrace.table_masks`), moved to W's device
+    once, before the loop; round t gossips on `W.masked(masks[t])`.
+
     Returns (carry, metrics) with metrics stacked over the chunk's
-    rounds as (rounds,) tensors.  `masks` (faults) and `recorder` (obs)
-    are queued ROADMAP items and raise."""
+    rounds as (rounds,) tensors.  The flight recorder (`recorder`) is
+    ROADMAP queue 1 item 10 and raises."""
     if masks is not None:
-        raise NotImplementedError(
-            "fault masks are ROADMAP queue 1 item 7 (faults)")
+        masks = torch.as_tensor(masks, dtype=torch.float32,
+                                device=W.device)
+        if masks.shape[0] != rounds:
+            raise ValueError(f"masks hold {masks.shape[0]} rounds; the "
+                             f"chunk runs {rounds}")
     if recorder is not None:
         raise NotImplementedError(
             "the flight recorder is ROADMAP queue 1 item 10 (obs)")
@@ -186,7 +205,8 @@ def dagm_run_chunk(prob: BilevelProblem, W, cfg, carry,
         hp_t = RoundHP(*(float(a[t]) for a in hp))
         x, y, m, cs = dagm_outer_step_c(prob, W, cfg, x, y, cs, metrics_fn,
                                         hp=hp_t, curvature=curvature,
-                                        v0=v0)
+                                        mask=None if masks is None
+                                        else masks[t], v0=v0)
         rows.append(m)
     metrics = {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
     return ((x, y), cs), metrics

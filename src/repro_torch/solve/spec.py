@@ -11,10 +11,12 @@
 * `MixingSpec` — the gossip execution backend (`repro_torch.topology`).
 * `CommSpec`   — the gossip wire policy (`repro_torch.comm`).
 
-`repro`'s options of the methods and tiers that are not ported yet
-(`ShardedSpec`, `CommSpec.persist_ef`, the baselines' `momentum`, `b`
-and `N`) arrive with the ROADMAP items that port the code reading them;
-`solve` refuses those methods and tiers until then.
+The baselines read `momentum` (MA-DBO), `b` (DGBO) and `N` (DGTBO);
+`faults` takes a `repro_torch.faults.FaultSpec` (DAGM on the reference
+tier).  `repro`'s options of the tiers that are not ported yet
+(`ShardedSpec`, `CommSpec.persist_ef`) arrive with the ROADMAP items
+that port the code reading them; `solve` refuses those tiers until
+then.
 """
 from __future__ import annotations
 
@@ -123,7 +125,12 @@ class SolverSpec:
     comm: CommSpec = CommSpec()
     dihgp: str = "dense"        # "dense" | "matrix_free" | "exact"
     curvature: float | None = None   # λmax bound for matrix_free
-    faults: Any = None          # fault injection (not ported yet)
+    momentum: float = 0.9       # ma_dbo tracker momentum
+    b: int = 3                  # dgbo Hessian gossip rounds
+    N: int = 5                  # dgtbo JHIP iterations
+    faults: Any = None          # repro_torch.faults.FaultSpec (or None):
+    #                             lower a fault trace and run every gossip
+    #                             on the per-round realized W_k
 
     def comm_channels(self, d1: int, d2: int) -> list[tuple]:
         h_sends = 0 if self.dihgp == "exact" else self.U
@@ -151,7 +158,8 @@ def validate_spec(spec: SolverSpec) -> None:
     if spec.tier not in TIERS:
         raise ValueError(
             f"unknown tier {spec.tier!r}; expected one of {TIERS}")
-    for name, val in (("K", spec.K), ("M", spec.M)):
+    for name, val in (("K", spec.K), ("M", spec.M), ("b", spec.b),
+                      ("N", spec.N)):
         if int(val) <= 0:
             raise ValueError(
                 f"SolverSpec.{name} must be a positive iteration count "
@@ -163,6 +171,18 @@ def validate_spec(spec: SolverSpec) -> None:
             f"order (got {spec.U}); U=0 keeps only the D̃⁻¹ "
             f"preconditioner term")
     spec.schedule.materialize(spec.K)
+    if spec.tier in ("sharded", "serve") and spec.method != "dagm":
+        raise ValueError(
+            f"tier={spec.tier!r} only executes method='dagm' (the "
+            f"baselines exist for reference-tier comparison); got "
+            f"method={spec.method!r} — use tier='reference'")
+    if spec.schedule.gamma is not None and \
+            spec.method in ("dgbo", "dgtbo", "fednest"):
+        raise ValueError(
+            f"method={spec.method!r} has no penalty term: the gamma "
+            f"schedule multiplies DAGM's (I−Ŵ)x/α "
+            f"penalty gradient, which this baseline never forms; drop "
+            f"schedule.gamma or use method='dagm'/'ma_dbo'")
     if spec.dihgp not in ("dense", "matrix_free", "exact"):
         raise ValueError(f"unknown dihgp backend {spec.dihgp!r}")
     from ..comm import parse_comm_spec
@@ -172,6 +192,27 @@ def validate_spec(spec: SolverSpec) -> None:
             "dihgp='exact' solves the penalized system densely and has "
             "no gossip to compress; use 'dense' or 'matrix_free' with "
             f"comm={spec.comm.spec!r}")
+    if spec.faults is not None:
+        from ..faults import FaultSpec
+        if not isinstance(spec.faults, FaultSpec):
+            raise ValueError(
+                f"SolverSpec.faults must be a repro_torch.faults.FaultSpec "
+                f"(got {type(spec.faults).__name__}); construct one "
+                f"with FaultSpec(drop_prob=..., stragglers=..., "
+                f"churn=..., seed=...)")
+        if spec.method != "dagm":
+            raise ValueError(
+                f"fault injection degrades the DAGM gossip rounds; the "
+                f"baseline methods do not thread per-round edge masks "
+                f"(got method={spec.method!r}) — use method='dagm' or "
+                f"drop SolverSpec.faults")
+        if spec.tier != "reference":
+            raise ValueError(
+                f"fault-masked mixing is a reference-tier feature (got "
+                f"tier={spec.tier!r}): serve buckets share one program "
+                f"whose per-slot operands are hyper-parameters only, and "
+                f"the sharded tier's gossip has no per-round mask "
+                f"channel — use tier='reference'")
 
 
 def mixing_kwargs(spec: SolverSpec) -> dict:
@@ -184,10 +225,11 @@ def dagm_spec(alpha=1e-2, beta=1e-2, gamma=None, K: int = 100,
               M: int = 10, U: int = 3, dihgp: str = "dense",
               curvature: float | None = None, mixing: str = "auto",
               mixing_dtype: str = "f32", comm: str = "identity",
-              tier: str = "reference") -> SolverSpec:
+              tier: str = "reference", faults=None) -> SolverSpec:
     """Convenience constructor mirroring the old DAGMConfig kwargs."""
     return SolverSpec(
         method="dagm", tier=tier, K=K, M=M, U=U,
         schedule=ScheduleSpec(alpha=alpha, beta=beta, gamma=gamma),
         mixing=MixingSpec(backend=mixing, dtype=mixing_dtype),
-        comm=CommSpec(spec=comm), dihgp=dihgp, curvature=curvature)
+        comm=CommSpec(spec=comm), dihgp=dihgp, curvature=curvature,
+        faults=faults)

@@ -11,7 +11,8 @@
 """
 from .graphs import (circulant_graph, complete_graph, erdos_renyi_graph,
                      is_connected, ring_graph, star_graph)
-from .ops import (BACKENDS, MIXING_DTYPES, MixingOp, Network, _neumann_update,
+from .ops import (BACKENDS, MIXING_DTYPES, MaskedMixingOp, MixingOp,
+                  Network, _neumann_update,
                   as_matrix, fused_neumann_step, fused_neumann_step_c,
                   laplacian_apply, laplacian_apply_c, make_mixing_op,
                   make_network, mix_apply, mix_apply_c,
@@ -30,7 +31,7 @@ __all__ = [
     "uniform_averaging",
     "CirculantStructure", "SparseStructure", "circulant_structure",
     "sparse_structure",
-    "BACKENDS", "MIXING_DTYPES", "MixingOp", "Network", "as_matrix",
+    "BACKENDS", "MIXING_DTYPES", "MaskedMixingOp", "MixingOp", "Network", "as_matrix",
     "fused_neumann_step", "fused_neumann_step_c", "laplacian_apply",
     "laplacian_apply_c", "make_mixing_op", "make_network", "mix_apply",
     "mix_apply_c", "resolve_mixing_dtype",

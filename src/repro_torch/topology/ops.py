@@ -88,8 +88,22 @@ which is `repro`'s own dispatch (`repro.topology.ops
 .MixingOp._fused_plan`).  On the halo tier the sparse gather with EF
 composes too: its halo kernel has no payload write-back, as in `repro`.
 
-Not ported yet: fault-masked mixing (`MaskedMixingOp`, ROADMAP queue 1
-item 7), which raises NotImplementedError.
+Fault masks
+-----------
+`MixingOp.masked(mask)` is one round's degraded view (`MaskedMixingOp`,
+`repro_torch.faults`): the (n, k_max) mask scales the padded
+neighbor-table weights and folds each dropped weight into its row's
+self-weight, once per round on the device.  The view is the padded
+sparse-gather backend on those per-round tables whatever the base
+backend (a mask breaks shift invariance), and gossips through the base
+op's own dispatch: on the kernel tier — a `*_pallas` backend, or "auto"
+with the switch on (`_kernel_tier`) — `sparse_mix_matvec` on its
+column stripe, or `sparse_mix_matvec_halo` with the nominal tables' row
+plan where the planner gives a row tile; elsewhere
+`sparse_mix_padded_ref`, which `repro` always runs here and which the
+kernels equal bit for bit.  A masked view never takes the comm-fused or
+the circulant Neumann kernels: compressed gossip composes the
+compressor with the masked mix and the effective self-weight.
 """
 from __future__ import annotations
 
@@ -216,6 +230,10 @@ class MixingOp:
     "sparse_gather", and "auto" with the kernel switch off.  The
     algorithm never differentiates through a gossip."""
 
+    # a per-round fault view (MaskedMixingOp) clears this: the
+    # comm-fused kernels never see a mask
+    _fusable_view = True
+
     def __init__(self, W, *, backend: str = "auto", name: str = "network",
                  dtype: str = "f32", comm: str = "identity", device=None):
         from ..comm import CommLedger, parse_comm_spec
@@ -233,7 +251,9 @@ class MixingOp:
         self.storage_dtype = resolve_mixing_dtype(dtype)
         self.comm = parse_comm_spec(comm)
         self.ledger = CommLedger(name)
+        # the self-weight term of a gossip, which never crosses the wire
         self._diag = torch.diagonal(self.W)
+        self._masked_cache = None
         self.structure = circulant_structure(W_np)
         self.sparse = sparse_structure(W_np)
         base = backend.removesuffix("_pallas")
@@ -437,10 +457,11 @@ class MixingOp:
         bn None for the full-operand kernel, else the halo kernel's row
         tile — and None when the compressor composes with the plain
         mix, as in `repro`: a policy that is not int8/int4 (± EF), bf16
-        storage, a non-f32 operand, a tier without kernels, or the
+        storage, a non-f32 operand, a tier without kernels, the
         sparse gather with EF on the halo tier (no payload write-back
-        there)."""
-        if not (self.comm.fusable and self.storage_dtype is None
+        there), or a fault-masked view."""
+        if not (self._fusable_view and self.comm.fusable
+                and self.storage_dtype is None
                 and flat.dtype == torch.float32 and self._kernel_tier()):
             return None
         ef = self.comm.ef
@@ -566,12 +587,83 @@ class MixingOp:
         mix, st = self.mix_c(h, st)
         return _neumann_update(mix, h, hvp_h, p, d_scalar, beta), st
 
-    # -- fault-masked mixing (not ported) ----------------------------------
+    # -- fault-masked mixing (repro_torch.faults) --------------------------
 
-    def masked(self, mask):
-        raise NotImplementedError(
-            "fault-masked mixing (MaskedMixingOp) is ROADMAP queue 1 "
-            "item 7, faults")
+    def _masked_tables(self):
+        """Device tables (w_self, neighbors, weights, row plan) of the
+        padded sparse structure: the operand space per-round fault masks
+        degrade (built on first use, then kept).  `self.sparse` exists
+        for any backend with n >= 2, a ring's circulant op too, so these
+        do not rely on the `_sp_*` tensors of the sparse_gather backend.
+
+        The row plan is the nominal tables' and serves every round:
+        `sparse_row_plan` counts a slot as padded only where it holds
+        the row's own index with weight +0.0, and a dropped link keeps
+        its neighbor's index (its weight w·0 = +0.0 is gathered), while
+        a padded slot's mask is 1."""
+        if self._masked_cache is None:
+            sp = self.sparse
+            if sp is None:
+                raise ValueError(
+                    f"fault masks need the padded sparse tables, which "
+                    f"require a square mixing matrix with n >= 2 (got "
+                    f"n={self.n})")
+            dev = self.device
+            plan = tuple(torch.as_tensor(a, device=dev) for a in
+                         sparse_row_plan(sp.neighbors, sp.weights))
+            self._masked_cache = (torch.as_tensor(sp.w_self, device=dev),
+                                  torch.as_tensor(sp.neighbors, device=dev),
+                                  torch.as_tensor(sp.weights, device=dev),
+                                  plan)
+        return self._masked_cache
+
+    def masked(self, mask) -> "MaskedMixingOp":
+        """This round's degraded view of the op: mask is (n, k_max) in
+        the padded `sparse_structure` table layout (1 = link alive, 0 =
+        dropped; symmetric in edge space — see repro_torch.faults).
+        Build one per round; it shares this op's ledger and comm
+        policy."""
+        return MaskedMixingOp(self, mask)
+
+
+class MaskedMixingOp(MixingOp):
+    """A per-round degraded view of a base MixingOp (see `MixingOp
+    .masked`): applies W_k = W ⊙ M with the dropped weight folded into
+    the self-weight, in the padded neighbor-table space.
+
+    Shares the base op's comm policy, ledger and requested backend by
+    reference, and is the padded sparse-gather backend on this round's
+    tables: `_apply` and `neumann_step` are the base op's, so a masked
+    gossip takes the kernel tier exactly when an unmasked padded gather
+    would (a `*_pallas` backend, or "auto" with the switch on; module
+    docstring, "Fault masks").  The effective self-weight stands in for
+    diag(W) in the compressed gossip's exact self term (`_diag`); the
+    DIHGP preconditioner keeps the nominal diagonal (`as_matrix` reads
+    the base W), as in `repro`."""
+
+    _fusable_view = False     # comm-fused kernels never see a mask
+
+    def __init__(self, base: MixingOp, mask):
+        self.__dict__.update(base.__dict__)  # view: share, don't rebuild
+        w_self, idx, wts, plan = base._masked_tables()
+        mask = torch.as_tensor(mask, dtype=wts.dtype, device=wts.device)
+        if tuple(mask.shape) != tuple(idx.shape):
+            raise ValueError(
+                f"fault mask shape {tuple(mask.shape)} does not match the "
+                f"padded neighbor table {tuple(idx.shape)} of "
+                f"{base.name}; lower it with FaultTrace.table_masks")
+        # not circulant, so no circulant Neumann kernel under a mask
+        self.backend, self._sp_use_padded = "sparse_gather", True
+        self._sp_idx, self._sp_plan = idx, plan
+        # once per round for all of its gossips; an all-ones mask gives
+        # wts·1 and w_self + 0, the nominal tables bit for bit
+        self._sp_wts = wts * mask
+        self._sp_wself = w_self + torch.sum(wts * (1.0 - mask), dim=1)
+        self._diag = self._sp_wself
+
+    def __repr__(self) -> str:
+        return (f"MaskedMixingOp({self.name}, n={self.n}, "
+                f"backend=sparse_gather[masked], dtype={self.dtype})")
 
 
 def make_mixing_op(net: Network, backend: str = "auto", dtype: str = "f32",

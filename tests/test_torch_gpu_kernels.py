@@ -1449,3 +1449,137 @@ def test_circulant_neumann_ring_special_values_bitwise(cuda, dtype, n, d):
         old = _launch_ring("neumann", s, operands)
     _same_bits_nan(ring, want)
     _same_bits_nan(ring, old)
+
+
+# ---------------------------------------------------------------------------
+# Fault-masked gossip (`MixingOp.masked`): the padded sparse gather on one
+# round's degraded tables — row 3's stripe at n ≤ 14,528, row 4's slab
+# with the nominal tables' row plan at n = 4096 — bitwise against
+# `sparse_mix_padded_ref` on the same tables.
+# ---------------------------------------------------------------------------
+
+MASKED_CASES = [("erdos_renyi", 16, 2010), ("erdos_renyi", 16, 157000),
+                ("ring", 16, 2010), ("star", 16, 2010),
+                ("erdos_renyi", 100, 2010), ("erdos_renyi", 4096, 2010)]
+
+
+@pytest.mark.parametrize("kind,n,d", MASKED_CASES)
+def test_masked_sparse_gather_bitwise(cuda, kind, n, d):
+    from repro_torch.faults import FaultSpec, lower_faults
+    r = 0.004 if n == 4096 else 0.5
+    net = make_network(kind, n, r=r, seed=0)
+    op = make_mixing_op(net, device=cuda)
+    trace = lower_faults(FaultSpec(drop_prob=0.3, stragglers=(1,),
+                                   straggle_prob=1.0, seed=n), net, 3)
+    masks = trace.table_masks(op.sparse)
+    y = _randn((n, d), torch.float32, cuda, seed=d)
+    tier, _ = op._stripe_plan(y, blocks=mm.plan_blocks(False),
+                              circulant=False)
+    counter = "sparse_mix_matvec_halo" if tier == "halo" \
+        else "sparse_mix_matvec"
+    for k in range(masks.shape[0]):
+        view = op.masked(torch.as_tensor(masks[k], device=cuda))
+        for lap in (False, True):
+            before = mm.launch_counts()[counter]
+            got = view.laplacian(y) if lap else view.mix(y)
+            torch.cuda.synchronize()
+            assert mm.launch_counts()[counter] == before + 1
+            want = ref.sparse_mix_padded_ref(y, view._sp_wself,
+                                             view._sp_idx, view._sp_wts, lap)
+            _bits_equal(got, want)
+
+
+def test_masked_all_ones_is_the_padded_gather_bitwise(cuda):
+    net = make_network("erdos_renyi", 16, r=0.5, seed=0)
+    op = make_mixing_op(net, "sparse_gather_pallas", device=cuda)
+    y = _randn((16, 2010), torch.float32, cuda, seed=3)
+    view = op.masked(torch.ones(op.sparse.neighbors.shape, device=cuda))
+    assert torch.equal(view._sp_wts, op._sp_wts)
+    assert torch.equal(view._sp_wself, op._sp_wself)
+    _bits_equal(view.mix(y), op.mix(y))
+    _bits_equal(view.laplacian(y), op.laplacian(y))
+
+
+# ---------------------------------------------------------------------------
+# The baselines' widths: DGBO's d2² = 4,040,100 columns (rows 1, 1f, 3, 3f
+# at n = 16) and DGTBO's d1·d2 = 315,570,000 (row 3 at n = 4, row 1 at
+# n = 8, past 2^31 elements), bitwise against the plain versions.
+# Operands drawn on the card.
+# ---------------------------------------------------------------------------
+
+D_DGBO, D_DGTBO = 2010 * 2010, 157000 * 2010
+
+
+def _randn_card(shape, dev, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("comm", [None, "int8+ef"])
+@pytest.mark.parametrize("kind", ["circulant", "sparse"])
+def test_dgbo_width_bitwise(cuda, kind, comm):
+    n, d = 16, D_DGBO
+    net = make_network("ring", n) if kind == "circulant" \
+        else make_network("erdos_renyi", n, r=0.5, seed=0)
+    y = _randn_card((n, d), cuda, seed=1)
+    wire = ()
+    hat = None
+    if comm is not None:
+        from repro_torch.comm import row_quant_params
+        hat = 0.5 * _randn_card((n, d), cuda, seed=2)
+        wire = row_quant_params(y - hat, 8) + (12345,)
+    if kind == "circulant":
+        s = circulant_structure(net.W)
+        got = mm.circulant_mix_matvec(y, *wire, hat, laplacian=True,
+                                      comm=comm, **_tables(s, cuda)) \
+            if comm else mm.circulant_mix_matvec(y, laplacian=True,
+                                                 **_tables(s, cuda))
+        kw = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights,
+                  laplacian=True)
+        want = ref.circulant_mix_fused_ref(y, *wire, hat, bits=8, **kw) \
+            if comm else ref.circulant_mix_ref(y, **kw)
+    else:
+        sp = sparse_structure(net.W)
+        tables = tuple(torch.as_tensor(a, device=cuda)
+                       for a in (sp.w_self, sp.neighbors, sp.weights))
+        got = mm.sparse_mix_matvec(y, *tables, *wire, hat, laplacian=True,
+                                   comm=comm)
+        want = ref.sparse_mix_fused_ref(y, *tables, *wire, hat,
+                                        laplacian=True, bits=8) \
+            if comm else ref.sparse_mix_padded_ref(y, *tables, True)
+    torch.cuda.synchronize()
+    for g, w in (zip(got, want) if comm else [(got, want)]):
+        _bits_equal(g, w)
+
+
+def test_dgtbo_width_bitwise(cuda):
+    n, d = 4, D_DGTBO
+    sp = sparse_structure(make_network("ring", n).W)
+    tables = tuple(torch.as_tensor(a, device=cuda)
+                   for a in (sp.w_self, sp.neighbors, sp.weights))
+    y = _randn_card((n, d), cuda, seed=4)
+    before = mm.launch_counts()["sparse_mix_matvec"]
+    got = mm.sparse_mix_matvec(y, *tables)
+    torch.cuda.synchronize()
+    assert mm.launch_counts()["sparse_mix_matvec"] == before + 1
+    want = ref.sparse_mix_padded_ref(y, *tables)
+    _bits_equal(got, want)
+
+
+def test_dgtbo_width_ring_past_int32_bitwise(cuda):
+    """(8, 315,570,000): 2,524,560,000 elements, past 2^31, on the ring's
+    circulant kernel, as chip_smoke's DGTBO solve gossips it."""
+    n, d = 8, D_DGTBO
+    s = circulant_structure(make_network("ring", n).W)
+    y = _randn_card((n, d), cuda, seed=5)
+    before = mm.launch_counts()["circulant_mix_matvec"]
+    got = mm.circulant_mix_matvec(y, laplacian=False, **_tables(s, cuda))
+    torch.cuda.synchronize()
+    assert mm.launch_counts()["circulant_mix_matvec"] == before + 1
+    want = ref.circulant_mix_ref(y, s.w_self, s.offsets, s.weights)
+    del y
+    # normal draws hold no NaN: a plain bitwise compare, without
+    # `_bits_equal`'s boolean-index copies of 10 GB operands
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    del got, want
+    torch.cuda.empty_cache()

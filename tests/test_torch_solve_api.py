@@ -1,6 +1,7 @@
 """The port's `solve` front-end on the CPU: device selection, seeded
 initialisation, schedules, the paths that raise until their ROADMAP
-item ports them, the matrix-free curvature estimate, and the import
+item ports them (the baselines and faults are in
+test_torch_baselines.py and test_torch_faults.py), the matrix-free curvature estimate, and the import
 isolation of the package.  End-to-end parity with `repro.solve` is in
 test_torch_solve.py.
 """
@@ -70,29 +71,43 @@ def test_default_init_draws_y0_from_the_seed():
 
 
 def test_queued_paths_raise_naming_their_roadmap_item():
+    """What is still queued: the serve and sharded tiers, the flight
+    recorder with dagm, and the obs hooks of the fault trace and the
+    ledger (item 10).  The baselines and faults run (items 6 and 7)."""
+    from repro_torch.faults import FaultSpec, lower_faults
     tprob = tp.quadratic_bilevel(4, 2, 3, device="cpu")
     net = make_network("ring", 4)
-    cases = [(SolverSpec(K=1, method="dgbo"), {}, "queue 1 item 6"),
-             (SolverSpec(K=1, tier="serve"), {}, "queue 1 item 9"),
+    cases = [(SolverSpec(K=1, tier="serve"), {}, "queue 1 item 9"),
              (SolverSpec(K=1, tier="sharded"), {}, "queue 1 item 11"),
-             (SolverSpec(K=1, faults=object()), {}, "queue 1 item 7"),
              (SolverSpec(K=1), {"recorder": object()}, "queue 1 item 10")]
     for spec, kw, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             solve(tprob, net, spec, device="cpu", **kw)
+    res = solve(tprob, net, SolverSpec(K=1, faults=FaultSpec(
+        drop_prob=0.5)), device="cpu")
+    for obj in (res.extras["fault_trace"], res.ledger,
+                lower_faults(FaultSpec(), net, 2)):
+        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+            obj.observe()
+    for method in ("dgbo", "dgtbo", "fednest", "ma_dbo"):
+        assert solve(tprob, net, SolverSpec(K=1, M=1, method=method),
+                     device="cpu").method == method
     with pytest.raises(ValueError, match="positive iteration count"):
         solve(tprob, net, SolverSpec(K=0), device="cpu")
 
 
 def test_spec_carries_only_what_the_port_reads():
     """The port's SolverSpec is a subset of repro's: the options of the
-    baselines and the sharded tier come with the code that reads them, so
-    a caller cannot set one that would be silently ignored."""
+    sharded tier come with the code that reads them, so a caller cannot
+    set one that would be silently ignored; the baselines' momentum, b
+    and N are back with the baselines, at repro's defaults."""
     names = {f.name for f in dataclasses.fields(SolverSpec)}
     assert names <= {f.name for f in dataclasses.fields(JSpec)}
-    assert not names & {"sharded", "momentum", "b", "N"}
+    assert not names & {"sharded"}
+    for name in ("momentum", "b", "N"):
+        assert getattr(SolverSpec(), name) == getattr(JSpec(), name)
     with pytest.raises(TypeError):
-        SolverSpec(momentum=0.5)
+        SolverSpec(sharded=None)
     with pytest.raises(TypeError):
         CommSpec(persist_ef=True)
 

@@ -139,11 +139,16 @@ def test_auto_rules_and_pallas_aliases():
 
 
 def test_queued_features_raise_naming_their_roadmap_item():
-    """Fault masks are still queued; every comm spec `repro` accepts now
-    builds (compressed gossip, ROADMAP queue 1 item 5, is ported)."""
+    """The ledger's obs hook is still queued (item 10); fault masks
+    (item 7) run — an all-ones mask mixes as the op itself — and every
+    comm spec `repro` accepts builds (compressed gossip, item 5)."""
     op = make_mixing_op(make_network("ring", 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        op.masked(np.ones((8, 2)))
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        op.ledger.observe()
+    y = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (8, 5)).astype(np.float32))
+    torch.testing.assert_close(op.masked(np.ones((8, 2))).mix(y), op.mix(y),
+                               rtol=0, atol=1e-6)
     for spec in ("int8+ef", "int4", "bf16", "top_k:0.1", "rand_k:0.25+ef"):
         assert make_mixing_op(make_network("ring", 8), comm=spec,
                               device="cpu").comm.spec == spec
