@@ -55,15 +55,15 @@ Phases, in order (any failure exits non-zero before the last line):
                comm-fused kernels; ring int4 also bitwise against its
                run through the plain versions, its 15 Neumann steps'
                launches and device time by route).  Each run has exact launch counts,
-               exact ledger bytes and finite metrics.  The identity runs
-               agree with the same run on the CPU; the compressed ones
-               with the same run on the card through the kernels' plain
-               versions, and with the CPU run within the algorithm's own
-               seed-to-seed spread (see E2E_NORM_REL), and bit for bit
-               with the same run through the fused gossips' unstaged
-               kernels, whose device time per solve is profiled beside
-               the decoded stripe's; the ring identity solve likewise
-               through the plain ring kernels' unstaged kernels;
+               exact ledger bytes and finite metrics.  The ring identity
+               run agrees with the same run on the CPU (the one CPU
+               reference of the phase, beside its run from a nudged x0);
+               the other four are bitwise the same run on the card
+               through the kernels' plain versions, the compressed ones
+               also bit for bit the same run through the fused gossips'
+               unstaged kernels, whose device time per solve is profiled
+               beside the decoded stripe's; the ring identity solve
+               likewise through the plain ring kernels' unstaged kernels;
   4b. fig2   — the same solve on an Erdős–Rényi graph of 100 agents
                (r = 0.5, the paper's Fig. 2 size; K = 3, identity wire),
                every gossip through the sparse gather's column stripe:
@@ -116,7 +116,23 @@ Phases, in order (any failure exits non-zero before the last line):
                symmetric and doubly stochastic; an all-ones mask bitwise
                against the unfaulted "sparse_gather_pallas" solve; the
                faulted Erdős–Rényi solve at n = 4096 (row 4's slab);
-  9. the kernel list as one JSON line, then the device JSON line last.
+  9. serve   — five buckets of 10 jobs of the same MLP at n = 16 (K = 4,
+               width 8, chunk_rounds 2; fig4's (α, β) ± 20 %): ring and
+               ER identity, ring and ER int8+ef, ring int4, through
+               `ServeEngine`: every job against its solo solve on the
+               card (wire bytes exact), exact launches (one a bucket
+               gossip, the job-axis counters of rows 5, 1f, 3f and 5f),
+               each bucket's seconds per round and job-rounds per s
+               beside the ten solo solves', device busy, idle share and
+               peak memory; every captured job-axis launch bitwise its
+               plain version and its jobs' solo launches, timed; a run
+               crashed after its first chunk and resumed by a fresh
+               engine bitwise the uninterrupted run;
+ 10. obs     — the flight recorder and tracing on the ring int8+ef
+               solve (bitwise the plain solve; the recorder's wire bytes
+               the ledger's; the trace valid), a checkpoint round trip of
+               f32, bf16 and int32 leaves on the card;
+ 11. the kernel list as one JSON line, then the device JSON line last.
 
 Imports torch and the port only; needs no network.
 """
@@ -178,20 +194,14 @@ BF16_REL_TOL = 2.0 ** -7
 # end to end, GPU vs CPU: cuBLAS and CPU reductions in the autodiff
 # terms sum in other orders, amplified over K rounds of the outer loop
 E2E_RTOL, E2E_ATOL = 1e-3, 1e-4
-# compressed runs: the same send seeds give the same uniforms on both
-# devices, but stochastic rounding is discontinuous.  A ~1e-7 difference
-# in an autodiff term flips the code of any element that sits next to a
-# code boundary, moving one neighbor term by w*scale, and the run carries
-# that on: on the ER graph a 1e-7 relative change of x0 alone moves the
-# CPU run's final y by ~5e-3 (norm-relative).  So the kernels are held
-# against the same solve on the card with each kernel replaced by its
-# plain version (same autodiff, same device): x and y by norm-relative
-# error, the per-round metrics by a wider band.  The card against the
-# CPU is held by the algorithm's own noise: nearer than half the distance
-# between two CPU runs whose channels draw other seeds.
+# runs against the same solve on the card with each kernel replaced by
+# its plain version (same autodiff, same device): the kernels equal
+# their plain versions bit for bit, so the runs are held bitwise; the
+# compressed ones are also printed by norm-relative error (stochastic
+# rounding is discontinuous, so a run that differed anywhere would carry
+# it on) and their per-round metrics by a wider band.
 E2E_NORM_REL = 1e-3
 E2E_METRIC_RTOL, E2E_METRIC_ATOL = 1e-2, 1e-4
-E2E_SEED_SPREAD_SHARE = 0.5
 
 
 def cuda_ms(torch, fn, pool, iters=200, warmup=10) -> float:
@@ -1414,6 +1424,10 @@ def main_path_phase(torch, counts_out: dict) -> None:
                                        n_classes=N_CLASSES, m_per=M_PER,
                                        seed=0, device=dev)
              for dev in ("cuda", "cpu")}
+    # the CPU reference runs only the ring identity solve (and its nudged
+    # twin): every other run is held against the same solve on the card
+    # through the kernels' plain versions, which the kernels equal bit
+    # for bit
     assert (probs["cuda"].d1, probs["cuda"].d2) == (D1, D2)
     # the all-zero x0 is dead under ReLU: a random backbone, shared by
     # every agent, as the paper's MLP starts
@@ -1484,26 +1498,32 @@ def main_path_phase(torch, counts_out: dict) -> None:
         else:
             print(f"  identity run's metrics on {net.name}",
                   identity_metrics[net.name])
-        cpu = run("cpu")
-        if comm == "identity":
+        if label == "ring identity":
+            cpu = run("cpu")
             compare_runs(torch, "CPU", res, cpu)
+            nudged = run("cpu", x0=x0 * np.float32(1 + 1e-7))
+            for name in ("x", "y"):
+                print(f"  vs CPU {name}: norm_rel_err="
+                      f"{norm_rel(getattr(res, name), getattr(cpu, name)):.3e}"
+                      f"; CPU x0*(1+1e-7) "
+                      f"{norm_rel(getattr(nudged, name), getattr(cpu, name)):.3e}")
+            ref_bytes = cpu.ledger.total_bytes
         else:
             with plain_versions():
                 plain = run("cuda")
             compare_runs(torch, "the card's plain versions", res, plain,
-                         compressed=True)
-            if comm == "int4":
-                # the kernels equal their plain versions bit for bit, and
-                # nothing else differs between the two runs
-                same_bits(torch, f"{label} vs the card's plain versions",
-                          res, plain)
-            compare_with_noise(torch, res, cpu, run("cpu", seed=1),
-                               run("cpu", x0=x0 * np.float32(1 + 1e-7)))
+                         compressed=comm != "identity")
+            # the kernels equal their plain versions bit for bit, and
+            # nothing else differs between the two runs
+            same_bits(torch, f"{label} vs the card's plain versions",
+                      res, plain)
+            ref_bytes = plain.ledger.total_bytes
+            del plain
         preview = spec.comm_ledger(D1, D2).total_bytes
-        print(f"  ledger total_bytes={res.ledger.total_bytes} (CPU run "
-              f"{cpu.ledger.total_bytes}, spec preview {preview}, "
-              f"expected {ledger_bytes})")
-        if not res.ledger.total_bytes == cpu.ledger.total_bytes == preview \
+        print(f"  ledger total_bytes={res.ledger.total_bytes} (reference "
+              f"run {ref_bytes}, spec preview {preview}, expected "
+              f"{ledger_bytes})")
+        if not res.ledger.total_bytes == ref_bytes == preview \
                 == ledger_bytes:
             raise AssertionError(f"{label}: ledger bytes disagree")
         by_kernel = {}
@@ -2803,6 +2823,505 @@ def faults_phase(torch, counts_out: dict) -> None:
           f"{time.perf_counter() - t_part:.1f} s with its problem")
 
 
+# ---------------------------------------------------------------------------
+# serve: buckets of the §6.2 MLP through the engine, on the job axis
+# ---------------------------------------------------------------------------
+
+SERVE_JOBS, SERVE_K, SERVE_T, SERVE_WIDTH = 10, 4, 2, 8
+# fig4's neighbourhood: its (α, β) = (0.1, 0.1), swept ±20 %
+SERVE_GRID = ((0.1, 0.1), (0.08, 0.1), (0.12, 0.1), (0.1, 0.08),
+              (0.1, 0.12), (0.09, 0.11), (0.11, 0.09), (0.08, 0.12),
+              (0.12, 0.08), (0.1, 0.1))
+# a served job against its solo solve on the card: the gossips of both
+# are bitwise (each job-axis launch equals the job's solo launch), but
+# the autodiff terms run as batched (bmm) operations whose reductions may
+# sum in another order than the solo run's, amplified over K rounds:
+# elementwise at the GPU-vs-CPU band on the identity wire, by
+# norm-relative error under stochastic rounding (see E2E_NORM_REL)
+SERVE_RTOL, SERVE_ATOL = E2E_RTOL, E2E_ATOL
+
+
+@functools.lru_cache(maxsize=None)
+def serve_problem(seed: int, device: str = "cuda"):
+    """The §6.2 MLP on the data of `seed`, its backbone x offset by the
+    main path's random start (a data leaf, so a serve job, which starts
+    at x = 0, starts where the main path's solve does instead of at the
+    ReLU's dead zero).  Cached: the engine's buckets and the solo solves
+    share one instance per seed."""
+    import numpy as np
+
+    from repro_torch.core.problems import (BilevelProblem,
+                                           hyper_representation)
+    base = hyper_representation(N_AGENTS, d=D_IN, hidden=HIDDEN,
+                                n_classes=N_CLASSES, m_per=M_PER,
+                                seed=seed, device=device)
+    x_base = np.broadcast_to(
+        0.3 * np.random.default_rng(42).standard_normal(D1),
+        (N_AGENTS, D1)).astype(np.float32)
+    data = dict(base.data, x_base=__import__("torch").as_tensor(
+        x_base, device=device))
+
+    def f(x_i, y_i, d):
+        return base.f(x_i + d["x_base"], y_i, d)
+
+    def g(x_i, y_i, d):
+        return base.g(x_i + d["x_base"], y_i, d)
+    return BilevelProblem("hyper_representation_x0", base.n, base.d1,
+                          base.d2, f, g, data, base.mu_g)
+
+
+def serve_specs(comm: str, graph: str, family=serve_problem):
+    from repro_torch.serve import JobSpec
+    from repro_torch.solve import CommSpec, ScheduleSpec, SolverSpec
+    gk = {"r": 0.5, "seed": 0} if graph == "erdos_renyi" else {}
+    problem = {"seed": 0}
+    if family == "hyper_representation":
+        problem = {"n": N_AGENTS, "d": D_IN, "hidden": HIDDEN,
+                   "n_classes": N_CLASSES, "m_per": M_PER}
+    return [JobSpec(family, dict(problem, seed=s),
+                    SolverSpec(K=SERVE_K, M=M, U=U, dihgp="matrix_free",
+                               schedule=ScheduleSpec(alpha=a, beta=b),
+                               comm=CommSpec(comm)),
+                    graph=graph, graph_kwargs=dict(gk, n=N_AGENTS), seed=s)
+            for s, (a, b) in enumerate(SERVE_GRID[:SERVE_JOBS])]
+
+
+def serve_rounds() -> int:
+    """Rounds a bucket of SERVE_JOBS runs: SERVE_WIDTH jobs for K rounds,
+    then the backfilled rest for K more, in chunks of SERVE_T."""
+    waves = -(-SERVE_JOBS // SERVE_WIDTH)
+    return waves * SERVE_K
+
+
+def serve_counts(graph: str, comm: str) -> dict:
+    """The exact launches of one bucket, by the planners' routes at the
+    bucket's (16, width·d) operands: one launch per gossip."""
+    from repro_torch.kernels import mixing_matvec as mm
+    r = serve_rounds()
+    d2, d1 = SERVE_WIDTH * D2, SERVE_WIDTH * D1
+    sms = mm.CARD_SMS
+    if comm == "identity" and graph == "ring":
+        counts = {}
+        for d, c in ((d2, r * M), (d1, r)):
+            name = ring_mix_counter(N_AGENTS, d)
+            counts[name] = counts.get(name, 0) + c
+        name = "circulant_neumann_step_jobs" if mm.neumann_ring_plan(
+            N_AGENTS, 1, 1, d=d2) else "circulant_neumann_step_unstaged_jobs"
+        counts[name] = r * U
+        return counts
+    if comm == "identity":
+        return {"sparse_mix_matvec": r * (M + U + 1)}
+    kind = "circulant" if graph == "ring" else "sparse"
+    counts = {}
+    gossips = [(d2, r * M), (d1, r)]
+    if comm.endswith("+ef") or graph != "ring":
+        gossips.append((d2, r * U))
+    else:
+        name = "circulant_neumann_step_comm_jobs" \
+            if mm.plan_neumann_comm_stripe_cols(N_AGENTS, d2, sms) \
+            else "circulant_neumann_step_comm_unstaged_jobs"
+        counts[name] = r * U
+    for d, c in gossips:
+        name = f"{kind}_mix_matvec_comm" + (
+            "" if mm.plan_comm_stripe_cols(N_AGENTS, d, sms)
+            else "_unstaged") + "_jobs"
+        counts[name] = counts.get(name, 0) + c
+    return counts
+
+
+@contextlib.contextmanager
+def capture_job_launches(store: dict):
+    """Record the first job-axis call of each (wrapper, comm, width) that
+    MixingOp makes, its operands cloned: the launches chip_smoke then
+    holds, job by job, against the solo launch and the plain version."""
+    from repro_torch.kernels.ref import is_seed_table
+    from repro_torch.topology import ops
+    names = ("circulant_mix_matvec", "sparse_mix_matvec",
+             "circulant_neumann_step")
+    saved = {name: getattr(ops, name) for name in names}
+
+    def clone(a):
+        return a.clone() if hasattr(a, "clone") else a
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            seed_at = {"circulant_mix_matvec": 3, "sparse_mix_matvec": 6,
+                       "circulant_neumann_step": 6}[name]
+            jobs = len(args) > seed_at and is_seed_table(args[seed_at]) \
+                or hasattr(kw.get("beta"), "shape")
+            if jobs:
+                key = (name, kw.get("comm"), tuple(args[0].shape))
+                if key not in store:
+                    store[key] = (tuple(clone(a) for a in args),
+                                  {k: clone(v) for k, v in kw.items()})
+            return fn(*args, **kw)
+        return call
+    for name in names:
+        setattr(ops, name, wrap(name, saved[name]))
+    try:
+        yield
+    finally:
+        for name in names:
+            setattr(ops, name, saved[name])
+
+
+def job_axis_checks(torch, store: dict, results: dict) -> None:
+    """Each captured job-axis launch: bitwise its plain version on the
+    card and, job by job, the solo launch on the job's slice; timed
+    against the B solo launches, the plain version and one PyTorch call
+    of the uncompressed mix (torch.matmul with the dense W), with its
+    bound.  Launches here are not the main path's: counts are read
+    before and reset after."""
+    from repro_torch.kernels import mixing_matvec as mm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ref import is_seed_table
+    for (name, comm, shape), (args, kw) in sorted(store.items(),
+                                                  key=lambda t: str(t[0])):
+        n, width = shape
+        fn = getattr(mm, name)
+        mm.reset_launch_counts()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        counter = next(c for c, v in mm.launch_counts().items() if v)
+        neumann = name == "circulant_neumann_step"
+        if neumann:
+            B = kw["beta"].shape[0]
+        else:
+            B = len(args[3] if name == "circulant_mix_matvec" else args[6])
+        d = width // B
+        host = (lambda t: t.tolist() if hasattr(t, "tolist") else list(t))
+        tag = f"{counter} ({n}, {B}x{d}) comm={comm}"
+        bits = None if comm in (None, "identity") else int(comm[3])
+        ef = comm is not None and comm.endswith("+ef")
+        if name == "circulant_mix_matvec":
+            circ = dict(w_self=kw["w_self"], offsets=host(kw["offsets"]),
+                        weights=host(kw["weights"]),
+                        laplacian=kw.get("laplacian", False))
+
+            def plain(a):
+                return ref.circulant_mix_fused_ref(*a[:5], bits=bits,
+                                                   **circ)
+        elif name == "sparse_mix_matvec":
+            def plain(a):
+                return ref.sparse_mix_fused_ref(
+                    *a[:8], laplacian=kw.get("laplacian", False),
+                    bits=bits)
+        else:
+            circ = dict(w_self=kw["w_self"], offsets=host(kw["offsets"]),
+                        weights=host(kw["weights"]), beta=kw["beta"])
+
+            def plain(a):
+                if bits is None:
+                    return ref.neumann_step_ref(*a[:4], **circ)
+                return ref.neumann_step_fused_ref(*a[:7], bits=bits, **circ)
+        want = plain(args)
+        bitwise(tag, out, want, "the plain version")
+        err = max(((g.float() - w.float()).abs().max().item()
+                   for g, w in (zip(out, want) if ef else ((out, want),))),
+                  default=0.0)
+
+        # the positions of the operands (n, B·d), the per-job tables (n,
+        # B) and the seed table in each wrapper's arguments
+        states, tables, seeds_at = {
+            "circulant_mix_matvec": ((0, 4), (1, 2), 3),
+            "sparse_mix_matvec": ((0, 7), (4, 5), 6),
+            "circulant_neumann_step": ((0, 1, 2), (3, 4, 5), 6)}[name]
+
+        def solo_args(j):
+            a = list(args)
+            for i in states:
+                if i < len(a) and a[i] is not None:
+                    a[i] = a[i][:, j * d:(j + 1) * d].contiguous()
+            for i in tables:
+                if i < len(a) and a[i] is not None:
+                    a[i] = a[i][:, j:j + 1].contiguous()
+            if seeds_at < len(a):
+                a[seeds_at] = int(a[seeds_at][j])
+            k = dict(kw)
+            if neumann:
+                k["beta"] = float(kw["beta"][j])
+            return a, k
+        solos = [solo_args(j) for j in range(B)]
+        diff = 0
+        for j, (a, k) in enumerate(solos):
+            got = fn(*a, **k)
+            parts = zip(out, got) if ef else ((out, got),)
+            diff += sum(int((o[:, j * d:(j + 1) * d] != g).sum())
+                        for o, g in parts)
+        print(f"  {tag}: elements differing from the {B} jobs' solo "
+              f"launches {diff} (bitwise, job by job)")
+        if diff:
+            raise AssertionError(f"{tag}: not bitwise its jobs' solo "
+                                 f"launches")
+        ms = cuda_ms(torch, lambda _: fn(*args, **kw), [None], iters=50)
+        ms_solo = cuda_ms(torch, lambda _: [fn(*a, **k) for a, k in solos],
+                          [None], iters=20)
+        plain_ms = cuda_ms(torch, lambda _: plain(args), [None], iters=5,
+                           warmup=1)
+        W = torch.full((n, n), 1.0 / n, device=args[0].device)
+        lib, lib_err = try_library(torch, lambda _: torch.matmul(W, args[0]),
+                                   [None], iters=50)
+        k_nbr = 2 if name != "sparse_mix_matvec" else args[2].shape[1]
+        streams = (3 if neumann else 1) + (1 if ef else 0)
+        nbytes = n * width * 4 * (streams + 1 + (1 if ef else 0)) \
+            + (8 * n * B if bits else 0) + (4 * n * B if neumann else 0)
+        flops = (2 * (k_nbr + 1) + (6 if neumann else 0)
+                 + (QUANT_F32_OPS if bits else 0)) * n * width
+        b_ms, b_by = bound(nbytes, flops,
+                           QUANT_INT_OPS * n * width if bits else 0.0)
+        print(f"  {tag}: {ms:.5f} ms on the job axis, {B} solo launches "
+              f"{ms_solo:.5f} ms, plain version {plain_ms:.5f} ms, "
+              f"torch.matmul (uncompressed) {lib_text(lib, lib_err)} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}); CUDA events, operands "
+              f"L2-warm (one copy)")
+        results.setdefault(counter, {})[(n, width, comm or "identity",
+                                         B)] = {
+            "ms": ms, "dev": None, "plain": plain_ms, "bound": b_ms,
+            "by": b_by, "lib": lib, "err": err, "solo_ms": ms_solo,
+            "jobs": B}
+    mm.reset_launch_counts()
+
+
+def serve_phase(torch, out: dict) -> None:
+    """Five buckets of SERVE_JOBS jobs of the §6.2 MLP through
+    `ServeEngine`, each job held against its solo solve on the card, and
+    the engine's crash-restart bitwise (see the module docstring)."""
+    import tempfile
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ServeEngine, SimulatedCrash
+    from repro_torch.solve import solve
+    from repro_torch.topology import make_network
+    results, counts_out = out["results"], out["counts"]
+    nets = {"ring": make_network("ring", N_AGENTS),
+            "erdos_renyi": make_network("erdos_renyi", N_AGENTS, r=0.5,
+                                        seed=0)}
+    zero = dict.fromkeys(launch_counts(), 0)
+    store: dict = {}
+    rounds = serve_rounds()
+    for graph, comm in (("ring", "identity"), ("erdos_renyi", "identity"),
+                        ("ring", "int8+ef"), ("erdos_renyi", "int8+ef"),
+                        ("ring", "int4")):
+        label = f"{graph} {comm}"
+        specs = serve_specs(comm, graph)
+        expected = {**zero, **serve_counts(graph, comm)}
+        print(f"serve: {SERVE_JOBS} jobs of hyper_representation d1={D1} "
+              f"d2={D2} on {label}, K={SERVE_K} M={M} U={U}, "
+              f"chunk_rounds={SERVE_T}, max_width={SERVE_WIDTH}")
+
+        def run_bucket(specs=specs):
+            eng = ServeEngine(chunk_rounds=SERVE_T, max_width=SERVE_WIDTH)
+            eng.submit(specs)
+            return eng, eng.run()
+        t_bucket = time.perf_counter()
+        # the profiled run first: it is also the timed run's warm-up
+        busy = profile_run(torch, run_bucket)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with capture_job_launches(store):
+            eng, res = run_bucket()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  launches {counts} expected {expected}")
+        if counts != expected:
+            raise AssertionError(f"serve {label}: launch counts {counts} "
+                                 f"!= {expected}")
+        for name, c in counts.items():
+            counts_out[name] = counts_out.get(name, 0) + c
+        if eng.stats.traces != 1 or eng.stats.chunks != rounds // SERVE_T:
+            raise AssertionError(f"serve {label}: {eng.stats}")
+        worst = {"x": 0.0, "y": 0.0}
+        solo_wall = 0.0
+        for spec, r in zip(specs, res):
+            if r.rounds != SERVE_K or r.quarantined:
+                raise AssertionError(f"serve {label}: {r.job_id} ran "
+                                     f"{r.rounds} rounds")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ref_run = solve(serve_problem(spec.seed), nets[graph],
+                            spec.config, seed=spec.seed)
+            torch.cuda.synchronize()
+            solo_wall += time.perf_counter() - t1
+            for name in ("x", "y"):
+                got = getattr(r, name).to(ref_run.x.device)
+                want = getattr(ref_run, name)
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"serve {label}: {name} not "
+                                         f"finite")
+                rel = norm_rel(got, want)
+                worst[name] = max(worst[name], rel)
+                if comm == "identity":
+                    torch.testing.assert_close(got, want, rtol=SERVE_RTOL,
+                                               atol=SERVE_ATOL)
+                elif not rel <= E2E_NORM_REL:
+                    raise AssertionError(f"serve {label} {r.job_id}: "
+                                         f"{name} norm-relative error "
+                                         f"{rel} > {E2E_NORM_REL}")
+            if r.wire_bytes != ref_run.ledger.total_bytes:
+                raise AssertionError(f"serve {label} {r.job_id}: wire "
+                                     f"bytes {r.wire_bytes} != "
+                                     f"{ref_run.ledger.total_bytes}")
+            del ref_run
+        led = eng.ledgers[res[0].signature]
+        if int(led.per_job_bytes().sum()) != led.total_bytes \
+                != sum(r.wire_bytes for r in res):
+            raise AssertionError(f"serve {label}: ledger bytes disagree")
+        print(f"  every job vs its solo solve on the card: worst "
+              f"norm_rel_err x {worst['x']:.3e} y {worst['y']:.3e} "
+              f"({'elementwise rtol ' + str(SERVE_RTOL) if comm == 'identity' else 'bound ' + str(E2E_NORM_REL)}); "
+              f"wire bytes exact, ledger {led.total_bytes} B")
+        job_rounds = SERVE_JOBS * SERVE_K
+        print(f"  bucket: {wall / rounds:.6f} s per round ({rounds} rounds "
+              f"of width {SERVE_WIDTH}), {job_rounds / wall:.2f} job-rounds "
+              f"per s; {SERVE_JOBS} solo solves: "
+              f"{solo_wall / job_rounds:.6f} s per round, "
+              f"{job_rounds / solo_wall:.2f} job-rounds per s; peak memory "
+              f"{peak:.2f} GiB (host clock, after a warm-up run)")
+        if busy is not None:
+            print(f"  bucket device busy {busy:.1f} us of "
+                  f"{wall * 1e6:.1f} us unprofiled (idle share "
+                  f"{1 - busy / (wall * 1e6):.4f})")
+        print(f"  {label}: {time.perf_counter() - t_bucket:.1f} s with its "
+              f"solo solves (these {solo_wall:.1f} s)")
+        del eng, res
+    print(f"serve: {len(store)} captured job-axis launches")
+    t_part = time.perf_counter()
+    job_axis_checks(torch, store, results)
+    del store
+    print(f"serve: job-axis checks {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+    # crash and restart: the zoo family (a callable family does not
+    # survive a restart), ring int8+ef
+    specs = serve_specs("int8+ef", "ring", family="hyper_representation")
+    eng = ServeEngine(chunk_rounds=SERVE_T, max_width=SERVE_WIDTH)
+    eng.submit(specs)
+    full = eng.run()
+    with tempfile.TemporaryDirectory() as ckdir:
+        eng = ServeEngine(chunk_rounds=SERVE_T, max_width=SERVE_WIDTH,
+                          checkpoint_dir=ckdir, crash_after_chunks=1)
+        eng.submit(specs)
+        try:
+            eng.run()
+            raise AssertionError("serve: crash_after_chunks did not fire")
+        except SimulatedCrash:
+            pass
+        # the resumed run checkpoints no more (the restart is what is
+        # checked; each step is a ~190 MB compressed write)
+        eng = ServeEngine(chunk_rounds=SERVE_T, max_width=SERVE_WIDTH,
+                          checkpoint_dir=ckdir, checkpoint_every=10 ** 6)
+        resumed = eng.run()
+        if eng.stats.restarts != 1:
+            raise AssertionError(f"serve: resume {eng.stats}")
+    diff = sum(int((a.x != b.x).sum()) + int((a.y != b.y).sum())
+               + abs(a.wire_bytes - b.wire_bytes)
+               for a, b in zip(full, resumed))
+    print(f"serve: crash after chunk 1 and restart (ring int8+ef, "
+          f"{SERVE_JOBS} jobs): elements differing from the uninterrupted "
+          f"run {diff} (bitwise), restarts {eng.stats.restarts}; "
+          f"{time.perf_counter() - t_part:.1f} s")
+    if diff:
+        raise AssertionError("serve: the resumed run differs")
+
+
+def obs_phase(torch, _unused) -> None:
+    """The flight recorder and tracing on the main path's ring int8+ef
+    solve (inert: bitwise the plain solve; the recorder's wire bytes the
+    ledger's; the trace valid), and a checkpoint round trip on the card."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import obs
+    from repro_torch.core.problems import hyper_representation
+    from repro_torch.solve import CommSpec, ScheduleSpec, SolverSpec, solve
+    from repro_torch.topology import make_network
+    prob = hyper_representation(N_AGENTS, d=D_IN, hidden=HIDDEN,
+                                n_classes=N_CLASSES, m_per=M_PER, seed=0,
+                                device="cuda")
+    x0 = np.broadcast_to(
+        0.3 * np.random.default_rng(42).standard_normal(D1),
+        (N_AGENTS, D1)).astype(np.float32)
+    net = make_network("ring", N_AGENTS)
+    spec = SolverSpec(K=K, M=M, U=U, dihgp="matrix_free",
+                      schedule=ScheduleSpec(alpha=0.1, beta=0.1),
+                      comm=CommSpec("int8+ef"))
+
+    def run(**kw):
+        res = solve(prob, net, spec, x0=x0, **kw)
+        torch.cuda.synchronize()
+        return res
+    base = run()
+    rec = run(recorder=obs.RecorderSpec(capacity=64))
+    same_bits(torch, "ring int8+ef with the flight recorder vs without",
+              rec, base)
+    flight = rec.extras["flight"]
+    wire = flight[:, obs.FIELDS.index("wire_bytes")]
+    per_round = spec.comm_ledger(D1, D2, rounds=1).total_bytes
+    want = [per_round * (k + 1) for k in range(K)]
+    print(f"obs: flight rows {flight.shape}, wire_bytes column "
+          f"{wire.tolist()} (ledger {rec.ledger.total_bytes} B, "
+          f"{per_round} B a round)")
+    if wire.tolist() != want or wire[-1] != rec.ledger.total_bytes:
+        raise AssertionError("obs: the recorder's wire bytes disagree with "
+                             "the ledger")
+    if not np.isfinite(flight).all():
+        raise AssertionError("obs: flight rows not finite")
+    with obs.tracing() as tr:
+        traced = run()
+    same_bits(torch, "ring int8+ef under obs.tracing() vs without",
+              traced, base)
+    events = obs.trace_events(tr)
+    obs.validate_trace(events)
+    print(f"obs: traced solve: {len(events)} trace events, valid; spans "
+          f"{sorted({e.name for e in tr.events()})}")
+    tr.clear()
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(5)
+    tree = {"carry": ((torch.randn((N_AGENTS, D2), generator=gen,
+                                   device=dev),
+                       torch.randn((N_AGENTS, D1), generator=gen,
+                                   device=dev).to(torch.bfloat16)),
+                      obs.FlightBuffer(rows=torch.tensor(flight, device=dev),
+                                       count=torch.tensor(K, dtype=torch.int32,
+                                                          device=dev))),
+            "data": {k: v for k, v in prob.data.items()}}
+    def zeros(t):
+        if isinstance(t, dict):
+            return {k: zeros(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return type(t)(*map(zeros, t)) if hasattr(t, "_fields") \
+                else tuple(map(zeros, t))
+        return torch.zeros_like(t)
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        if isinstance(t, tuple):
+            return [x for v in t for x in leaves(v)]
+        return [t]
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save_checkpoint(d, 1, tree)
+        back = ckpt.restore_checkpoint(d, 1, zeros(tree))
+    pairs = list(zip(leaves(back), leaves(tree)))
+    diff = 0
+    for got, want in pairs:
+        if got.device != want.device or got.dtype != want.dtype:
+            raise AssertionError("obs: checkpoint leaf moved device/dtype")
+        a, b = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+                for t in (got, want))
+        diff += int((a != b).sum())
+    print(f"obs: checkpoint on the card round trip ({len(pairs)} leaves, "
+          f"bf16 included): elements differing {diff} (bitwise)")
+    if diff:
+        raise AssertionError("obs: checkpoint round trip differs")
+
+
+
 def median(values):
     return sorted(values)[len(values) // 2]
 
@@ -2874,29 +3393,6 @@ def compare_runs(torch, what, res, ref_run, compressed=False,
         torch.testing.assert_close(g, c, rtol=rtol, atol=atol)
 
 
-def compare_with_noise(torch, res, cpu, other_seed, nudged) -> None:
-    """A compressed run on the card against the CPU run with the same
-    seeds, held by the algorithm's own noise: the CPU run with other
-    channel seeds (`other_seed`) sets the scale; the CPU run from x0
-    nudged by 1e-7 (`nudged`) shows how far rounding alone carries."""
-    for name in ("x", "y"):
-        got = norm_rel(getattr(res, name), getattr(cpu, name))
-        spread = norm_rel(getattr(other_seed, name), getattr(cpu, name))
-        nudge = norm_rel(getattr(nudged, name), getattr(cpu, name))
-        print(f"  vs CPU {name}: norm_rel_err={got:.3e}; CPU x0*(1+1e-7) "
-              f"{nudge:.3e}; CPU with channel seed 1 {spread:.3e} (bound "
-              f"{E2E_SEED_SPREAD_SHARE} x that)")
-        if not got <= E2E_SEED_SPREAD_SHARE * spread:
-            raise AssertionError(f"{name}: the card's run is {got} from "
-                                 f"the CPU's, not within "
-                                 f"{E2E_SEED_SPREAD_SHARE} x the seed "
-                                 f"spread {spread}")
-    for key, val in res.metrics.items():
-        c = cpu.metrics[key]
-        print(f"  vs CPU metrics[{key}]: max_abs_err="
-              f"{(val.cpu() - c).abs().max().item():.3e}")
-
-
 @contextlib.contextmanager
 def plain_versions():
     """MixingOp with every kernel wrapper replaced by its plain PyTorch
@@ -2963,23 +3459,32 @@ def profile_run(torch, run, by_kernel: dict | None = None) -> float | None:
     run under torch.profiler (which slows the host, so its wall time is
     not the round time above); returns the device's busy µs, and fills
     `by_kernel` with {kernel name: device µs} of the port's kernels."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device activities only (kernels, copies, sets): an operator's row
-    # repeats the time of the kernels it launched, and the tracer's own
-    # buffer requests are not the program's work
     from torch.autograd import DeviceType
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0
-            and not e.key.startswith("Activity Buffer Request")]
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_rows(activities):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        # device activities only (kernels, copies, sets): an operator's
+        # row repeats the time of the kernels it launched, and the
+        # tracer's own buffer requests are not the program's work
+        return wall, [(e.self_device_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0
+                      and not e.key.startswith("Activity Buffer Request")]
+    # the device's activity alone: the host's operator events of a serve
+    # bucket (~10^5) took the profiler ~30 s a run to aggregate
+    wall_us, rows = device_rows([ProfilerActivity.CUDA])
+    if not rows:
+        print("  profiler: no device rows without the host's activity; "
+              "profiling with it")
+        wall_us, rows = device_rows([ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA])
     busy_us = sum(r[0] for r in rows)
     if not rows:
         print("  profiler: no device time recorded (not measured)")
@@ -3022,7 +3527,7 @@ def tensor_core_instructions(lib) -> dict:
 
 
 PHASES = ("kernel", "halo", "ring_sweep", "main", "fig2", "large",
-          "routes", "ops", "baselines", "faults")
+          "routes", "ops", "baselines", "faults", "serve", "obs")
 
 
 def main() -> int:
@@ -3107,7 +3612,9 @@ def main() -> int:
                 (routes_phase, routes),
                 (ops_kernel_phase, ops_out),
                 (baselines_phase, counts),
-                (faults_phase, counts))):
+                (faults_phase, counts),
+                (serve_phase, {"results": results, "counts": counts}),
+                (obs_phase, None))):
             if only and name not in only:
                 continue
             t0 = time.perf_counter()
@@ -3199,6 +3706,30 @@ def main() -> int:
                if "routes" in row else {}),
             **({key: row[key] for key in ("walk", "stages", "stripe_cols")
                 if key in row})})
+    # the job axis of rows 5, 1f, 3f and 5f: the routes the serve phase's
+    # buckets launched, each row from its captured launch (the widest
+    # operand of that route), timed beside the B solo launches
+    from repro_torch.kernels.mixing_matvec import JOB_COUNTERS
+    job_rows = {"circulant_neumann_step": 852, "circulant_mix_matvec_comm":
+                232, "sparse_mix_matvec_comm": 551,
+                "circulant_neumann_step_comm": 826}
+    for name in JOB_COUNTERS:
+        if not counts.get(name):
+            continue
+        base = name.removesuffix("_jobs").removesuffix("_unstaged")
+        key = max(results[name], key=lambda k: k[1])
+        row = results[name][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mixing_matvec.cu",
+            "replaces": f"{src}:{job_rows[base]}",
+            "launches": counts[name],
+            "max_abs_err": row["err"],
+            "ms": row["ms"], "plain_ms": row["plain"],
+            "bound_ms": row["bound"], "bound_by": row["by"],
+            "library_ms": row["lib"], "solo_launches_ms": row["solo_ms"],
+            "shape": [key[0], key[1]], "jobs": key[3], "dtype": "float32",
+            "comm": key[2], "job_axis": True, "on_main_path": True})
     # the kernels.ops path's two kernels: not on DAGM's main path; their
     # launches come from the ops path's run, each row (times and error)
     # from its check at qwen3-4b (attention, bf16) and rwkv6-7b (wkv)

@@ -16,7 +16,12 @@ counterpart sits where a reader of the JAX package expects it:
   * `faults`    — fault injection: `FaultSpec`, lowered to per-round
                   edge masks (`lower_faults`, `FaultTrace`),
   * `solve`     — the `solve(problem, network, spec)` front-end
-                  (every method on tier="reference"),
+                  (every method on tier="reference"; dagm on
+                  tier="serve"),
+  * `serve`     — the batched multi-job engine (`ServeEngine`): buckets
+                  of jobs gossiping on the kernels' job axis,
+  * `obs`       — spans, metrics, export and the flight recorder,
+  * `checkpoint` — tensor trees to atomic .npz steps (`repro`'s layout),
   * `interop`   — builds port objects from `repro`'s numpy arrays.
 
 The port imports `torch` only.  Entry points run on the CUDA device

@@ -120,3 +120,54 @@ def compressed_payload(policy: CommPolicy, x, st: ChannelState,
         payload = policy.compressor.roundtrip(x, seed)
         hat = st.hat
     return payload, dataclasses.replace(st, hat=hat, sends=st.sends + 1)
+
+
+# ---------------------------------------------------------------------------
+# A serve bucket's channels: one stream per job slot
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class JobChannelState:
+    """The gossip channel of a serve bucket of B job slots, the stacked
+    twin of `ChannelState`: slot j carries job j's channel exactly as
+    its solo run would.
+
+    hat:   EF replicas, (n, B, ...) (None without EF).
+    sends: (B,) int64 host array of exchanges per slot.
+    seeds: (B,) host array of the slots' channel seeds (`send_seed`).
+    """
+    hat: Any
+    sends: Any
+    name: str = "channel"
+    seeds: Any = None
+
+    def bump(self) -> "JobChannelState":
+        return dataclasses.replace(self, sends=self.sends + 1)
+
+    def reset_hat(self) -> "JobChannelState":
+        hat = None if self.hat is None else torch.zeros_like(self.hat)
+        return dataclasses.replace(self, hat=hat)
+
+    def send_seeds(self) -> list[int]:
+        """Each slot's seed for its next send."""
+        return [send_seed(int(s), int(k))
+                for s, k in zip(self.seeds, self.sends)]
+
+    def slot(self, j: int) -> ChannelState:
+        """Slot j's channel as a solo `ChannelState`."""
+        return ChannelState(hat=None if self.hat is None else self.hat[:, j],
+                            sends=int(self.sends[j]), name=self.name,
+                            seed=int(self.seeds[j]))
+
+
+def stack_channels(states: list) -> JobChannelState:
+    """Stack B solo `ChannelState`s of one channel into a bucket's
+    `JobChannelState` (their hats along a new axis 1)."""
+    import numpy as np
+    first = states[0]
+    hat = None if first.hat is None \
+        else torch.stack([st.hat for st in states], dim=1).contiguous()
+    return JobChannelState(
+        hat=hat, sends=np.asarray([st.sends for st in states], np.int64),
+        name=first.name,
+        seeds=np.asarray([st.seed for st in states], np.int64))

@@ -221,11 +221,11 @@ class CommLedger:
         return out
 
     def observe(self, reg=None, **labels) -> None:
-        """Publish the ledger into a metrics registry — not ported yet
-        (ROADMAP queue 1 item 10, obs)."""
-        raise NotImplementedError(
-            "CommLedger.observe needs the metrics registry of repro.obs, "
-            "which the port has not ported yet (ROADMAP queue 1 item 10)")
+        """Publish this ledger into a metrics registry (the default one
+        when `reg` is None): per-channel sends, wire bytes and f32 words
+        as labeled counters (`repro_torch.obs.observe_ledger`)."""
+        from ..obs import observe_ledger
+        observe_ledger(self, reg, **labels)
 
     def __repr__(self) -> str:
         chans = ", ".join(f"{c.name}:{c.sends}x{c.bytes_per_send}B"

@@ -4,7 +4,8 @@
   * `penalty`  — penalized reformulation, inner DGD step (Eq. 15–16),
   * `dihgp`    — Algorithm 1, dense (Cholesky) and matrix-free tiers,
   * `dagm`     — Algorithm 2: `dagm_init_carry` / `dagm_run_chunk`,
-  * `baselines` — DGBO, DGTBO, FedNest and MA-DBO (`solve(method=...)`).
+  * `baselines` — DGBO, DGTBO, FedNest and MA-DBO (`solve(method=...)`),
+  * `jobs`     — DAGM rounds on a serve bucket's job axis.
 """
 from .baselines import BASELINE_SOLVERS
 from .dagm import (RoundHP, dagm_init_carry, dagm_outer_step_c,

@@ -136,11 +136,11 @@ def dagm_init_carry(prob: BilevelProblem, W, cfg,
     x0 = 0 (the paper's analysis assumption) and y0 = 0.01·N(0, I) drawn
     from `torch.Generator(device).manual_seed(seed)` unless given; the
     gossip channels open on W's ledger, their random streams derived
-    from `seed` (`repro_torch.comm.channel_seeds`).  The flight recorder
-    (`recorder=`) is ROADMAP queue 1 item 10 and raises."""
-    if recorder is not None:
-        raise NotImplementedError(
-            "the flight recorder is ROADMAP queue 1 item 10 (obs)")
+    from `seed` (`repro_torch.comm.channel_seeds`).
+
+    `recorder` (a `repro_torch.obs.RecorderSpec`) appends a third carry
+    element, the flight recorder's ring buffer on the device
+    (`repro_torch.obs.recorder`); None keeps the 2-tuple."""
     dev = prob.device
     if x0 is None:
         x0 = torch.zeros((prob.n, prob.d1), dtype=torch.float32, device=dev)
@@ -151,6 +151,9 @@ def dagm_init_carry(prob: BilevelProblem, W, cfg,
     from ..comm import open_channels
     cs0 = open_channels(W, {"inner_y": y0, "dihgp_h": y0, "outer_x": x0},
                         seed)
+    if recorder is not None:
+        from ..obs.recorder import recorder_init
+        return ((x0, y0), cs0, recorder_init(recorder, device=dev))
     return ((x0, y0), cs0)
 
 
@@ -179,24 +182,32 @@ def dagm_run_chunk(prob: BilevelProblem, W, cfg, carry,
     (`repro_torch.faults.FaultTrace.table_masks`), moved to W's device
     once, before the loop; round t gossips on `W.masked(masks[t])`.
 
+    `recorder` (the `RecorderSpec` the carry was built with, see
+    `dagm_init_carry`) extends the carry to ((x, y), channel states,
+    FlightBuffer) and writes one flight row per round on the device; it
+    only reads the round's metrics and counters, so (x, y) are bitwise
+    the same with it on or off.
+
     Returns (carry, metrics) with metrics stacked over the chunk's
-    rounds as (rounds,) tensors.  The flight recorder (`recorder`) is
-    ROADMAP queue 1 item 10 and raises."""
+    rounds as (rounds,) tensors."""
     if masks is not None:
         masks = torch.as_tensor(masks, dtype=torch.float32,
                                 device=W.device)
         if masks.shape[0] != rounds:
             raise ValueError(f"masks hold {masks.shape[0]} rounds; the "
                              f"chunk runs {rounds}")
-    if recorder is not None:
-        raise NotImplementedError(
-            "the flight recorder is ROADMAP queue 1 item 10 (obs)")
     if hp is None:
         hp = chunk_hp(cfg, rounds)
     hp = RoundHP(*(np.asarray(a, np.float32) for a in hp))
     if curvature is None:
         curvature = cfg.curvature
-    (x, y), cs = carry
+    (x, y), cs = carry[0], carry[1]
+    rec = None
+    if recorder is not None:
+        from ..obs.recorder import (flight_values, recorder_write,
+                                    wire_bytes_sent, wire_constants)
+        rec = carry[2]
+        bps, valid = wire_constants(W)
     v0 = None
     if cfg.dihgp == "matrix_free" and curvature is None:
         v0 = power_start(y.shape, y.device)
@@ -207,6 +218,13 @@ def dagm_run_chunk(prob: BilevelProblem, W, cfg, carry,
                                         hp=hp_t, curvature=curvature,
                                         mask=None if masks is None
                                         else masks[t], v0=v0)
+        if rec is not None:
+            rec = recorder_write(rec, flight_values(
+                m, wire_bytes_sent(cs, bps), hp_t.gamma,
+                mask=None if masks is None else masks[t],
+                offdiag_valid=valid))
         rows.append(m)
     metrics = {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
+    if rec is not None:
+        return ((x, y), cs, rec), metrics
     return ((x, y), cs), metrics

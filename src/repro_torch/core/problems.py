@@ -93,6 +93,15 @@ class BilevelProblem:
         ys = ybar_star.expand((self.n,) + tuple(ybar_star.shape))
         return torch.mean(self.f_stacked(xs, ys))
 
+    # ---- job batching (repro_torch.serve) ----
+    def with_data(self, data) -> "BilevelProblem":
+        """Same objectives and shapes on another data dict — one job's
+        view inside a serve bucket (`data` is one job's slice of a
+        `stack_problem_data` stack, as `torch.func.vmap` hands it over).
+        The optional analytic pieces (`y_star`, `hypergrad`) stay the
+        template's, as in `repro`."""
+        return dataclasses.replace(self, data=data)
+
 
 def _tensors(data: dict, device) -> dict:
     """numpy data -> tensors on `device`: floats as float32, integer
@@ -469,6 +478,36 @@ def _build_fair_loss_tuning(data: dict, *, n_classes: int = 10,
                           mu_g=ridge)
 
 
+def stack_problem_data(probs) -> dict:
+    """Stack compatible problems' data along a new leading job axis:
+    leaves go (n, ...) -> (jobs, n, ...).
+
+    The problems must be instances of one family at one set of shapes
+    (same `name`, n, d1, d2 and leaf shapes) — the members of one serve
+    bucket; `f`/`g` are the template's and each job's slice is
+    reattached with `BilevelProblem.with_data` inside the vmapped
+    runner."""
+    probs = list(probs)
+    if not probs:
+        raise ValueError("stack_problem_data needs at least one problem")
+    t = probs[0]
+    shapes = {k: tuple(v.shape) for k, v in t.data.items()}
+    for p in probs[1:]:
+        if (p.name, p.n, p.d1, p.d2) != (t.name, t.n, t.d1, t.d2):
+            raise ValueError(
+                f"cannot stack {p.name}(n={p.n},d1={p.d1},d2={p.d2}) "
+                f"with {t.name}(n={t.n},d1={t.d1},d2={t.d2}): same "
+                f"family/shapes required (one bucket = one compile "
+                f"signature)")
+        ps = {k: tuple(v.shape) for k, v in p.data.items()}
+        if ps != shapes:
+            raise ValueError(
+                f"cannot stack {p.name} jobs with differing data leaf "
+                f"shapes: {ps} vs {shapes}")
+    return {k: torch.stack([p.data[k] for p in probs])
+            for k in t.data}
+
+
 #: Problem zoo registry: family name -> constructor.
 PROBLEM_FAMILIES = {
     "quadratic": quadratic_bilevel,
@@ -479,6 +518,15 @@ PROBLEM_FAMILIES = {
     "hyper_representation": hyper_representation,
     "fair_loss_tuning": fair_loss_tuning,
 }
+
+def problem_family(name: str):
+    """Constructor for a zoo family (KeyError with the menu otherwise)."""
+    try:
+        return PROBLEM_FAMILIES[name]
+    except KeyError:
+        raise KeyError(f"unknown problem family {name!r}; expected one "
+                       f"of {sorted(PROBLEM_FAMILIES)}") from None
+
 
 #: family name -> constructor from a dict of numpy data arrays (interop).
 FAMILY_FROM_DATA = {

@@ -152,11 +152,12 @@ class FaultTrace:
 
     def observe(self, reg=None, **labels) -> None:
         """Publish this trace's alive fraction and round count into a
-        metrics registry — not ported yet (ROADMAP queue 1 item 10,
-        obs)."""
-        raise NotImplementedError(
-            "FaultTrace.observe needs the metrics registry of repro.obs, "
-            "which the port has not ported yet (ROADMAP queue 1 item 10)")
+        metrics registry (`repro_torch.obs.observe_fault_extras`, as a
+        faulted solve's extras carry them)."""
+        from ..obs import observe_fault_extras
+        observe_fault_extras({"fault_trace": self,
+                              "fault_alive_fraction": self.alive_fraction()},
+                             reg, **labels)
 
 
 def lower_faults(spec: FaultSpec, net, K: int) -> FaultTrace:

@@ -14,6 +14,10 @@
 //   circulant_neumann_comm                (no EF; on the decoded stripe
 //                                          where the planner gives one)
 //
+// circulant_neumann(_ring), circulant_mix_comm, sparse_mix_comm and
+// circulant_neumann_comm have *_jobs twins for a serve bucket's job axis
+// (JobAxis below: per-job beta, D~, wire metadata and seed).
+//
 // Plain C entry points (bottom of the file), loaded with ctypes by
 // repro_torch/kernels/mixing_matvec.py.  Each launches on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -77,6 +81,31 @@ __device__ __forceinline__ float neumann_update(float h, float mix,
       p);
   return __fdiv_rn(num, d);
 }
+
+// The job axis of a serve bucket's launch.  A bucket of `jobs` jobs
+// gossips its (n, jobs * djob) view: column c belongs to job c / djob,
+// at in-job column c % djob.  Per job: beta (a device table, or the
+// launch's scalar beta when betas is nullptr), the Neumann step's D~
+// (an (n, jobs) table, row-major) and the quantizer's zp/scale ((n,
+// jobs) tables) and seed (smix[job] = seed * 0xC2B2AE3D, the hash's
+// seed mix).  A solo launch is jobs = 1, djob = d, and computes what it
+// computed before the axis existed, bit for bit.  Kernels take it as a
+// __grid_constant__ parameter, so a job's entry is read from the
+// parameter bank, never copied.
+constexpr int kMaxJobs = 64;
+struct JobAxis {
+  int jobs;
+  int djob;
+  const float* betas;
+  uint32_t smix[kMaxJobs];
+  // the job of column j (j < jobs * djob)
+  __device__ __forceinline__ int job(int j) const {
+    return jobs == 1 ? 0 : j / djob;
+  }
+  __device__ __forceinline__ float beta(int job, float scalar) const {
+    return betas ? __ldg(betas + job) : scalar;
+  }
+};
 
 // Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec (plain
 // path, _mix_body) where the ring at bn = n does not serve
@@ -156,16 +185,20 @@ __global__ void sparse_mix_unstaged_kernel(const T* __restrict__ y,
 // Design: circulant_mix's layout; the mix stays in a register and the
 // Eq. 14 update (D*h - (h - mix) - beta*hvp - p) / D is applied in the
 // same thread (`neumann_update`), dividing as repro does.  beta is a
-// runtime scalar.
+// runtime scalar, or on a bucket's job axis (JobAxis) a table read once
+// per thread with D~'s column of the thread's job.
 template <typename T>
 __global__ void circulant_neumann_kernel(const T* __restrict__ h,
                                          const T* __restrict__ hvp,
                                          const T* __restrict__ p,
                                          const float* __restrict__ dsc,
                                          T* __restrict__ out, int n, int d,
-                                         Circ c, float beta) {
+                                         Circ c, float beta,
+                                         const __grid_constant__ JobAxis ja) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= d) return;
+  const int job = ja.job(j);
+  const float bj = ja.beta(job, beta);
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
     const size_t at = (size_t)i * d + j;
     const float hi = load_f32(h, at);
@@ -175,9 +208,9 @@ __global__ void circulant_neumann_kernel(const T* __restrict__ h,
       if (src >= n) src -= n;
       mix = term(mix, __ldg(c.w + t), load_f32(h, (size_t)src * d + j));
     }
-    const float di = dsc[i];
+    const float di = dsc[(size_t)i * ja.jobs + job];
     store_f32(out, at, neumann_update(hi, mix, load_f32(hvp, at),
-                                      load_f32(p, at), di, beta));
+                                      load_f32(p, at), di, bj));
   }
 }
 
@@ -251,6 +284,23 @@ __device__ __forceinline__ float decoded(const float* __restrict__ y,
   return w.hat ? __fadd_rn(h, dec) : dec;
 }
 
+// `decoded` on a bucket's job axis: the draw is keyed on (the job's
+// seed, row r, in-job column), the metadata are the job's, so every
+// element decodes to what the job's solo send decodes it to.
+__device__ __forceinline__ float decoded_job(const float* __restrict__ y,
+                                             const Wire& w,
+                                             const JobAxis& ja, int r,
+                                             int j, int d) {
+  const int job = ja.job(j);
+  const size_t at = (size_t)r * d + j;
+  const size_t m = (size_t)r * ja.jobs + job;
+  const float u = hash_uniform(ja.smix[job], r, j - job * ja.djob);
+  const float h = w.hat ? w.hat[at] : 0.0f;
+  const float x = w.hat ? __fsub_rn(y[at], h) : y[at];
+  const float dec = roundtrip(x, w.zp[m], w.scale[m], u, w.levels);
+  return w.hat ? __fadd_rn(h, dec) : dec;
+}
+
 // Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec with comm=
 // (_mix_fused_body) where no column stripe fits
 // (circulant_mix_stripe_comm_kernel below): n > 14,528 rows.
@@ -264,9 +314,12 @@ __device__ __forceinline__ float decoded(const float* __restrict__ y,
 // than reading a materialized payload: recomputing costs integer work
 // that overlaps the loads, a materialized payload would cost a second
 // pass over HBM.  With EF the thread also writes its own row's payload.
+// On a bucket's job axis each element decodes with its job's seed and
+// metadata (`decoded_job`), as the job's solo send does.
 __global__ void circulant_mix_comm_unstaged_kernel(
     const float* __restrict__ y, float* __restrict__ out,
-    float* __restrict__ pay, int n, int d, Circ c, Wire w, int laplacian) {
+    float* __restrict__ pay, int n, int d, Circ c, Wire w, int laplacian,
+    const __grid_constant__ JobAxis ja) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= d) return;
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
@@ -276,11 +329,11 @@ __global__ void circulant_mix_comm_unstaged_kernel(
     for (int t = 0; t < c.k; ++t) {
       int src = i + __ldg(c.off + t);
       if (src >= n) src -= n;
-      acc = term(acc, __ldg(c.w + t), decoded(y, w, src, j, d));
+      acc = term(acc, __ldg(c.w + t), decoded_job(y, w, ja, src, j, d));
     }
     if (laplacian) acc = __fsub_rn(yi, acc);
     out[at] = acc;
-    if (pay) pay[at] = decoded(y, w, i, j, d);
+    if (pay) pay[at] = decoded_job(y, w, ja, i, j, d);
   }
 }
 
@@ -297,7 +350,7 @@ __global__ void sparse_mix_comm_unstaged_kernel(
     const float* __restrict__ y, float* __restrict__ out,
     float* __restrict__ pay, const float* __restrict__ w_self,
     const int* __restrict__ nbr, const float* __restrict__ wts, int n, int d,
-    int k, Wire w, int laplacian) {
+    int k, Wire w, int laplacian, const __grid_constant__ JobAxis ja) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= d) return;
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
@@ -307,11 +360,11 @@ __global__ void sparse_mix_comm_unstaged_kernel(
     const int* ni = nbr + (size_t)i * k;
     const float* wi = wts + (size_t)i * k;
     for (int t = 0; t < k; ++t) {
-      acc = term(acc, wi[t], decoded(y, w, ni[t], j, d));
+      acc = term(acc, wi[t], decoded_job(y, w, ja, ni[t], j, d));
     }
     if (laplacian) acc = __fsub_rn(yi, acc);
     out[at] = acc;
-    if (pay) pay[at] = decoded(y, w, i, j, d);
+    if (pay) pay[at] = decoded_job(y, w, ja, i, j, d);
   }
 }
 
@@ -324,9 +377,12 @@ __global__ void sparse_mix_comm_unstaged_kernel(
 __global__ void circulant_neumann_comm_kernel(
     const float* __restrict__ h, const float* __restrict__ hvp,
     const float* __restrict__ p, const float* __restrict__ dsc,
-    float* __restrict__ out, int n, int d, Circ c, Wire w, float beta) {
+    float* __restrict__ out, int n, int d, Circ c, Wire w, float beta,
+    const __grid_constant__ JobAxis ja) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= d) return;
+  const int job = ja.job(j);
+  const float bj = ja.beta(job, beta);
   for (int i = blockIdx.y; i < n; i += gridDim.y) {
     const size_t at = (size_t)i * d + j;
     const float hi = h[at];
@@ -334,10 +390,10 @@ __global__ void circulant_neumann_comm_kernel(
     for (int t = 0; t < c.k; ++t) {
       int src = i + __ldg(c.off + t);
       if (src >= n) src -= n;
-      mix = term(mix, __ldg(c.w + t), decoded(h, w, src, j, d));
+      mix = term(mix, __ldg(c.w + t), decoded_job(h, w, ja, src, j, d));
     }
-    const float di = dsc[i];
-    out[at] = neumann_update(hi, mix, hvp[at], p[at], di, beta);
+    const float di = dsc[(size_t)i * ja.jobs + job];
+    out[at] = neumann_update(hi, mix, hvp[at], p[at], di, bj);
   }
 }
 
@@ -596,7 +652,7 @@ __device__ __forceinline__ void circulant_ring_body(
         if (r < bn) {
           epi.template finish<VW>(
               acc[rr], st + (size_t)(h_lo + r) * kHaloBd + c,
-              st + (size_t)(ext + r) * kHaloBd + c, bn, row0 + r);
+              st + (size_t)(ext + r) * kHaloBd + c, bn, row0 + r, j0, d);
           stg_vec<T, VW, V>(out + (size_t)(row0 + r) * d + j0, acc[rr],
                             d - j0);
         }
@@ -613,7 +669,8 @@ struct RingMix {
   __device__ __forceinline__ void stage(T*, int, int, int, int) const {}
   template <int VW>
   __device__ __forceinline__ void finish(float* acc, const T* self,
-                                         const T*, int, int) const {
+                                         const T*, int, int, int,
+                                         int) const {
     if (laplacian) {
       float yi[VW];
       lds_vec<T, VW>(self, yi);
@@ -626,7 +683,8 @@ struct RingMix {
 // The Neumann step's epilogue: hvp_h and p staged as two (bn, 128) tiles
 // behind the extended tile of h, and D~[i] read once per row and tile (a
 // broadcast: the threads of a tile row share it); the update is
-// `neumann_update` on h_i from the stage.
+// `neumann_update` on h_i from the stage.  On a bucket's job axis (ja,
+// the kernel's parameter) each column takes its job's D~ and beta.
 template <typename T, int V>
 struct RingNeumann {
   static constexpr int kTiles = 2;
@@ -634,6 +692,7 @@ struct RingNeumann {
   const T* __restrict__ p;
   const float* __restrict__ dsc;
   float beta;
+  const JobAxis* ja;
   __device__ __forceinline__ void stage(T* dst, int row0, int bn, int d,
                                         int col0) const {
     halo_copy_rows<T, V>(dst, hvp, row0, bn, d, col0);
@@ -641,16 +700,28 @@ struct RingNeumann {
   }
   template <int VW>
   __device__ __forceinline__ void finish(float* acc, const T* self,
-                                         const T* extra, int bn,
-                                         int row) const {
+                                         const T* extra, int bn, int row,
+                                         int j0, int d) const {
     float hi[VW], hv[VW], pv[VW];
     lds_vec<T, VW>(self, hi);
     lds_vec<T, VW>(extra, hv);
     lds_vec<T, VW>(extra + (size_t)bn * kHaloBd, pv);
-    const float di = __ldg(dsc + row);
+    if (ja->jobs == 1) {
+      const float di = __ldg(dsc + row);
+#pragma unroll
+      for (int v = 0; v < VW; ++v) {
+        acc[v] = neumann_update(hi[v], acc[v], hv[v], pv[v], di,
+                                ja->beta(0, beta));
+      }
+      return;
+    }
 #pragma unroll
     for (int v = 0; v < VW; ++v) {
-      acc[v] = neumann_update(hi[v], acc[v], hv[v], pv[v], di, beta);
+      // columns past d are computed and never stored: any job will do
+      const int job = ja->job(j0 + v < d ? j0 + v : j0);
+      const float di = __ldg(dsc + (size_t)row * ja->jobs + job);
+      acc[v] = neumann_update(hi[v], acc[v], hv[v], pv[v], di,
+                              ja->beta(job, beta));
     }
   }
 };
@@ -699,10 +770,11 @@ __global__ void __launch_bounds__(kHaloThreads)
                                   int h_lo, int h_hi, float w_self, int k,
                                   const int* __restrict__ soff,
                                   const float* __restrict__ wts, float beta,
-                                  int stages) {
+                                  int stages,
+                                  const __grid_constant__ JobAxis ja) {
   circulant_ring_body<T, V>(h, out, n, d, bn, h_lo, h_hi, w_self, k, soff,
                             wts, stages,
-                            RingNeumann<T, V>{hvp, p, dsc, beta});
+                            RingNeumann<T, V>{hvp, p, dsc, beta, &ja});
 }
 
 // Replaces repro/kernels/mixing_matvec.py:circulant_mix_matvec_halo with
@@ -1729,9 +1801,11 @@ constexpr int kStripeCommMaxThreads = 1024;
 struct StripeMix {
   int laplacian;
   struct Ahead {};
-  __device__ __forceinline__ void load(int, int, int, Ahead&) const {}
+  __device__ __forceinline__ void load(int, int, int, Ahead&,
+                                       const JobAxis&) const {}
   __device__ __forceinline__ void finish(float* acc, const float* yi,
-                                         const Ahead&) const {
+                                         const Ahead&,
+                                         const JobAxis&) const {
     if (laplacian) {
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[v] = __fsub_rn(yi[v], acc[v]);
@@ -1740,8 +1814,9 @@ struct StripeMix {
 };
 
 // The DIHGP Neumann step's epilogue: `neumann_update` on the exact h_i,
-// with the row's hvp_h and p vectors (ew-byte loads) and D~[i] read one
-// row ahead of their use, as y_i is.
+// with the row's hvp_h and p vectors (ew-byte loads) and D~ read one row
+// ahead of their use, as y_i is: D~[i] once per row, or on a bucket's
+// job axis the D~ of each column's job (and its beta).
 struct StripeNeumann {
   const float* __restrict__ hvp;
   const float* __restrict__ p;
@@ -1749,20 +1824,34 @@ struct StripeNeumann {
   float beta;
   int n, d, ew;
   struct Ahead {
-    float hv[4], pv[4], di;
+    float hv[4], pv[4], di[4], b[4];
   };
-  __device__ __forceinline__ void load(int i, int j0, int, Ahead& a) const {
+  __device__ __forceinline__ void load(int i, int j0, int, Ahead& a,
+                                       const JobAxis& ja) const {
     if (i < n && j0 < d) {
       ldg_f32x4(hvp + (size_t)i * d + j0, ew, d - j0, a.hv);
       ldg_f32x4(p + (size_t)i * d + j0, ew, d - j0, a.pv);
-      a.di = __ldg(dsc + i);
+      if (ja.jobs == 1) {
+        a.di[0] = a.di[1] = a.di[2] = a.di[3] = __ldg(dsc + i);
+        a.b[0] = a.b[1] = a.b[2] = a.b[3] = ja.beta(0, beta);
+      } else {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          // columns past d are computed and never stored
+          const int job = ja.job(j0 + v < d ? j0 + v : j0);
+          a.di[v] = __ldg(dsc + (size_t)i * ja.jobs + job);
+          a.b[v] = ja.beta(job, beta);
+        }
+      }
     }
   }
   __device__ __forceinline__ void finish(float* acc, const float* hi,
-                                         const Ahead& a) const {
+                                         const Ahead& a,
+                                         const JobAxis&) const {
 #pragma unroll
     for (int v = 0; v < 4; ++v) {
-      acc[v] = neumann_update(hi[v], acc[v], a.hv[v], a.pv[v], a.di, beta);
+      acc[v] = neumann_update(hi[v], acc[v], a.hv[v], a.pv[v], a.di[v],
+                              a.b[v]);
     }
   }
 };
@@ -1771,7 +1860,7 @@ template <int RB, typename Slots, typename Epi>
 __device__ __forceinline__ void stripe_comm_body(
     const float* __restrict__ y, float* __restrict__ out,
     float* __restrict__ pay, int n, int d, const Slots& sl, const Wire& w,
-    const Epi& ep, int cw, int hw, int sw) {
+    const Epi& ep, int cw, int hw, int sw, const JobAxis& ja) {
   constexpr int BC = RB / 4;    // stripe columns
   constexpr int LPR = RB / 16;  // lanes (4-column vectors) per row
   constexpr int RPW = 32 / LPR;  // rows per warp and pass
@@ -1810,7 +1899,7 @@ __device__ __forceinline__ void stripe_comm_body(
   }
   load_hat(threadIdx.x, hn);
   load_y(i0, yn);
-  ep.load(i0, j0, d, en);
+  ep.load(i0, j0, d, en, ja);
   cp_async_wait_all();
   __syncthreads();
   // (2) decode it in place, one hash per element; under EF the payload
@@ -1823,14 +1912,30 @@ __device__ __forceinline__ void stripe_comm_body(
     const int r = e / LPR, j = c0 + (e % LPR) * 4;
     if (j >= d) continue;  // zero past d, never stored
     float* s = stripe + (size_t)e * 4;
-    const float zp = __ldg(w.zp + r), sc = __ldg(w.scale + r);
     lds_vec<float, 4>(s, x);
+    if (ja.jobs == 1) {
+      const float zp = __ldg(w.zp + r), sc = __ldg(w.scale + r);
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const float u = hash_uniform(w.smix, r, j + v);
-      const float dv =
-          roundtrip(ef ? __fsub_rn(x[v], h[v]) : x[v], zp, sc, u, w.levels);
-      q[v] = ef ? __fadd_rn(h[v], dv) : dv;
+      for (int v = 0; v < 4; ++v) {
+        const float u = hash_uniform(ja.smix[0], r, j + v);
+        const float dv = roundtrip(ef ? __fsub_rn(x[v], h[v]) : x[v], zp,
+                                   sc, u, w.levels);
+        q[v] = ef ? __fadd_rn(h[v], dv) : dv;
+      }
+    } else {
+      // a bucket's job axis: each element with its job's seed, in-job
+      // column and metadata (columns past d decode junk, never stored)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int job = ja.job(j + v < d ? j + v : j);
+        const size_t m = (size_t)r * ja.jobs + job;
+        const float u =
+            hash_uniform(ja.smix[job], r, j + v - job * ja.djob);
+        const float dv = roundtrip(ef ? __fsub_rn(x[v], h[v]) : x[v],
+                                   __ldg(w.zp + m), __ldg(w.scale + m), u,
+                                   w.levels);
+        q[v] = ef ? __fadd_rn(h[v], dv) : dv;
+      }
     }
     *reinterpret_cast<float4*>(s) = make_float4(q[0], q[1], q[2], q[3]);
     if (ef) stg_f32x4(pay + (size_t)r * d + j, sw, q, d - j);
@@ -1846,7 +1951,7 @@ __device__ __forceinline__ void stripe_comm_body(
     for (int v = 0; v < 4; ++v) yi[v] = yn[v];
     const typename Epi::Ahead ea = en;
     load_y(i + step, yn);
-    ep.load(i + step, j0, d, en);
+    ep.load(i + step, j0, d, en, ja);
     const float ws = sl.self(i);
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[v] = __fmul_rn(ws, yi[v]);
@@ -1873,7 +1978,7 @@ __device__ __forceinline__ void stripe_comm_body(
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[v] = term(acc[v], wq, x[v]);
     }
-    ep.finish(acc, yi, ea);
+    ep.finish(acc, yi, ea, ja);
     stg_f32x4(out + at, sw, acc, d - j0);
   }
 }
@@ -1887,12 +1992,13 @@ __global__ void __launch_bounds__(kStripeCommMaxThreads)
                                   const int* __restrict__ nbr,
                                   const float* __restrict__ wts, int n,
                                   int d, int k, Wire w, int laplacian,
+                                  const __grid_constant__ JobAxis ja,
                                   int cw, int hw, int sw) {
   const bool vec = k % 4 == 0 && ((size_t)nbr & 15) == 0 &&
                    ((size_t)wts & 15) == 0;
   stripe_comm_body<RB>(y, out, pay, n, d,
                        TableSlots{w_self, nbr, wts, k, vec}, w,
-                       StripeMix{laplacian}, cw, hw, sw);
+                       StripeMix{laplacian}, cw, hw, sw, ja);
 }
 
 template <int RB>
@@ -1900,10 +2006,11 @@ __global__ void __launch_bounds__(kStripeCommMaxThreads)
     circulant_mix_stripe_comm_kernel(const float* __restrict__ y,
                                      float* __restrict__ out,
                                      float* __restrict__ pay, int n, int d,
-                                     Circ c, Wire w, int laplacian, int cw,
-                                     int hw, int sw) {
+                                     Circ c, Wire w, int laplacian,
+                                     const __grid_constant__ JobAxis ja,
+                                     int cw, int hw, int sw) {
   stripe_comm_body<RB>(y, out, pay, n, d, OffsetSlots{c, n}, w,
-                       StripeMix{laplacian}, cw, hw, sw);
+                       StripeMix{laplacian}, cw, hw, sw, ja);
 }
 
 // Replaces repro/kernels/mixing_matvec.py:circulant_neumann_step with comm=
@@ -1931,10 +2038,10 @@ __global__ void __launch_bounds__(kStripeCommMaxThreads)
         const float* __restrict__ h, const float* __restrict__ hvp,
         const float* __restrict__ p, const float* __restrict__ dsc,
         float* __restrict__ out, int n, int d, Circ c, Wire w, float beta,
-        int ew, int cw, int hw, int sw) {
+        int ew, const __grid_constant__ JobAxis ja, int cw, int hw, int sw) {
   stripe_comm_body<RB>(h, out, nullptr, n, d, OffsetSlots{c, n}, w,
                        StripeNeumann{hvp, p, dsc, beta, n, d, ew}, cw, hw,
-                       sw);
+                       sw, ja);
 }
 
 // Dynamic shared memory of a halo launch: `buffers` tiles of `rows`
@@ -1992,6 +2099,33 @@ cudaError_t fill_card(Kernel kernel, int threads, int smem_bytes,
 
 dim3 grid_for(int n, int d) {
   return dim3((d + kThreads - 1) / kThreads, n < kMaxGridRows ? n : kMaxGridRows);
+}
+
+// A launch's job axis from the host: `jobs` jobs of djob columns each
+// (jobs * djob == d), betas a device table (or nullptr) and seeds a
+// host array of the jobs' send seeds (or nullptr where there is no
+// wire); false when the axis does not fit the operand or kMaxJobs.
+bool job_axis(int jobs, int djob, int d, const float* betas,
+              const unsigned int* seeds, JobAxis* ja) {
+  if (jobs < 1 || jobs > kMaxJobs || djob < 1 ||
+      (long long)jobs * djob != d) {
+    return false;
+  }
+  *ja = JobAxis{};
+  ja->jobs = jobs;
+  ja->djob = djob;
+  ja->betas = betas;
+  for (int b = 0; b < jobs; ++b) {
+    ja->smix[b] = seeds ? seeds[b] * 0xC2B2AE3Du : 0u;
+  }
+  return true;
+}
+
+// The job axis of a solo launch: one job, the launch's scalar beta.
+JobAxis solo_axis(int d, unsigned int seed) {
+  JobAxis ja{};
+  job_axis(1, d, d, nullptr, &seed, &ja);
+  return ja;
 }
 
 }  // namespace
@@ -2085,27 +2219,53 @@ extern "C" int sparse_mix(const void* y, void* out, const float* w_self,
   }
 }
 
-extern "C" int circulant_neumann(const void* h, const void* hvp,
-                                 const void* p, const float* dsc, void* out,
-                                 int n, int d, int dtype, float w_self, int k,
-                                 const int* offsets, const float* weights,
-                                 float beta, void* stream) {
+static int neumann_unstaged(const void* h, const void* hvp, const void* p,
+                            const float* dsc, void* out, int n, int d,
+                            int dtype, float w_self, int k,
+                            const int* offsets, const float* weights,
+                            float beta, const JobAxis& ja, void* stream) {
   const Circ c{w_self, k, offsets, weights};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     circulant_neumann_kernel<float><<<grid_for(n, d), kThreads, 0, s>>>(
         (const float*)h, (const float*)hvp, (const float*)p, dsc,
-        (float*)out, n, d, c, beta);
+        (float*)out, n, d, c, beta, ja);
   } else if (dtype == 1) {
     circulant_neumann_kernel<__nv_bfloat16>
         <<<grid_for(n, d), kThreads, 0, s>>>(
             (const __nv_bfloat16*)h, (const __nv_bfloat16*)hvp,
             (const __nv_bfloat16*)p, dsc, (__nv_bfloat16*)out, n, d, c,
-            beta);
+            beta, ja);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int circulant_neumann(const void* h, const void* hvp,
+                                 const void* p, const float* dsc, void* out,
+                                 int n, int d, int dtype, float w_self, int k,
+                                 const int* offsets, const float* weights,
+                                 float beta, void* stream) {
+  return neumann_unstaged(h, hvp, p, dsc, out, n, d, dtype, w_self, k,
+                          offsets, weights, beta, solo_axis(d, 0), stream);
+}
+
+// The same step on a serve bucket's job axis: dsc (n, jobs), betas a
+// (jobs,) device table, d = jobs * djob.
+extern "C" int circulant_neumann_jobs(const void* h, const void* hvp,
+                                      const void* p, const float* dsc,
+                                      void* out, int n, int d, int dtype,
+                                      float w_self, int k, const int* offsets,
+                                      const float* weights,
+                                      const float* betas, int jobs, int djob,
+                                      void* stream) {
+  JobAxis ja;
+  if (betas == nullptr || !job_axis(jobs, djob, d, betas, nullptr, &ja)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return neumann_unstaged(h, hvp, p, dsc, out, n, d, dtype, w_self, k,
+                          offsets, weights, 0.0f, ja, stream);
 }
 
 // Comm-fused entry points, f32 only.  zp/scale: (n,) per-row metadata;
@@ -2170,28 +2330,27 @@ static int stripe_comm_row_bytes(int n, int stripe_cols, int smem_bytes) {
 
 // stripe_cols: the decoded stripe's width bc and smem_bytes n * bc * 4
 // for the stripe kernels; 0 (and 0 bytes) for the unstaged kernels.
-extern "C" int circulant_mix_comm(const float* y, float* out, float* pay,
-                                  const float* hat, const float* zp,
-                                  const float* scale, unsigned int seed,
-                                  float levels, int n, int d, float w_self,
-                                  int k, const int* offsets,
-                                  const float* weights, int laplacian,
-                                  int stripe_cols, int smem_bytes,
-                                  void* stream) {
+static int mix_comm_circ(const float* y, float* out, float* pay,
+                         const float* hat, const float* zp,
+                         const float* scale, const JobAxis& ja,
+                         float levels, int n, int d, float w_self, int k,
+                         const int* offsets, const float* weights,
+                         int laplacian, int stripe_cols, int smem_bytes,
+                         void* stream) {
   if ((hat == nullptr) != (pay == nullptr)) return (int)cudaErrorInvalidValue;
   const Circ c{w_self, k, offsets, weights};
-  const Wire w = make_wire(zp, scale, hat, seed, levels);
+  const Wire w = make_wire(zp, scale, hat, 0u, levels);
   cudaStream_t s = (cudaStream_t)stream;
   if (stripe_cols == 0) {
     if (smem_bytes != 0) return (int)cudaErrorInvalidValue;
     circulant_mix_comm_unstaged_kernel<<<grid_for(n, d), kThreads, 0, s>>>(
-        y, out, pay, n, d, c, w, laplacian);
+        y, out, pay, n, d, c, w, laplacian, ja);
     return (int)cudaGetLastError();
   }
   const auto go = [&](auto kernel) {
     return launch_stripe_comm(kernel, y, out, pay, hat, d, stripe_cols,
                               smem_bytes, s, y, out, pay, n, d, c, w,
-                              laplacian);
+                              laplacian, ja);
   };
   switch (stripe_comm_row_bytes(n, stripe_cols, smem_bytes)) {
     case 512: return go(circulant_mix_stripe_comm_kernel<512>);
@@ -2204,26 +2363,57 @@ extern "C" int circulant_mix_comm(const float* y, float* out, float* pay,
   }
 }
 
-extern "C" int sparse_mix_comm(const float* y, float* out, float* pay,
-                               const float* hat, const float* zp,
-                               const float* scale, unsigned int seed,
-                               float levels, const float* w_self,
-                               const int* nbr, const float* wts, int n,
-                               int d, int k, int laplacian, int stripe_cols,
-                               int smem_bytes, void* stream) {
+extern "C" int circulant_mix_comm(const float* y, float* out, float* pay,
+                                  const float* hat, const float* zp,
+                                  const float* scale, unsigned int seed,
+                                  float levels, int n, int d, float w_self,
+                                  int k, const int* offsets,
+                                  const float* weights, int laplacian,
+                                  int stripe_cols, int smem_bytes,
+                                  void* stream) {
+  return mix_comm_circ(y, out, pay, hat, zp, scale, solo_axis(d, seed),
+                       levels, n, d, w_self, k, offsets, weights, laplacian,
+                       stripe_cols, smem_bytes, stream);
+}
+
+// The comm-fused entry points on a serve bucket's job axis: zp/scale
+// (n, jobs) tables, seeds a host array of the jobs' send seeds, d = jobs
+// * djob; otherwise as their solo twins.
+extern "C" int circulant_mix_comm_jobs(
+    const float* y, float* out, float* pay, const float* hat,
+    const float* zp, const float* scale, const unsigned int* seeds,
+    int jobs, int djob, float levels, int n, int d, float w_self, int k,
+    const int* offsets, const float* weights, int laplacian,
+    int stripe_cols, int smem_bytes, void* stream) {
+  JobAxis ja;
+  if (seeds == nullptr || !job_axis(jobs, djob, d, nullptr, seeds, &ja)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return mix_comm_circ(y, out, pay, hat, zp, scale, ja, levels, n, d,
+                       w_self, k, offsets, weights, laplacian, stripe_cols,
+                       smem_bytes, stream);
+}
+
+static int mix_comm_sparse(const float* y, float* out, float* pay,
+                           const float* hat, const float* zp,
+                           const float* scale, const JobAxis& ja,
+                           float levels, const float* w_self,
+                           const int* nbr, const float* wts, int n, int d,
+                           int k, int laplacian, int stripe_cols,
+                           int smem_bytes, void* stream) {
   if ((hat == nullptr) != (pay == nullptr)) return (int)cudaErrorInvalidValue;
-  const Wire w = make_wire(zp, scale, hat, seed, levels);
+  const Wire w = make_wire(zp, scale, hat, 0u, levels);
   cudaStream_t s = (cudaStream_t)stream;
   if (stripe_cols == 0) {
     if (smem_bytes != 0) return (int)cudaErrorInvalidValue;
     sparse_mix_comm_unstaged_kernel<<<grid_for(n, d), kThreads, 0, s>>>(
-        y, out, pay, w_self, nbr, wts, n, d, k, w, laplacian);
+        y, out, pay, w_self, nbr, wts, n, d, k, w, laplacian, ja);
     return (int)cudaGetLastError();
   }
   const auto go = [&](auto kernel) {
     return launch_stripe_comm(kernel, y, out, pay, hat, d, stripe_cols,
                               smem_bytes, s, y, out, pay, w_self, nbr, wts,
-                              n, d, k, w, laplacian);
+                              n, d, k, w, laplacian, ja);
   };
   switch (stripe_comm_row_bytes(n, stripe_cols, smem_bytes)) {
     case 512: return go(sparse_mix_stripe_comm_kernel<512>);
@@ -2236,33 +2426,57 @@ extern "C" int sparse_mix_comm(const float* y, float* out, float* pay,
   }
 }
 
+extern "C" int sparse_mix_comm(const float* y, float* out, float* pay,
+                               const float* hat, const float* zp,
+                               const float* scale, unsigned int seed,
+                               float levels, const float* w_self,
+                               const int* nbr, const float* wts, int n,
+                               int d, int k, int laplacian, int stripe_cols,
+                               int smem_bytes, void* stream) {
+  return mix_comm_sparse(y, out, pay, hat, zp, scale, solo_axis(d, seed),
+                         levels, w_self, nbr, wts, n, d, k, laplacian,
+                         stripe_cols, smem_bytes, stream);
+}
+
+extern "C" int sparse_mix_comm_jobs(
+    const float* y, float* out, float* pay, const float* hat,
+    const float* zp, const float* scale, const unsigned int* seeds,
+    int jobs, int djob, float levels, const float* w_self, const int* nbr,
+    const float* wts, int n, int d, int k, int laplacian, int stripe_cols,
+    int smem_bytes, void* stream) {
+  JobAxis ja;
+  if (seeds == nullptr || !job_axis(jobs, djob, d, nullptr, seeds, &ja)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return mix_comm_sparse(y, out, pay, hat, zp, scale, ja, levels, w_self,
+                         nbr, wts, n, d, k, laplacian, stripe_cols,
+                         smem_bytes, stream);
+}
+
 // stripe_cols, smem_bytes: the decoded stripe's width bc and n * bc * 4
 // bytes (circulant_neumann_stripe_comm_kernel), or 0 and 0 for the
 // unstaged kernel (circulant_neumann_comm_kernel).
-extern "C" int circulant_neumann_comm(const float* h, const float* hvp,
-                                      const float* p, const float* dsc,
-                                      float* out, const float* zp,
-                                      const float* scale, unsigned int seed,
-                                      float levels, int n, int d,
-                                      float w_self, int k,
-                                      const int* offsets,
-                                      const float* weights, float beta,
-                                      int stripe_cols, int smem_bytes,
-                                      void* stream) {
+static int neumann_comm(const float* h, const float* hvp, const float* p,
+                        const float* dsc, float* out, const float* zp,
+                        const float* scale, const JobAxis& ja, float levels,
+                        int n, int d, float w_self, int k,
+                        const int* offsets, const float* weights,
+                        float beta, int stripe_cols, int smem_bytes,
+                        void* stream) {
   const Circ c{w_self, k, offsets, weights};
-  const Wire w = make_wire(zp, scale, nullptr, seed, levels);
+  const Wire w = make_wire(zp, scale, nullptr, 0u, levels);
   cudaStream_t s = (cudaStream_t)stream;
   if (stripe_cols == 0) {
     if (smem_bytes != 0) return (int)cudaErrorInvalidValue;
     circulant_neumann_comm_kernel<<<grid_for(n, d), kThreads, 0, s>>>(
-        h, hvp, p, dsc, out, n, d, c, w, beta);
+        h, hvp, p, dsc, out, n, d, c, w, beta, ja);
     return (int)cudaGetLastError();
   }
   const int ew = vec_bytes(hvp, p, d, 4, 16);
   const auto go = [&](auto kernel) {
     return launch_stripe_comm(kernel, h, out, nullptr, nullptr, d,
                               stripe_cols, smem_bytes, s, h, hvp, p, dsc,
-                              out, n, d, c, w, beta, ew);
+                              out, n, d, c, w, beta, ew, ja);
   };
   switch (stripe_comm_row_bytes(n, stripe_cols, smem_bytes)) {
     case 512: return go(circulant_neumann_stripe_comm_kernel<512>);
@@ -2273,6 +2487,39 @@ extern "C" int circulant_neumann_comm(const float* h, const float* hvp,
     case 16: return go(circulant_neumann_stripe_comm_kernel<16>);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+extern "C" int circulant_neumann_comm(const float* h, const float* hvp,
+                                      const float* p, const float* dsc,
+                                      float* out, const float* zp,
+                                      const float* scale, unsigned int seed,
+                                      float levels, int n, int d,
+                                      float w_self, int k,
+                                      const int* offsets,
+                                      const float* weights, float beta,
+                                      int stripe_cols, int smem_bytes,
+                                      void* stream) {
+  return neumann_comm(h, hvp, p, dsc, out, zp, scale, solo_axis(d, seed),
+                      levels, n, d, w_self, k, offsets, weights, beta,
+                      stripe_cols, smem_bytes, stream);
+}
+
+// dsc (n, jobs), betas a (jobs,) device table, zp/scale (n, jobs),
+// seeds a host array of the jobs' send seeds.
+extern "C" int circulant_neumann_comm_jobs(
+    const float* h, const float* hvp, const float* p, const float* dsc,
+    float* out, const float* zp, const float* scale,
+    const unsigned int* seeds, int jobs, int djob, float levels, int n,
+    int d, float w_self, int k, const int* offsets, const float* weights,
+    const float* betas, int stripe_cols, int smem_bytes, void* stream) {
+  JobAxis ja;
+  if (seeds == nullptr || betas == nullptr ||
+      !job_axis(jobs, djob, d, betas, seeds, &ja)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return neumann_comm(h, hvp, p, dsc, out, zp, scale, ja, levels, n, d,
+                      w_self, k, offsets, weights, 0.0f, stripe_cols,
+                      smem_bytes, stream);
 }
 
 // Halo entry points.  soff: (k,) int32 signed offsets, each in
@@ -2334,13 +2581,13 @@ int launch_neumann_ring(const void* h, const void* hvp, const void* p,
                         float w_self, int k, const int* soff,
                         const float* weights, float beta, int bn, int h_lo,
                         int h_hi, int stages, int smem_bytes, dim3 grid,
-                        cudaStream_t s) {
+                        cudaStream_t s, const JobAxis& ja) {
   const auto kernel = circulant_neumann_ring_kernel<T, V>;
   const cudaError_t err = fill_card(kernel, kHaloThreads, smem_bytes, &grid);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kHaloThreads, smem_bytes, s>>>(
       (const T*)h, (const T*)hvp, (const T*)p, dsc, (T*)out, n, d, bn, h_lo,
-      h_hi, w_self, k, soff, weights, beta, stages);
+      h_hi, w_self, k, soff, weights, beta, stages, ja);
   return (int)cudaGetLastError();
 }
 
@@ -2348,13 +2595,12 @@ int launch_neumann_ring(const void* h, const void* hvp, const void* p,
 // device tables of the halo kernels; bn | n, h_lo, h_hi <= bn; stages in
 // [1, kHaloStages] and smem_bytes = stages * (h_lo + 3 bn + h_hi) * 128 *
 // itemsize, as neumann_ring_plan sizes them (refused otherwise).
-extern "C" int circulant_neumann_ring(const void* h, const void* hvp,
-                                      const void* p, const float* dsc,
-                                      void* out, int n, int d, int dtype,
-                                      float w_self, int k, const int* soff,
-                                      const float* weights, float beta,
-                                      int bn, int h_lo, int h_hi, int stages,
-                                      int smem_bytes, void* stream) {
+static int neumann_ring(const void* h, const void* hvp, const void* p,
+                        const float* dsc, void* out, int n, int d, int dtype,
+                        float w_self, int k, const int* soff,
+                        const float* weights, float beta, int bn, int h_lo,
+                        int h_hi, int stages, int smem_bytes,
+                        const JobAxis& ja, void* stream) {
   dim3 grid;
   if ((dtype != 0 && dtype != 1) || stages < 1 || stages > kHaloStages ||
       !halo_launch(n, d, bn, h_lo, h_hi, dtype == 0 ? 4 : 2, stages,
@@ -2364,7 +2610,7 @@ extern "C" int circulant_neumann_ring(const void* h, const void* hvp,
   cudaStream_t s = (cudaStream_t)stream;
   const auto args = [&](auto launch) {
     return launch(h, hvp, p, dsc, out, n, d, w_self, k, soff, weights, beta,
-                  bn, h_lo, h_hi, stages, smem_bytes, grid, s);
+                  bn, h_lo, h_hi, stages, smem_bytes, grid, s, ja);
   };
   if (dtype == 0) {
     switch (vec_bytes(h, out, d, 4, vec_bytes(hvp, p, d, 4, 16))) {
@@ -2379,6 +2625,35 @@ extern "C" int circulant_neumann_ring(const void* h, const void* hvp,
     case 4: return args(launch_neumann_ring<__nv_bfloat16, 4>);
     default: return args(launch_neumann_ring<__nv_bfloat16, 2>);
   }
+}
+
+extern "C" int circulant_neumann_ring(const void* h, const void* hvp,
+                                      const void* p, const float* dsc,
+                                      void* out, int n, int d, int dtype,
+                                      float w_self, int k, const int* soff,
+                                      const float* weights, float beta,
+                                      int bn, int h_lo, int h_hi, int stages,
+                                      int smem_bytes, void* stream) {
+  return neumann_ring(h, hvp, p, dsc, out, n, d, dtype, w_self, k, soff,
+                      weights, beta, bn, h_lo, h_hi, stages, smem_bytes,
+                      solo_axis(d, 0), stream);
+}
+
+// The ring's step on a serve bucket's job axis: dsc (n, jobs), betas a
+// (jobs,) device table, d = jobs * djob.
+extern "C" int circulant_neumann_ring_jobs(
+    const void* h, const void* hvp, const void* p, const float* dsc,
+    void* out, int n, int d, int dtype, float w_self, int k,
+    const int* soff, const float* weights, const float* betas, int jobs,
+    int djob, int bn, int h_lo, int h_hi, int stages, int smem_bytes,
+    void* stream) {
+  JobAxis ja;
+  if (betas == nullptr || !job_axis(jobs, djob, d, betas, nullptr, &ja)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return neumann_ring(h, hvp, p, dsc, out, n, d, dtype, w_self, k, soff,
+                      weights, 0.0f, bn, h_lo, h_hi, stages, smem_bytes, ja,
+                      stream);
 }
 
 template <int V>

@@ -56,6 +56,15 @@ from their column slabs (`sparse_mix_matvec_halo`,
 launch goes through `_cuda_lib.CudaLibrary`, the port's one ctypes
 launch path.
 
+The job axis (a serve bucket's gossip, `repro_torch.serve`): the plain
+Neumann step with β as a (B,) device table and D̃ as (n, B), and the
+comm-fused full-operand gossips and Neumann step with zp/scale as
+(n, B) and a list of B seeds, launch their `*_jobs` entry points on
+every route (the kernels' `JobAxis`: column c is job c // (d / B)'s);
+each job's columns equal its solo launch bit for bit.  These launches
+count apart, as the route's counter with `_jobs` (`JOB_COUNTERS`).  The
+compressed halo kernels take no job axis (`HALO_JOB_AXIS_ITEM`).
+
 Row tiles and the shared-memory planner
 ---------------------------------------
 `repro` keeps a full (n, 128) column stripe of the operand resident in
@@ -136,6 +145,7 @@ tiles than SMs (the n = 16 path's d2).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 
 import numpy as np
@@ -151,7 +161,7 @@ from ._cuda_lib import U32 as _U
 from ._cuda_lib import card_sms as _card_sms
 from .ref import (check_halo_tile, circulant_mix_fused_ref,
                   circulant_mix_halo_ref, circulant_mix_ref, halo_extents,
-                  neumann_step_fused_ref, neumann_step_ref,
+                  is_seed_table, neumann_step_fused_ref, neumann_step_ref,
                   signed_offsets, sparse_mix_fused_ref, sparse_mix_halo_ref,
                   sparse_mix_padded_ref)
 
@@ -160,6 +170,12 @@ KERNEL_COMMS = ("int8", "int4", "int8+ef", "int4+ef")
 
 # wire operands of the comm-fused kernels: zp, scale, seed, levels
 _WIRE = (_P, _P, _U, _F)
+# on a job axis: zp, scale, the host seed table, jobs, in-job columns,
+# levels
+_JOB_WIRE = (_P, _P, _P, _I, _I, _F)
+# the most jobs one launch takes (the kernels' parameter-bank seed
+# table; the serve engine's widest bucket)
+MAX_JOBS = 64
 # every entry point's arguments before the stream, which `CudaLibrary`
 # appends
 _LIB = CudaLibrary("mixing_matvec", {
@@ -180,6 +196,20 @@ _LIB = CudaLibrary("mixing_matvec", {
     # ..., beta, stripe columns (0: the unstaged kernel), smem bytes
     "circulant_neumann_comm": (_P, _P, _P, _P, _P, *_WIRE, _I, _I, _F, _I,
                                _P, _P, _F, _I, _I),
+    # the job-axis twins (a serve bucket's gossip): the host seed table,
+    # jobs and in-job columns in place of the seed; a (jobs,) device beta
+    # table in place of beta
+    "circulant_neumann_jobs": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P,
+                               _P, _P, _I, _I),
+    "circulant_neumann_ring_jobs": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                                    _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I),
+    "circulant_mix_comm_jobs": (_P, _P, _P, _P, *_JOB_WIRE, _I, _I, _F, _I,
+                                _P, _P, _I, _I, _I),
+    "sparse_mix_comm_jobs": (_P, _P, _P, _P, *_JOB_WIRE, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I),
+    "circulant_neumann_comm_jobs": (_P, _P, _P, _P, _P, *_JOB_WIRE, _I, _I,
+                                    _F, _I, _P, _P, _P, _I, _I),
     # ..., bn, h_lo, h_hi, stages, smem bytes
     "circulant_mix_halo": (_P, _P, _I, _I, _I, _F, _I, _P, _P, _I, _I, _I,
                            _I, _I, _I),
@@ -206,7 +236,16 @@ _LAUNCHES = dict.fromkeys((
     "ring_laplacian_matvec",
     "circulant_mix_matvec_halo", "circulant_mix_matvec_halo_comm",
     "sparse_mix_matvec_halo", "sparse_mix_matvec_halo_rows",
-    "sparse_mix_matvec_halo_comm", "sparse_mix_matvec_halo_comm_rows"), 0)
+    "sparse_mix_matvec_halo_comm", "sparse_mix_matvec_halo_comm_rows",
+    # a serve bucket's job-axis launches, apart from the solo ones
+    "circulant_neumann_step_jobs", "circulant_neumann_step_unstaged_jobs",
+    "circulant_mix_matvec_comm_jobs",
+    "circulant_mix_matvec_comm_unstaged_jobs",
+    "sparse_mix_matvec_comm_jobs", "sparse_mix_matvec_comm_unstaged_jobs",
+    "circulant_neumann_step_comm_jobs",
+    "circulant_neumann_step_comm_unstaged_jobs"), 0)
+
+JOB_COUNTERS = tuple(name for name in _LAUNCHES if name.endswith("_jobs"))
 
 
 def launch_counts() -> dict[str, int]:
@@ -290,24 +329,80 @@ def parse_kernel_comm(comm: str | None) -> tuple[int, bool] | None:
     return int(base[3:]), opt == "ef"
 
 
-def _check_wire(y, zp, scale, seed, hat, ef: bool) -> None:
-    """The comm-fused kernels' operands: y f32 (n, d); zp, scale (n, 1)
-    f32 on y's device; seed a Python int; hat (n, d) f32 iff EF."""
-    if y.dtype != torch.float32:
-        raise ValueError(f"the comm-fused kernels take a float32 operand, "
-                         f"got {y.dtype}")
-    n = y.shape[0]
-    _check_table("zp", zp, (n, 1), torch.float32, y.device)
-    _check_table("scale", scale, (n, 1), torch.float32, y.device)
+def _check_seed(seed) -> None:
     if isinstance(seed, bool) or not isinstance(seed, int) \
             or not -2 ** 31 <= seed < 2 ** 32:
         raise TypeError(f"seed must be a Python int in the 32-bit range, "
                         f"got {seed!r}")
+
+
+def _check_jobs(d: int, jobs: int) -> int:
+    """The in-job columns of a job-axis launch over d columns."""
+    if not 1 <= jobs <= MAX_JOBS or d % jobs:
+        raise ValueError(f"a job axis of {jobs} jobs over {d} columns: "
+                         f"the kernels take 1 to {MAX_JOBS} jobs of equal "
+                         f"width")
+    return d // jobs
+
+
+def _check_wire(y, zp, scale, seed, hat, ef: bool) -> int:
+    """The comm-fused kernels' operands: y f32 (n, d); zp, scale (n, 1)
+    f32 on y's device; seed a Python int; hat (n, d) f32 iff EF.  On a
+    job axis seed is a sequence of B ints and zp, scale are (n, B).
+    Returns B (1 for a solo send)."""
+    if y.dtype != torch.float32:
+        raise ValueError(f"the comm-fused kernels take a float32 operand, "
+                         f"got {y.dtype}")
+    n = y.shape[0]
+    jobs = 1
+    if is_seed_table(seed):
+        jobs = len(seed)
+        _check_jobs(y.shape[1], jobs)
+        for s in seed:
+            _check_seed(int(s))
+    else:
+        _check_seed(seed)
+    _check_table("zp", zp, (n, jobs), torch.float32, y.device)
+    _check_table("scale", scale, (n, jobs), torch.float32, y.device)
     if ef:
         _check_state("hat", hat, y.shape, like=y)
     elif hat is not None:
         raise ValueError("hat is the error-feedback replica; pass it only "
                          "with comm='int8+ef' or 'int4+ef'")
+    return jobs
+
+
+#: Where the compressed halo gossips' job axis is queued.
+HALO_JOB_AXIS_ITEM = "ROADMAP queue 1 item 9c (the compressed halo job axis)"
+
+
+def _no_job_axis(seed) -> None:
+    """The compressed halo kernels (rows 2f and 4f) take one send."""
+    if is_seed_table(seed):
+        raise ValueError(f"the compressed halo kernels take no job axis "
+                         f"yet; that is {HALO_JOB_AXIS_ITEM}")
+
+
+def _seed_table(seeds):
+    """A host array of a job axis's seeds for a launch (kept alive by
+    the caller until the launch returns)."""
+    return (ctypes.c_uint32 * len(seeds))(
+        *(int(s) & 0xFFFFFFFF for s in seeds))
+
+
+def _check_betas(beta, d_scalar, h) -> int:
+    """A Neumann step's β: a Python number (solo; d_scalar (n, 1)) or
+    a job axis's (B,) f32 table on h's device (d_scalar (n, B)).
+    Returns B, 0 for a solo step."""
+    n, d = h.shape
+    if not isinstance(beta, torch.Tensor):
+        _check_table("d_scalar", d_scalar, (n, 1), torch.float32, h.device)
+        return 0
+    jobs = beta.shape[0] if beta.dim() == 1 else -1
+    _check_table("beta", beta, (jobs,), torch.float32, h.device)
+    _check_jobs(d, jobs)
+    _check_table("d_scalar", d_scalar, (n, jobs), torch.float32, h.device)
+    return jobs
 
 
 def circulant_tables(n: int, offsets, weights, device):
@@ -449,7 +544,7 @@ def circulant_mix_matvec(y: torch.Tensor, zp=None, scale=None, seed=None,
                          "mix stages a decoded stripe")
     bits, ef = fused
     _check_state("y", y)
-    _check_wire(y, zp, scale, seed, hat, ef)
+    jobs = _check_wire(y, zp, scale, seed, hat, ef)
     n, d = y.shape
     if y.device.type == "cpu":
         offs, ws = _circulant_host(n, offsets, weights, y.device)
@@ -460,12 +555,19 @@ def circulant_mix_matvec(y: torch.Tensor, zp=None, scale=None, seed=None,
     out = torch.empty_like(y)
     pay = torch.empty_like(y) if ef else None
     cols, smem = _comm_stripe(y)
-    _launch("circulant_mix_comm", "circulant_mix_matvec_comm" if cols
-            else "circulant_mix_matvec_comm_unstaged", y.device,
-            y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
-            zp.data_ptr(), scale.data_ptr(), seed & 0xFFFFFFFF,
-            float(2 ** bits - 1), n, d, float(w_self), k, off.data_ptr(),
+    counter = "circulant_mix_matvec_comm" if cols \
+        else "circulant_mix_matvec_comm_unstaged"
+    head = (y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
+            zp.data_ptr(), scale.data_ptr())
+    tail = (float(2 ** bits - 1), n, d, float(w_self), k, off.data_ptr(),
             w.data_ptr(), int(bool(laplacian)), cols, smem)
+    if is_seed_table(seed):
+        table = _seed_table(seed)
+        _launch("circulant_mix_comm_jobs", counter + "_jobs", y.device,
+                *head, ctypes.addressof(table), jobs, d // jobs, *tail)
+    else:
+        _launch("circulant_mix_comm", counter, y.device, *head,
+                seed & 0xFFFFFFFF, *tail)
     return (out, pay) if ef else out
 
 
@@ -514,7 +616,7 @@ def sparse_mix_matvec(y: torch.Tensor, w_self: torch.Tensor,
                 int(bool(laplacian)), cols or 0, smem)
         return out
     bits, ef = fused
-    _check_wire(y, zp, scale, seed, hat, ef)
+    jobs = _check_wire(y, zp, scale, seed, hat, ef)
     if y.device.type == "cpu":
         return sparse_mix_fused_ref(y, w_self, neighbors, weights, zp,
                                     scale, seed, hat, laplacian=laplacian,
@@ -522,12 +624,19 @@ def sparse_mix_matvec(y: torch.Tensor, w_self: torch.Tensor,
     out = torch.empty_like(y)
     pay = torch.empty_like(y) if ef else None
     cols, smem = _comm_stripe(y)
-    _launch("sparse_mix_comm", "sparse_mix_matvec_comm" if cols
-            else "sparse_mix_matvec_comm_unstaged", y.device,
-            y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
-            zp.data_ptr(), scale.data_ptr(), seed & 0xFFFFFFFF,
-            float(2 ** bits - 1), w_self.data_ptr(), neighbors.data_ptr(),
+    counter = "sparse_mix_matvec_comm" if cols \
+        else "sparse_mix_matvec_comm_unstaged"
+    head = (y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
+            zp.data_ptr(), scale.data_ptr())
+    tail = (float(2 ** bits - 1), w_self.data_ptr(), neighbors.data_ptr(),
             weights.data_ptr(), n, d, k, int(bool(laplacian)), cols, smem)
+    if is_seed_table(seed):
+        table = _seed_table(seed)
+        _launch("sparse_mix_comm_jobs", counter + "_jobs", y.device,
+                *head, ctypes.addressof(table), jobs, d // jobs, *tail)
+    else:
+        _launch("sparse_mix_comm", counter, y.device, *head,
+                seed & 0xFFFFFFFF, *tail)
     return (out, pay) if ef else out
 
 
@@ -573,7 +682,7 @@ def circulant_neumann_step(h: torch.Tensor, hvp_h: torch.Tensor,
     _check_state("hvp_h", hvp_h, h.shape, like=h)
     _check_state("p", p, h.shape, like=h)
     n, d = h.shape
-    _check_table("d_scalar", d_scalar, (n, 1), torch.float32, h.device)
+    jobs = _check_betas(beta, d_scalar, h)
     offs, ws = _circulant_host(n, offsets, weights, h.device)
     item = h.element_size()
     h_lo, h_hi = halo_extents(offs, n)
@@ -595,22 +704,27 @@ def circulant_neumann_step(h: torch.Tensor, hvp_h: torch.Tensor,
         return neumann_step_ref(h.float(), hvp_h.float(), p.float(),
                                 d_scalar, w_self=float(w_self),
                                 offsets=offs, weights=ws,
-                                beta=float(beta)).to(h.dtype)
+                                beta=beta if jobs else float(beta)
+                                ).to(h.dtype)
     out = torch.empty_like(h)
     operands = (h.data_ptr(), hvp_h.data_ptr(), p.data_ptr(),
                 d_scalar.data_ptr(), out.data_ptr(), n, d,
                 _DTYPE_CODE[h.dtype], float(w_self))
+    # β: the launch's scalar, or a job axis's (B,) table, B, in-job cols
+    betas = (beta.data_ptr(), jobs, d // jobs) if jobs \
+        else (float(beta),)
+    suffix = "_jobs" if jobs else ""
     if plan is not None:
         soff, w = _signed_tables(n, offs, ws, h.device)
-        _launch("circulant_neumann_ring", "circulant_neumann_step",
-                h.device, *operands, len(offs), soff.data_ptr(),
-                w.data_ptr(), float(beta), bn, h_lo, h_hi, stages,
-                smem)
+        _launch("circulant_neumann_ring" + suffix,
+                "circulant_neumann_step" + suffix, h.device, *operands,
+                len(offs), soff.data_ptr(), w.data_ptr(), *betas, bn, h_lo,
+                h_hi, stages, smem)
         return out
     k, off, w = _circulant_device(n, offsets, weights, h.device)
-    _launch("circulant_neumann", "circulant_neumann_step_unstaged",
-            h.device, *operands, k, off.data_ptr(), w.data_ptr(),
-            float(beta))
+    _launch("circulant_neumann" + suffix,
+            "circulant_neumann_step_unstaged" + suffix, h.device,
+            *operands, k, off.data_ptr(), w.data_ptr(), *betas)
     return out
 
 
@@ -626,12 +740,16 @@ def _neumann_comm_launch(h, hvp_h, p, d_scalar, zp, scale, seed, *,
     _check_state("hvp_h", hvp_h, h.shape, like=h)
     _check_state("p", p, h.shape, like=h)
     n, d = h.shape
-    _check_table("d_scalar", d_scalar, (n, 1), torch.float32, h.device)
+    jobs = _check_betas(beta, d_scalar, h)
     if ef:
         raise ValueError("the fused Neumann kernel does not lower '+ef' "
                          "comm (no payload write-back); compose it from "
                          "mix_c and the Neumann update instead")
-    _check_wire(h, zp, scale, seed, None, False)
+    if _check_wire(h, zp, scale, seed, None, False) != max(jobs, 1) \
+            or bool(jobs) != is_seed_table(seed):
+        raise ValueError("a job-axis Neumann step takes β as a (B,) "
+                         "table and B seeds; a solo one a number and one "
+                         "seed")
     if cols is not None and cols != 0 and (
             cols not in stripe_cols_for(4)
             or stripe_bytes(n, cols) > SMEM_BUDGET_BYTES):
@@ -644,20 +762,29 @@ def _neumann_comm_launch(h, hvp_h, p, d_scalar, zp, scale, seed, *,
         return neumann_step_fused_ref(h, hvp_h, p, d_scalar, zp, scale,
                                       seed, w_self=float(w_self),
                                       offsets=offs, weights=ws,
-                                      beta=float(beta), bits=bits)
+                                      beta=beta if jobs else float(beta),
+                                      bits=bits)
     k, off, w = _circulant_device(n, offsets, weights, h.device)
     out = torch.empty_like(h)
     if cols is None:
         cols = plan_neumann_comm_stripe_cols(n, d, _card_sms(h.device)) or 0
     smem = stripe_bytes(n, cols) if cols else 0
     assert smem <= SMEM_BUDGET_BYTES
-    _launch("circulant_neumann_comm", "circulant_neumann_step_comm"
-            if cols else "circulant_neumann_step_comm_unstaged",
-            h.device, h.data_ptr(), hvp_h.data_ptr(), p.data_ptr(),
+    counter = "circulant_neumann_step_comm" if cols \
+        else "circulant_neumann_step_comm_unstaged"
+    head = (h.data_ptr(), hvp_h.data_ptr(), p.data_ptr(),
             d_scalar.data_ptr(), out.data_ptr(), zp.data_ptr(),
-            scale.data_ptr(), seed & 0xFFFFFFFF, float(2 ** bits - 1), n, d,
-            float(w_self), k, off.data_ptr(), w.data_ptr(), float(beta),
-            cols, smem)
+            scale.data_ptr())
+    mid = (float(2 ** bits - 1), n, d, float(w_self), k, off.data_ptr(),
+           w.data_ptr())
+    if jobs:
+        table = _seed_table(seed)
+        _launch("circulant_neumann_comm_jobs", counter + "_jobs", h.device,
+                *head, ctypes.addressof(table), jobs, d // jobs, *mid,
+                beta.data_ptr(), cols, smem)
+    else:
+        _launch("circulant_neumann_comm", counter, h.device, *head,
+                seed & 0xFFFFFFFF, *mid, float(beta), cols, smem)
     return out
 
 
@@ -1116,6 +1243,7 @@ def circulant_mix_matvec_halo(y: torch.Tensor, zp=None, scale=None,
     h_lo, h_hi = halo_extents(offsets, n)
     bits, ef = fused if fused is not None else (None, False)
     if fused is not None:
+        _no_job_axis(seed)
         _check_wire(y, zp, scale, seed, hat, ef)
     # both kernels stage their tiles on a ring, the fused one beside its
     # decoded tile
@@ -1199,6 +1327,7 @@ def sparse_mix_matvec_halo(y: torch.Tensor, w_self: torch.Tensor,
         _check_table("row_plan order", order, (n,), torch.int32, y.device)
         _check_table("row_plan deg", deg, (n,), torch.int32, y.device)
     if fused is not None:
+        _no_job_axis(seed)
         _check_wire(y, zp, scale, seed, None, False)
     _, smem = _halo_smem(n, bn, 0, 0, y.element_size(),
                          plan_blocks(fused is not None), bn)

@@ -10,6 +10,15 @@ tests and `chip_smoke.py` hold the kernels against them on the card.
 Counterparts of `repro.kernels.ref`, and of the in-kernel quantizer
 helpers of `repro.kernels.mixing_matvec` (`_fmix32`, `_hash_uniform`,
 `_quantize`) with the comm-fused kernel bodies built on them.
+
+Job axis (a serve bucket's gossip, `repro_torch.serve`): B jobs share
+one (n, B·d) operand, column c belonging to job c // d at in-job column
+c mod d.  The Neumann step then takes β as a (B,) tensor and D̃ as
+(n, B); the comm-fused gossips take zp/scale as (n, B) and one seed per
+job (a sequence of B ints), the hash keyed on (the job's seed, row,
+in-job column).  Every job's columns are computed exactly as its solo
+call computes them, so each job's output and payload are bitwise its
+solo call's, and with B = 1 these are the solo calls.
 """
 from __future__ import annotations
 
@@ -76,11 +85,24 @@ def sparse_mix_padded_ref(y: torch.Tensor, w_self: torch.Tensor,
     return y - acc if laplacian else acc
 
 
+def job_columns(t: torch.Tensor, width: int) -> torch.Tensor:
+    """(..., B) per-job values -> (..., B·width), each repeated over its
+    job's columns."""
+    return t.repeat_interleave(width, dim=-1)
+
+
 def neumann_update(mix, h, hvp_h, p, d_scalar, beta):
     """One DIHGP Neumann iteration given mix = W·h (Eq. 14):
 
         h⁺ = (D̃h − (h − W h) − β·hvp_h − p) / D̃
-    """
+
+    Solo: d_scalar broadcastable against h, β a number.  On a job axis
+    (β a (B,) tensor): h (n, B·d) and d_scalar (n, B), each job's D̃ and
+    β on its own columns."""
+    if isinstance(beta, torch.Tensor):
+        width = h.shape[-1] // beta.shape[0]
+        d_scalar = job_columns(d_scalar, width)
+        beta = job_columns(beta, width)[None, :]
     return (d_scalar * h - (h - mix) - beta * hvp_h - p) / d_scalar
 
 
@@ -140,10 +162,28 @@ def quantize(x, zp, scale, u, levels: float) -> torch.Tensor:
 _PAYLOAD_BLOCK = 1 << 24
 
 
-def _payload(y, zp, scale, seed: int, hat, bits: int) -> torch.Tensor:
+def is_seed_table(seed) -> bool:
+    """Whether `seed` is a job axis's table of seeds (a list or tuple of
+    ints) rather than one send's seed."""
+    return isinstance(seed, (list, tuple))
+
+
+def _payload(y, zp, scale, seed, hat, bits: int) -> torch.Tensor:
     """The decoded broadcast of every row of y (n, d), quantized once:
     C(y), or hat + C(y − hat) with error feedback.  Elementwise, so
-    computing it by blocks of rows changes no bit."""
+    computing it by blocks of rows changes no bit.  On a job axis (seed
+    a sequence of B seeds, zp/scale (n, B)) each job's columns are its
+    solo payload."""
+    if is_seed_table(seed):
+        seeds = [int(s) for s in seed]
+        width = y.shape[1] // len(seeds)
+        out = torch.empty_like(y)
+        for j, s in enumerate(seeds):
+            cols = slice(j * width, (j + 1) * width)
+            out[:, cols] = _payload(
+                y[:, cols], zp[:, j:j + 1], scale[:, j:j + 1], s,
+                None if hat is None else hat[:, cols], bits)
+        return out
     n, d = y.shape
     levels = float(2 ** bits - 1)
     cols = torch.arange(d, device=y.device)[None, :]
@@ -161,7 +201,7 @@ def _payload(y, zp, scale, seed: int, hat, bits: int) -> torch.Tensor:
     return out
 
 
-def circulant_mix_fused_ref(y, zp, scale, seed: int, hat=None, *,
+def circulant_mix_fused_ref(y, zp, scale, seed, hat=None, *,
                             w_self: float, offsets, weights,
                             laplacian: bool = False, bits: int = 8):
     """Comm-fused circulant mix (`_mix_fused_body`): the neighbor terms
@@ -176,7 +216,7 @@ def circulant_mix_fused_ref(y, zp, scale, seed: int, hat=None, *,
 
 
 def sparse_mix_fused_ref(y, w_self, neighbors, weights, zp, scale,
-                         seed: int, hat=None, *, laplacian: bool = False,
+                         seed, hat=None, *, laplacian: bool = False,
                          bits: int = 8):
     """Comm-fused padded gather (`_sparse_fused_body`): each gathered
     row is its source row's payload, quantized with that row's own
@@ -191,7 +231,7 @@ def sparse_mix_fused_ref(y, w_self, neighbors, weights, zp, scale,
     return out if hat is None else (out, pay)
 
 
-def neumann_step_fused_ref(h, hvp_h, p, d_scalar, zp, scale, seed: int, *,
+def neumann_step_fused_ref(h, hvp_h, p, d_scalar, zp, scale, seed, *,
                            w_self: float, offsets, weights, beta: float,
                            bits: int = 8) -> torch.Tensor:
     """Comm-fused Neumann step (`_neumann_fused_body`, no EF): the W·h

@@ -15,9 +15,17 @@ The reference tier (``tier="reference"``) runs every method:
   `MixingOp`; `extras` carries their Appendix-S1
   `comm_floats_per_round` closed form and display `name`.
 
+The serve tier (``tier="serve"``, method "dagm") runs the solve as a
+one-job bucket of a `repro_torch.serve.ServeEngine` (its own, or the
+`serve_engine=` passed in, sharing that engine's runner cache); the
+job's trajectory is its reference-tier run's (`repro_torch.core.jobs`).
+`recorder=` threads the flight recorder through either tier and returns
+its rows in `extras["flight"]`; with tracing on (`repro_torch.obs
+.tracing()`) the reference tier records `repro`'s spans.
+
 `SolveResult.ledger` charges the exact (compressed) bytes of the sends
-that ran.  The serve and sharded tiers, and the flight recorder, raise
-NotImplementedError naming the ROADMAP queue item that ports them.
+that ran.  The sharded tier raises NotImplementedError naming the
+ROADMAP queue item that ports it.
 """
 from __future__ import annotations
 
@@ -30,8 +38,7 @@ import torch
 from .._device import resolve_device, strict_f32
 from .spec import SolverSpec, mixing_kwargs, validate_spec
 
-_QUEUED_TIERS = {"serve": "ROADMAP queue 1 item 9 (serve)",
-                 "sharded": "ROADMAP queue 1 item 11 (sharded tier)"}
+_QUEUED_TIERS = {"sharded": "ROADMAP queue 1 item 11 (sharded tier)"}
 
 
 @dataclasses.dataclass
@@ -65,7 +72,7 @@ def _as_state(a, shape, device) -> torch.Tensor | None:
 @strict_f32()
 def solve(problem, network, spec: SolverSpec, *, x0=None, y0=None,
           seed: int = 0, metrics_fn: Callable | None = None,
-          device=None, recorder=None) -> SolveResult:
+          device=None, recorder=None, serve_engine=None) -> SolveResult:
     """Run `spec` on (problem, network) and return a `SolveResult`.
 
     problem:  a `repro_torch.core.problems.BilevelProblem` whose data
@@ -77,6 +84,11 @@ def solve(problem, network, spec: SolverSpec, *, x0=None, y0=None,
               and the gossip channels' random streams.
     device:   where the run happens — CUDA unless the caller names
               another; raises without a card.
+    recorder: optional `repro_torch.obs.RecorderSpec`: per-round flight
+              rows in `extras["flight"]` (method="dagm").
+    serve_engine: optional pre-built `repro_torch.serve.ServeEngine`
+              for tier="serve" (built with record_metrics=True, on
+              `device`).
     Runs inside `strict_f32`: the caller's TF32 flags are unchanged on
     return.
     """
@@ -96,18 +108,24 @@ def solve(problem, network, spec: SolverSpec, *, x0=None, y0=None,
             "the flight recorder rides the dagm round carry: "
             "recorder= needs method='dagm' (the baselines record no "
             "flight rows) — got method=" + repr(spec.method))
-    if spec.tier != "reference":
+    if recorder is not None:
+        from ..obs import RecorderSpec
+        if not isinstance(recorder, RecorderSpec):
+            raise TypeError(f"recorder must be a repro_torch.obs."
+                            f"RecorderSpec, got {type(recorder).__name__}")
+    if spec.tier in _QUEUED_TIERS:
         raise NotImplementedError(
             f"tier={spec.tier!r} is {_QUEUED_TIERS[spec.tier]}")
-    if recorder is not None:
-        raise NotImplementedError(
-            "the flight recorder is ROADMAP queue 1 item 10 (obs)")
+    if spec.tier == "serve":
+        return _solve_serve(problem, network, spec, x0=x0, y0=y0,
+                            seed=seed, metrics_fn=metrics_fn, device=dev,
+                            engine=serve_engine, recorder=recorder)
     x0 = _as_state(x0, (problem.n, problem.d1), dev)
     y0 = _as_state(y0, (problem.n, problem.d2), dev)
     if spec.method == "dagm":
         return _solve_dagm_reference(problem, network, spec, device=dev,
                                      seed=seed, metrics_fn=metrics_fn,
-                                     x0=x0, y0=y0)
+                                     x0=x0, y0=y0, recorder=recorder)
     return _solve_baseline(problem, network, spec, device=dev, x0=x0,
                            y0=y0, seed=seed)
 
@@ -118,24 +136,67 @@ def _schedule_hp(spec: SolverSpec):
     return RoundHP(alpha=sched.alpha, beta=sched.beta, gamma=sched.gamma)
 
 
+def _dagm_phases(spec: SolverSpec):
+    """(label, gossip-weight) pairs for the synthesized per-round phase
+    spans: M inner DGD exchanges, U DIHGP Neumann exchanges (0 when the
+    exact backend never gossips h), 1 outer (I−Ẃ)x exchange."""
+    u = 0 if spec.dihgp == "exact" else spec.U
+    return [("inner_dgd", spec.M), ("dihgp_neumann", u),
+            ("outer_step", 1)]
+
+
 def _solve_dagm_reference(prob, net, spec: SolverSpec, *, device, x0, y0,
-                          seed, metrics_fn) -> SolveResult:
+                          seed, metrics_fn, recorder=None) -> SolveResult:
+    from .. import obs
     from ..core.dagm import dagm_init_carry, dagm_run_chunk
     from ..topology.ops import make_mixing_op
-    W = make_mixing_op(net, device=device, **mixing_kwargs(spec))
-    carry0 = dagm_init_carry(prob, W, spec, x0, y0, seed)
-    # faults lower once, on the host, to a (K, n, k_max) mask operand
-    # that dagm_run_chunk moves to the device before its loop
-    trace = masks = None
-    if spec.faults is not None:
-        from ..faults import lower_faults
-        trace = lower_faults(spec.faults, net, spec.K)
-        masks = trace.table_masks(W.sparse)
-    ((x, y), cs), metrics = dagm_run_chunk(prob, W, spec, carry0, spec.K,
-                                           metrics_fn,
-                                           hp=_schedule_hp(spec),
-                                           masks=masks)
-    W.ledger.charge_states(cs.values())
+    tr = obs.tracer()
+    with tr.span("solve", cat="solver", track="solver", method="dagm",
+                 tier="reference", K=spec.K, seed=seed):
+        W = make_mixing_op(net, device=device, **mixing_kwargs(spec))
+        with tr.span("init_carry", cat="solver", track="solver"):
+            carry0 = dagm_init_carry(prob, W, spec, x0, y0, seed,
+                                     recorder=recorder)
+        # faults lower once, on the host, to a (K, n, k_max) mask operand
+        # that dagm_run_chunk moves to the device before its loop
+        trace = masks = None
+        if spec.faults is not None:
+            from ..faults import lower_faults
+            with tr.span("lower_faults", cat="solver", track="solver"):
+                trace = lower_faults(spec.faults, net, spec.K)
+                masks = trace.table_masks(W.sparse)
+        t0 = tr.now_us()
+        out = dagm_run_chunk(prob, W, spec, carry0, spec.K, metrics_fn,
+                             hp=_schedule_hp(spec), masks=masks,
+                             recorder=recorder)
+        t_disp = tr.now_us()
+        if tr.enabled and device.type == "cuda":
+            # the loop above returned once every round was dispatched;
+            # waiting here makes the chunk span cover the device's work
+            # (values are unchanged)
+            torch.cuda.synchronize(device)
+        t1 = tr.now_us()
+        flight = None
+        if recorder is not None:
+            ((x, y), cs, rec), metrics = out
+            flight = obs.recorder_rows(rec)
+        else:
+            ((x, y), cs), metrics = out
+        W.ledger.charge_states(cs.values())
+        if tr.enabled:
+            # the port compiles nothing: the host's dispatch of the K
+            # rounds stands where repro's trace+compile span stands, on
+            # a track of its own because the rounds overlap it
+            tr.add_span("trace_compile", t0, t_disp - t0,
+                        cat="solver.compile", track="solver_host",
+                        rounds=spec.K)
+            tr.add_span("chunk", t0, t1 - t0, cat="solver.chunk",
+                        track="solver", rounds=spec.K)
+            obs.synthesize_round_spans(
+                tr, t0_us=t0, dur_us=t1 - t0, rounds=spec.K,
+                phases=_dagm_phases(spec), track="solver",
+                round_args=(obs.rows_to_dicts(flight)
+                            if flight is not None else None))
     extras = {}
     if trace is not None:
         # ledger sends stay nominal (channel counters tick whether or
@@ -143,6 +204,8 @@ def _solve_dagm_reference(prob, net, spec: SolverSpec, *, device, x0, y0,
         # of the faulted run is the trace's realized-link fraction
         extras = {"fault_trace": trace,
                   "fault_alive_fraction": trace.alive_fraction()}
+    if flight is not None:
+        extras["flight"] = flight
     return SolveResult(x=x, y=y, metrics=metrics, ledger=W.ledger,
                        channels=cs, method="dagm", tier="reference",
                        extras=extras)
@@ -159,3 +222,85 @@ def _solve_baseline(prob, net, spec: SolverSpec, *, device, x0, y0, seed
                        channels=cs, method=spec.method, tier="reference",
                        extras={"comm_floats_per_round": floats,
                                "name": name})
+
+
+# ---------------------------------------------------------------------------
+# serve tier
+# ---------------------------------------------------------------------------
+
+#: problem-object → inline family callable.  The family object is part
+#: of the serve signature, so re-solving the same problem must hand the
+#: engine the same callable or a shared engine's runner cache could
+#: never hit.  id-keyed with an identity check against stale-id reuse;
+#: bounded because each family closure keeps its problem alive.
+_INLINE_FAMILIES: dict = {}
+_INLINE_FAMILIES_CAP = 256
+
+
+def _inline_family(prob):
+    ent = _INLINE_FAMILIES.get(id(prob))
+    if ent is not None and ent[0] is prob:
+        return ent[1]
+    fam = lambda: prob
+    while len(_INLINE_FAMILIES) >= _INLINE_FAMILIES_CAP:
+        _INLINE_FAMILIES.pop(next(iter(_INLINE_FAMILIES)))
+    _INLINE_FAMILIES[id(prob)] = (prob, fam)
+    return fam
+
+
+def _default_serve_metrics(prob, W, x, y):
+    """Module-level (a stable identity: it keys the engine's runner
+    cache) default — the reference tier's default_metrics, so a
+    serve-tier SolveResult carries the same trajectory."""
+    from ..core.dagm import default_metrics
+    return default_metrics(prob, x, y)
+
+
+def _solve_serve(prob, net, spec: SolverSpec, *, x0, y0, seed, metrics_fn,
+                 device, engine, recorder=None) -> SolveResult:
+    from ..serve import JobSpec, ServeEngine
+    if x0 is not None or y0 is not None:
+        raise ValueError(
+            "tier='serve' jobs initialize from their seed (the engine's "
+            "slot-admission protocol); custom x0/y0 are a "
+            "reference-tier feature — use tier='reference' or bake the "
+            "init into the problem")
+    if engine is None:
+        engine = ServeEngine(record_metrics=True, device=device,
+                             flight_recorder=recorder)
+    elif not engine.record_metrics:
+        raise ValueError(
+            "the ServeEngine passed to solve(tier='serve') must be "
+            "built with record_metrics=True so the SolveResult can "
+            "carry the per-round metric trajectory")
+    elif recorder is not None and engine.flight_recorder != recorder:
+        raise ValueError(
+            "solve(recorder=...) on a pre-built engine needs the "
+            "engine constructed with the same flight_recorder= spec "
+            "(the recorder buffer is part of every bucket's carry)")
+    elif engine.device != device:
+        raise ValueError(f"the ServeEngine runs on {engine.device}; this "
+                         f"solve on {device}")
+    mf = _default_serve_metrics if metrics_fn is None else metrics_fn
+    job = JobSpec(family=_inline_family(prob), problem={},
+                  config=dataclasses.replace(spec, tier="reference"),
+                  graph=net, seed=seed)
+    prev_mf = engine.metrics_fn
+    engine.metrics_fn = mf
+    try:
+        engine.submit(job)
+        (res,) = engine.run()
+    finally:
+        engine.metrics_fn = prev_mf
+    extras = {"rounds": res.rounds, "converged": res.converged,
+              "final_gap": res.final_gap,
+              "wire_bytes": res.wire_bytes,
+              "wire_floats": res.wire_floats, "sends": res.sends}
+    if recorder is not None:
+        extras["flight"] = res.flight
+    metrics = {k: torch.as_tensor(v, device=device)
+               for k, v in (res.metrics or {}).items()}
+    return SolveResult(
+        x=res.x.to(device), y=res.y.to(device), metrics=metrics,
+        ledger=engine.ledgers[res.signature], channels=None,
+        method="dagm", tier="serve", extras=extras)

@@ -587,6 +587,149 @@ class MixingOp:
         mix, st = self.mix_c(h, st)
         return _neumann_update(mix, h, hvp_h, p, d_scalar, beta), st
 
+    # -- a serve bucket's job axis (repro_torch.serve) ----------------------
+    #
+    # A bucket of B jobs holds each gossiped state as (n, B, d), so that
+    # its (n, B·d) view is one operand: every gossip of the bucket is one
+    # launch for all of its jobs.  The plain gossips compute each column
+    # alone and need nothing more; the Neumann step takes β as a (B,)
+    # device table and D̃ as (n, B), the comm-fused gossips each job's
+    # zp/scale ((n, B), from its own d columns) and seed (the slot's
+    # `send_seed`), so each job's result is bitwise its solo gossip's.
+    # Channel states are `repro_torch.comm.JobChannelState`s.
+
+    def _jobs_fused_plan(self, flat: torch.Tensor):
+        """`_fused_plan` of a bucket's (n, B·d) operand, refusing the
+        compressed halo kernels, which take no job axis yet."""
+        plan = self._fused_plan(flat)
+        if plan is not None and plan[1] is not None:
+            from ..kernels.mixing_matvec import HALO_JOB_AXIS_ITEM
+            raise ValueError(
+                f"a serve bucket's compressed gossip at n={self.n} plans "
+                f"the halo kernels (row tile {plan[1]}), which take no job "
+                f"axis yet; that is {HALO_JOB_AXIS_ITEM}")
+        return plan
+
+    def jobs_fusion(self) -> None:
+        """Raise `_jobs_fused_plan`'s ValueError where a bucket's
+        compressed gossips on this op would plan the halo kernels (the
+        plan reads n, never the width) — the serve engine's check at
+        submit."""
+        self._jobs_fused_plan(torch.empty((self.n, 1), dtype=torch.float32,
+                                          device="meta"))
+
+    @strict_f32()
+    def mix_jobs_c(self, y: torch.Tensor, st, laplacian: bool = False):
+        """(W ⊗ I) y (or (I − W)) of every job of y (n, B, d) through the
+        bucket's channel `st` (a `JobChannelState`) -> (out, state)."""
+        if self.comm.is_identity:
+            return self._apply(y, laplacian), st.bump()
+        n, B = y.shape[:2]
+        flat = y.reshape(n, -1)
+        if self._jobs_fused_plan(flat) is not None:
+            return self._apply_fused_jobs(y, flat, st, laplacian)
+        # the composed wire, one job at a time (as its solo send), then
+        # one mix of the bucket's decoded payload
+        from ..comm import compressed_payload
+        seeds = st.send_seeds()
+        y_hat = torch.empty_like(y)
+        for j in range(B):
+            y_hat[:, j], _ = compressed_payload(self.comm, y[:, j],
+                                                st.slot(j), seeds[j])
+        mixed = self._apply(y_hat, laplacian=False)
+        expand = (slice(None),) + (None,) * (y.dim() - 1)
+        mixed = mixed + self._diag[expand].to(y.dtype) * (y - y_hat)
+        st = dataclasses.replace(st, hat=y_hat if self.comm.ef else st.hat,
+                                 sends=st.sends + 1)
+        return (y - mixed) if laplacian else mixed, st
+
+    def _jobs_wire(self, flat: torch.Tensor, B: int, hat=None):
+        """Each job's (zp, scale) of a bucket's (n, B·d) send, (n, B)
+        each: `row_quant_params` over each job's own d columns."""
+        from ..comm import row_quant_params
+        n = flat.shape[0]
+        q = flat if hat is None else flat - hat
+        zp, scale = row_quant_params(q.reshape(n * B, -1),
+                                     self.comm.compressor.bits)
+        return zp.reshape(n, B), scale.reshape(n, B)
+
+    def _apply_fused_jobs(self, y, flat, st, laplacian: bool):
+        """One comm-fused gossip of every job of the bucket: one launch
+        on the job axis (`_apply_fused`'s state advance, per slot)."""
+        n, B = y.shape[:2]
+        bits, ef = self.comm.compressor.bits, self.comm.ef
+        comm = f"int{bits}" + ("+ef" if ef else "")
+        seeds = st.send_seeds()
+        flat = flat.contiguous()
+        hat = st.hat.reshape(flat.shape).contiguous() if ef else None
+        zp, scale = self._jobs_wire(flat, B, hat)
+        if self.backend == "circulant":
+            res = circulant_mix_matvec(flat, zp, scale, seeds, hat,
+                                       w_self=self.structure.w_self,
+                                       offsets=self._circ_off,
+                                       weights=self._circ_w,
+                                       laplacian=laplacian, comm=comm)
+        else:
+            res = sparse_mix_matvec(flat, self._sp_wself, self._sp_idx,
+                                    self._sp_wts, zp, scale, seeds, hat,
+                                    laplacian=laplacian, comm=comm)
+        if ef:
+            out, pay = res
+            st = dataclasses.replace(st, hat=pay.reshape(y.shape),
+                                     sends=st.sends + 1)
+        else:
+            out, st = res, st.bump()
+        return out.reshape(y.shape), st
+
+    @strict_f32()
+    def neumann_step_jobs(self, h, hvp_h, p, d_scalar, beta):
+        """The fused DIHGP step of every job of h (n, B, d): d_scalar
+        (n, B) per-agent, per-job D̃; beta a (B,) f32 device table."""
+        n, B = h.shape[:2]
+        flat = h.reshape(n, -1)
+        if self.backend == "circulant" and self.storage_dtype is None \
+                and self._kernel_tier():
+            s = self.structure
+            out = circulant_neumann_step(
+                flat.contiguous(), hvp_h.reshape(flat.shape).contiguous(),
+                p.reshape(flat.shape).contiguous(),
+                d_scalar.float().contiguous(), w_self=s.w_self,
+                offsets=s.offsets, weights=s.weights, beta=beta)
+            return out.reshape(h.shape)
+        mix = self._apply(h, laplacian=False).reshape(flat.shape)
+        return _neumann_update(mix, flat, hvp_h.reshape(flat.shape),
+                               p.reshape(flat.shape), d_scalar,
+                               beta).reshape(h.shape)
+
+    @strict_f32()
+    def neumann_step_jobs_c(self, h, hvp_h, p, d_scalar, beta, st):
+        """`neumann_step_jobs` with the W·h gossip on the bucket's
+        channel: the comm-fused Neumann kernel on the job axis where the
+        solo step runs it, else `mix_jobs_c` and the update."""
+        if self.comm.is_identity:
+            return self.neumann_step_jobs(h, hvp_h, p, d_scalar, beta), \
+                st.bump()
+        n, B = h.shape[:2]
+        flat = h.reshape(n, -1)
+        if not self.comm.ef \
+                and self._jobs_fused_plan(flat) == ("circulant", None):
+            bits = self.comm.compressor.bits
+            seeds = st.send_seeds()
+            flat = flat.contiguous()
+            zp, scale = self._jobs_wire(flat, B)
+            out = circulant_neumann_step(
+                flat, hvp_h.reshape(flat.shape).contiguous(),
+                p.reshape(flat.shape).contiguous(),
+                d_scalar.float().contiguous(), zp, scale, seeds,
+                w_self=self.structure.w_self, offsets=self._circ_off,
+                weights=self._circ_w, beta=beta, comm=f"int{bits}")
+            return out.reshape(h.shape), st.bump()
+        mix, st = self.mix_jobs_c(h, st)
+        return _neumann_update(mix.reshape(flat.shape), flat,
+                               hvp_h.reshape(flat.shape),
+                               p.reshape(flat.shape), d_scalar,
+                               beta).reshape(h.shape), st
+
     # -- fault-masked mixing (repro_torch.faults) --------------------------
 
     def _masked_tables(self):

@@ -1583,3 +1583,181 @@ def test_dgtbo_width_ring_past_int32_bitwise(cuda):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     del got, want
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# A serve bucket's job axis (rows 5, 1f, 3f and 5f): each job's columns of
+# a job-axis launch bitwise its solo launch on the job's slice and the
+# plain version, on every route, for B ∈ {1, 3, 8} and odd in-job widths
+# ---------------------------------------------------------------------------
+
+JOB_CASES = [(1, 16, 2011), (3, 16, 2011), (8, 16, 2011), (3, 8, 7),
+             (8, 128, 129)]
+
+
+def _job_slice(t, j, d):
+    return t[:, j * d:(j + 1) * d].contiguous()
+
+
+def _job_inputs(B, n, d, dev, seed=0):
+    h, hv, p = (_randn((n, B * d), torch.float32, dev, seed=seed + k)
+                for k in range(3))
+    rng = np.random.default_rng(seed)
+    beta = torch.as_tensor(0.01 + 0.2 * rng.random(B), dtype=torch.float32,
+                           device=dev)
+    dsc = torch.as_tensor(1.5 + rng.random((n, B)), dtype=torch.float32,
+                          device=dev)
+    return h, hv, p, beta, dsc
+
+
+def _job_wire(y, B, bits, hat=None):
+    from repro_torch.comm import row_quant_params
+    n = y.shape[0]
+    q = y if hat is None else y - hat
+    zp, sc = row_quant_params(q.reshape(n * B, -1), bits)
+    return zp.reshape(n, B).contiguous(), sc.reshape(n, B).contiguous()
+
+
+def _one_job_launch(counters):
+    counts = mm.launch_counts()
+    assert sum(counts.values()) == 1, counts
+    assert sum(counts[c] for c in counters) == 1, counts
+
+
+@pytest.mark.parametrize("route", ["planner", "unstaged"])
+@pytest.mark.parametrize("B,n,d", JOB_CASES)
+def test_job_axis_neumann_step_every_route(cuda, route, B, n, d):
+    s = circulant_structure(make_network("ring", n).W)
+    kw = _tables(s, cuda)
+    h, hv, p, beta, dsc = _job_inputs(B, n, d, cuda)
+    budget = 0 if route == "unstaged" else mm.SMEM_BUDGET_BYTES
+    with mm.smem_budget(budget):
+        mm.reset_launch_counts()
+        out = mm.circulant_neumann_step(h, hv, p, dsc, beta=beta, **kw)
+        _one_job_launch(("circulant_neumann_step_jobs",
+                         "circulant_neumann_step_unstaged_jobs"))
+        if route == "unstaged":
+            assert mm.launch_counts()[
+                "circulant_neumann_step_unstaged_jobs"] == 1
+        want = ref.neumann_step_ref(h, hv, p, dsc, w_self=s.w_self,
+                                    offsets=s.offsets, weights=s.weights,
+                                    beta=beta)
+        _bits_equal(out, want)
+        for j in range(B):
+            solo = mm.circulant_neumann_step(
+                _job_slice(h, j, d), _job_slice(hv, j, d),
+                _job_slice(p, j, d), dsc[:, j:j + 1].contiguous(),
+                beta=float(beta[j]), **kw)
+            _bits_equal(_job_slice(out, j, d), solo)
+
+
+@pytest.mark.parametrize("route", ["planner", "unstaged"])
+@pytest.mark.parametrize("comm", ["int8", "int4", "int8+ef", "int4+ef"])
+@pytest.mark.parametrize("graph", ["ring", "erdos_renyi"])
+@pytest.mark.parametrize("B,n,d", JOB_CASES)
+def test_job_axis_comm_gossip_every_route(cuda, route, comm, graph, B, n,
+                                          d):
+    bits, ef = int(comm[3]), comm.endswith("+ef")
+    y, hat, _, _, _ = _job_inputs(B, n, d, cuda, seed=B)
+    hat = 0.1 * hat if ef else None
+    zp, sc = _job_wire(y, B, bits, hat)
+    seeds = [int(s) for s in np.random.default_rng(B).integers(
+        0, 2 ** 31 - 1, B)]
+    if graph == "ring":
+        s = circulant_structure(make_network("ring", n).W)
+        kw = _tables(s, cuda)
+        counters = ("circulant_mix_matvec_comm_jobs",
+                    "circulant_mix_matvec_comm_unstaged_jobs")
+
+        def launch(yy, z, c, sd, hh):
+            return mm.circulant_mix_matvec(yy, z, c, sd, hh, comm=comm,
+                                           laplacian=True, **kw)
+
+        def plain(yy, z, c, sd, hh):
+            return ref.circulant_mix_fused_ref(
+                yy, z, c, sd, hh, w_self=s.w_self, offsets=s.offsets,
+                weights=s.weights, laplacian=True, bits=bits)
+    else:
+        sp = sparse_structure(make_network("erdos_renyi", n, r=0.5,
+                                           seed=1).W)
+        tabs = [torch.as_tensor(a, device=cuda)
+                for a in (sp.w_self, sp.neighbors, sp.weights)]
+        counters = ("sparse_mix_matvec_comm_jobs",
+                    "sparse_mix_matvec_comm_unstaged_jobs")
+
+        def launch(yy, z, c, sd, hh):
+            return mm.sparse_mix_matvec(yy, *tabs, z, c, sd, hh, comm=comm)
+
+        def plain(yy, z, c, sd, hh):
+            return ref.sparse_mix_fused_ref(yy, *tabs, z, c, sd, hh,
+                                            bits=bits)
+    budget = 0 if route == "unstaged" else mm.SMEM_BUDGET_BYTES
+    with mm.smem_budget(budget):
+        mm.reset_launch_counts()
+        out = launch(y, zp, sc, seeds, hat)
+        _one_job_launch(counters)
+        if route == "unstaged":
+            assert mm.launch_counts()[counters[1]] == 1
+        want = plain(y, zp, sc, seeds, hat)
+        for got, w in (zip(out, want) if ef else ((out, want),)):
+            _bits_equal(got, w)
+        for j in range(B):
+            solo = launch(_job_slice(y, j, d), zp[:, j:j + 1].contiguous(),
+                          sc[:, j:j + 1].contiguous(), seeds[j],
+                          None if hat is None else _job_slice(hat, j, d))
+            pairs = zip(out, solo) if ef else ((out, solo),)
+            for got, w in pairs:
+                _bits_equal(_job_slice(got, j, d), w)
+
+
+@pytest.mark.parametrize("cols", [None, 0, 32, 128])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B,n,d", JOB_CASES)
+def test_job_axis_comm_neumann_every_route(cuda, cols, bits, B, n, d):
+    s = circulant_structure(make_network("ring", n).W)
+    kw = _tables(s, cuda)
+    h, hv, p, beta, dsc = _job_inputs(B, n, d, cuda, seed=11)
+    zp, sc = _job_wire(h, B, bits)
+    seeds = [7 + 13 * j for j in range(B)]
+    comm = f"int{bits}"
+    mm.reset_launch_counts()
+    out = mm._neumann_comm_launch(h, hv, p, dsc, zp, sc, seeds, beta=beta,
+                                  comm=comm, cols=cols, **kw)
+    _one_job_launch(("circulant_neumann_step_comm_jobs",
+                     "circulant_neumann_step_comm_unstaged_jobs"))
+    if cols == 0:
+        assert mm.launch_counts()[
+            "circulant_neumann_step_comm_unstaged_jobs"] == 1
+    want = ref.neumann_step_fused_ref(h, hv, p, dsc, zp, sc, seeds,
+                                      w_self=s.w_self, offsets=s.offsets,
+                                      weights=s.weights, beta=beta,
+                                      bits=bits)
+    _bits_equal(out, want)
+    for j in range(B):
+        solo = mm._neumann_comm_launch(
+            _job_slice(h, j, d), _job_slice(hv, j, d), _job_slice(p, j, d),
+            dsc[:, j:j + 1].contiguous(), zp[:, j:j + 1].contiguous(),
+            sc[:, j:j + 1].contiguous(), seeds[j], beta=float(beta[j]),
+            comm=comm, cols=cols, **kw)
+        _bits_equal(_job_slice(out, j, d), solo)
+
+
+def test_job_axis_refusals_on_the_card(cuda):
+    """The C entry points refuse an axis that does not fit the operand,
+    and the compressed halo kernels refuse any axis."""
+    s = circulant_structure(make_network("ring", 8).W)
+    kw = _tables(s, cuda)
+    h, hv, p, beta, dsc = _job_inputs(3, 8, 5, cuda)
+    out = torch.empty_like(h)
+    for jobs, djob in ((3, 4), (0, 15), (65, 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mm._LIB.launch("circulant_neumann_jobs", cuda, h.data_ptr(),
+                           hv.data_ptr(), p.data_ptr(), dsc.data_ptr(),
+                           out.data_ptr(), 8, 15, 0, s.w_self, 2,
+                           kw["offsets"].data_ptr(), kw["weights"].data_ptr(),
+                           beta.data_ptr(), jobs, djob)
+    zp, sc = _job_wire(h, 3, 8)
+    with pytest.raises(ValueError, match="item 9c"):
+        mm.circulant_mix_matvec_halo(h, zp, sc, [1, 2, 3], comm="int8",
+                                     w_self=s.w_self, offsets=s.offsets,
+                                     weights=s.weights, bn=4)

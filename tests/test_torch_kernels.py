@@ -142,7 +142,16 @@ def test_cpu_wrappers_run_the_plain_versions_without_launching():
             "circulant_neumann_step_comm_unstaged", "ring_laplacian_matvec", "circulant_mix_matvec_halo",
             "circulant_mix_matvec_halo_comm", "sparse_mix_matvec_halo",
             "sparse_mix_matvec_halo_rows", "sparse_mix_matvec_halo_comm",
-            "sparse_mix_matvec_halo_comm_rows"} == set(counts)
+            "sparse_mix_matvec_halo_comm_rows",
+            # a serve bucket's job-axis launches (rows 5, 1f, 3f, 5f)
+            "circulant_neumann_step_jobs",
+            "circulant_neumann_step_unstaged_jobs",
+            "circulant_mix_matvec_comm_jobs",
+            "circulant_mix_matvec_comm_unstaged_jobs",
+            "sparse_mix_matvec_comm_jobs",
+            "sparse_mix_matvec_comm_unstaged_jobs",
+            "circulant_neumann_step_comm_jobs",
+            "circulant_neumann_step_comm_unstaged_jobs"} == set(counts)
 
 
 def test_wrappers_refuse_bad_operands():

@@ -71,24 +71,32 @@ def test_default_init_draws_y0_from_the_seed():
 
 
 def test_queued_paths_raise_naming_their_roadmap_item():
-    """What is still queued: the serve and sharded tiers, the flight
-    recorder with dagm, and the obs hooks of the fault trace and the
-    ledger (item 10).  The baselines and faults run (items 6 and 7)."""
+    """What is still queued: the sharded tier (item 11).  The serve tier
+    and obs (items 9 and 10) run since their slice — the flight recorder
+    with dagm, the obs hooks of the fault trace and the ledger — and so
+    do the baselines and faults (items 6 and 7)."""
+    from repro_torch import obs
     from repro_torch.faults import FaultSpec, lower_faults
     tprob = tp.quadratic_bilevel(4, 2, 3, device="cpu")
     net = make_network("ring", 4)
-    cases = [(SolverSpec(K=1, tier="serve"), {}, "queue 1 item 9"),
-             (SolverSpec(K=1, tier="sharded"), {}, "queue 1 item 11"),
-             (SolverSpec(K=1), {"recorder": object()}, "queue 1 item 10")]
-    for spec, kw, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            solve(tprob, net, spec, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        solve(tprob, net, SolverSpec(K=1, tier="sharded"), device="cpu")
+    with pytest.raises(TypeError, match="RecorderSpec"):
+        solve(tprob, net, SolverSpec(K=1), device="cpu",
+              recorder=object())
+    ref = solve(tprob, net, SolverSpec(K=2), device="cpu",
+                recorder=obs.RecorderSpec())
+    assert ref.extras["flight"].shape == (2, len(obs.FIELDS))
+    srv = solve(tprob, net, SolverSpec(K=2, tier="serve"), device="cpu")
+    assert srv.tier == "serve" and torch.equal(srv.x, ref.x)
     res = solve(tprob, net, SolverSpec(K=1, faults=FaultSpec(
         drop_prob=0.5)), device="cpu")
     for obj in (res.extras["fault_trace"], res.ledger,
                 lower_faults(FaultSpec(), net, 2)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            obj.observe()
+        obj.observe(case="queued")
+    assert obs.counter_value("comm_sends_total", case="queued",
+                             ledger=res.ledger.name, channel="outer_x",
+                             spec="identity") == 1
     for method in ("dgbo", "dgtbo", "fednest", "ma_dbo"):
         assert solve(tprob, net, SolverSpec(K=1, M=1, method=method),
                      device="cpu").method == method
@@ -139,9 +147,15 @@ def test_port_imports_neither_jax_nor_repro():
         "or k.startswith(('jax.', 'jaxlib')) or k == 'repro' "
         "or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "new = ('repro_torch.checkpoint.checkpoint', 'repro_torch.obs.spans', "
+        "'repro_torch.obs.metrics', 'repro_torch.obs.export', "
+        "'repro_torch.obs.recorder', 'repro_torch.serve.jobs', "
+        "'repro_torch.serve.batching', 'repro_torch.serve.engine', "
+        "'repro_torch.serve.slo', 'repro_torch.core.jobs')\n"
+        "assert all(m in sys.modules for m in new), new\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(SRC)))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 30

@@ -139,12 +139,16 @@ def test_auto_rules_and_pallas_aliases():
 
 
 def test_queued_features_raise_naming_their_roadmap_item():
-    """The ledger's obs hook is still queued (item 10); fault masks
-    (item 7) run — an all-ones mask mixes as the op itself — and every
-    comm spec `repro` accepts builds (compressed gossip, item 5)."""
+    """Nothing of the op is queued any more: the ledger's obs hook (item
+    10) publishes into a registry, fault masks (item 7) run — an
+    all-ones mask mixes as the op itself — and every comm spec `repro`
+    accepts builds (compressed gossip, item 5)."""
+    from repro_torch import obs
     op = make_mixing_op(make_network("ring", 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        op.ledger.observe()
+    reg = obs.MetricsRegistry()
+    op.ledger.observe(reg)
+    # no channel opened yet: the families, no samples
+    assert obs.parse_prometheus(obs.prometheus_text(reg)) == {}
     y = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (8, 5)).astype(np.float32))
     torch.testing.assert_close(op.masked(np.ones((8, 2))).mix(y), op.mix(y),
@@ -171,8 +175,13 @@ def test_identity_channels_count_sends_and_ledger_matches_repro():
     led.charge("inner_y", 4)
     assert top.ledger.total_bytes == led.total_bytes == 4 * 6 * 4
     assert top.ledger.summary(rounds=2) == led.summary(rounds=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        CommLedger().observe()
+    from repro import obs as jobs_obs
+    from repro_torch import obs
+    treg, jreg = obs.MetricsRegistry(), jobs_obs.MetricsRegistry()
+    top.ledger.observe(treg, run="a")
+    jobs_obs.observe_ledger(led, jreg, run="a")
+    assert obs.prometheus_text(treg) == jobs_obs.prometheus_text(jreg)
+    CommLedger().observe(obs.MetricsRegistry())
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
