@@ -42,6 +42,12 @@ Phases, in order (any failure exits non-zero before the last line):
                row-tiled kernel, driven by a lower shared-memory budget;
                bitwise against the full-operand kernel and the plain
                version; the plain slab also without its row plan);
+               and rows 2f and 4f on a job axis of 8 jobs at (128,
+               8·d) for d2, d1 and an odd width (the fused circulant
+               halo int8+ef and int8; the compressed sparse halo's slab
+               and its row tiles, through a lower budget), bitwise
+               against the plain version and the jobs' solo launches,
+               timed against them;
   3b. sweep  — the Neumann ring at every (row tile, stages) its kernel
                takes at (4096, d2/d1), f32 and bf16, and (16, d2/d1),
                and the mix's ring at each stage count, bitwise against
@@ -127,12 +133,24 @@ Phases, in order (any failure exits non-zero before the last line):
                peak memory; every captured job-axis launch bitwise its
                plain version and its jobs' solo launches, timed; a run
                crashed after its first chunk and resumed by a fresh
-               engine bitwise the uninterrupted run;
+               engine bitwise the uninterrupted run; then two buckets of
+               8 jobs at n = 128, where the compressed gossips plan the
+               halo tiles (ring int8+ef: row 2f; ER int8: row 4f's
+               slab), exact launches and each job bitwise its solo solve;
  10. obs     — the flight recorder and tracing on the ring int8+ef
                solve (bitwise the plain solve; the recorder's wire bytes
                the ledger's; the trace valid), a checkpoint round trip of
                f32, bf16 and int32 leaves on the card;
- 11. the kernel list as one JSON line, then the device JSON line last.
+ 11. admission — `AdmissionLoop` at n = 16: ring int8+ef jobs of two
+               budgets (K = 4, 8) and three classes packed into one
+               bucket, one chunk-boundary preemption, exact launches,
+               one runner build, each job bitwise its solo solve; a
+               checkpointed loop killed by SimulatedCrash and restored,
+               the jobs never admitted back off the sidecar, bitwise;
+               `drive_poisson_async` against `drive_poisson` on one
+               seeded schedule of 24 jobs at half the wave engine's
+               jobs/s: p50, p99, jobs/s, peak queue depth, idle share;
+ 12. the kernel list as one JSON line, then the device JSON line last.
 
 Imports torch and the port only; needs no network.
 """
@@ -225,11 +243,12 @@ def device_ms(torch, fn, pool, symbol: str, iters=50, attempts=3
     """Mean device time (ms) of the one CUDA kernel named like `symbol`
     that fn launches, from torch.profiler: the kernel alone, without the
     host's launch cost that `cuda_ms` includes.  The tracer misses the
-    first launches of a window (up to 3 of 50 seen on the H100, and late
-    in a long run whole windows), so five launches run under the
-    profiler's warm-up step before the step it records, and the mean is
-    over those it saw; a window in which it saw fewer than iters - 3 is
-    profiled again, up to `attempts` times.  Past that the time comes
+    first launches of a window (up to 3 of 50 seen on the H100; late in
+    a long run 4-6 of 50, or whole windows), so five launches run under
+    the profiler's warm-up step before the step it records, and the
+    mean is over those it saw; a window in which it saw fewer than
+    iters - max(3, iters // 8) is profiled again, up to `attempts`
+    times.  Past that the time comes
     from CUDA events around the same launches (`cuda_ms`, which for
     kernels shorter than their host launch cost reads the host's rate),
     and the line says so."""
@@ -251,7 +270,7 @@ def device_ms(torch, fn, pool, symbol: str, iters=50, attempts=3
                 if symbol in e.key
                 and getattr(e, "self_device_time_total", 0) > 0]
         count = sum(e.count for e in hits)
-        if iters - 3 <= count <= iters:
+        if iters - max(3, iters // 8) <= count <= iters:
             return sum(e.self_device_time_total for e in hits) / count / 1e3
         print(f"  profiler saw {count} launches of {symbol}, expected "
               f"{iters} (attempt {attempt + 1} of {attempts})")
@@ -911,6 +930,159 @@ def kernel_phase(torch, results: dict) -> None:
         record("ring_laplacian_matvec", (n, d, "float32", True),
                dict(err=err, ms=ms, dev=dev_ms, plain=plain, lib=lib,
                     bound=b_ms, by=b_by))
+    halo_job_axis_kernels(torch, results)
+
+
+# rows 2f and 4f on a serve bucket's job axis: 8 jobs at n = 128 (where
+# the planner sends the compressed gossips to the halo tiles), at the
+# §6.2 widths and at an odd in-job width
+HALO_JOBS = 8
+HALO_JOB_N = 128
+HALO_JOB_WIDTHS = (D2, D1, D_ODD)
+
+
+def halo_job_axis_kernels(torch, results: dict) -> None:
+    """Rows 2f (the fused circulant halo, ring int8+ef and int8) and 4f
+    (the compressed sparse halo, ER r = 0.5 int8, on the planner's slab
+    and on the row tiles through a lower budget) on a job axis of
+    HALO_JOBS jobs at (HALO_JOB_N, HALO_JOBS·d): one launch, bitwise its
+    plain version and its jobs' solo launches over their own columns,
+    timed against the solo launches, with its device time, the plain
+    version's, one `torch.sparse.mm` of the uncompressed mix and the
+    bound."""
+    from repro_torch.comm import row_quant_params
+    from repro_torch.kernels import mixing_matvec as mm
+    from repro_torch.kernels import ref
+    from repro_torch.topology import make_network
+    from repro_torch.topology.structure import (circulant_structure,
+                                                sparse_structure)
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(7)
+    n, B = HALO_JOB_N, HALO_JOBS
+    seeds = [SEED + 977 * j for j in range(B)]
+    ring = circulant_structure(make_network("ring", n).W)
+    er_net = make_network("erdos_renyi", n, r=0.5, seed=0)
+    sp = sparse_structure(er_net.W)
+    tabs = tuple(torch.as_tensor(a, device=dev)
+                 for a in (sp.w_self, sp.neighbors, sp.weights))
+    bn = mm.plan_row_tile(n, h_lo=1, h_hi=1, blocks=mm.plan_blocks(True))[1]
+    cases = [("circulant_mix_matvec_halo_comm_jobs", "int8+ef", None),
+             ("circulant_mix_matvec_halo_comm_jobs", "int8", None),
+             ("sparse_mix_matvec_halo_comm_jobs", "int8", None),
+             # a budget under every slab's shared memory: the row tiles
+             ("sparse_mix_matvec_halo_comm_rows_jobs", "int8",
+              min(mm.slab_smem_bytes(n, c) for c in mm.SLAB_COLS) - 1)]
+    print(f"kernel rows 2f / 4f on a job axis of {B} jobs at n = {n} "
+          f"(ring; ER r = 0.5, k = {sp.k}), bn = {bn}")
+    for d in HALO_JOB_WIDTHS:
+        width = B * d
+        for counter, comm, budget in cases:
+            bits, ef = int(comm[3]), comm.endswith("+ef")
+            circ = counter.startswith("circulant")
+            y = torch.randn((n, width), generator=gen, device=dev)
+            hat = 0.5 * torch.randn((n, width), generator=gen, device=dev) \
+                if ef else None
+            q = y if hat is None else y - hat
+            zp, sc = (t.reshape(n, B).contiguous() for t in
+                      row_quant_params(q.reshape(n * B, d), bits))
+            if circ:
+                kw = dict(w_self=ring.w_self, offsets=ring.offsets,
+                          weights=ring.weights, laplacian=True, bn=bn,
+                          comm=comm)
+
+                def launch(a, kw=kw):
+                    return mm.circulant_mix_matvec_halo(*a, **kw)
+
+                def plain(a):
+                    return ref.circulant_mix_fused_ref(
+                        *a, w_self=ring.w_self, offsets=ring.offsets,
+                        weights=ring.weights, laplacian=True, bits=bits)
+                args = (y, zp, sc, seeds, hat)
+                symbol = "circulant_mix_halo_comm_kernel"
+                W = torch.as_tensor(make_network("ring", n).W,
+                                    dtype=torch.float32, device=dev)
+                k = 2
+            else:
+                kw = dict(laplacian=True, bn=bn, comm=comm)
+
+                def launch(a, kw=kw):
+                    return mm.sparse_mix_matvec_halo(a[0], *tabs, *a[1:],
+                                                     **kw)
+
+                def plain(a):
+                    return ref.sparse_mix_fused_ref(
+                        a[0], *tabs, *a[1:], laplacian=True, bits=bits)
+                args = (y, zp, sc, seeds)
+                symbol = "sparse_mix_halo_comm_kernel" if budget \
+                    else "sparse_mix_slab_comm_kernel"
+                W = torch.as_tensor(er_net.W, dtype=torch.float32,
+                                    device=dev)
+                k = sp.k
+
+            def solo(j):
+                c = slice(j * d, (j + 1) * d)
+                a = (y[:, c].contiguous(), zp[:, j:j + 1].contiguous(),
+                     sc[:, j:j + 1].contiguous(), seeds[j])
+                if circ:
+                    a += (None if hat is None else hat[:, c].contiguous(),)
+                return a
+            solos = [solo(j) for j in range(B)]
+            tag = f"{counter} ({n}, {B}x{d}) {comm}"
+            with mm.smem_budget(budget if budget is not None
+                                else mm.SMEM_BUDGET_BYTES):
+                mm.reset_launch_counts()
+                out = launch(args)
+                torch.cuda.synchronize()
+                counts = mm.launch_counts()
+                if counts != {**dict.fromkeys(counts, 0), counter: 1}:
+                    raise AssertionError(f"{tag}: launches {counts}")
+                want = plain(args)
+                bitwise(tag, out, want, "the plain version")
+                err = max(((g - w).abs().max().item() for g, w in
+                           (zip(out, want) if ef else ((out, want),))))
+                del want
+                diff = 0
+                for j, a in enumerate(solos):
+                    got = launch(a)
+                    c = slice(j * d, (j + 1) * d)
+                    parts = zip(out, got) if ef else ((out, got),)
+                    diff += sum(int((o[:, c] != g).sum()) for o, g in parts)
+                print(f"  {tag}: elements differing from the {B} jobs' "
+                      f"solo launches {diff} (bitwise, job by job)")
+                if diff:
+                    raise AssertionError(f"{tag}: not bitwise its jobs' "
+                                         f"solo launches")
+                del out
+                big = d == D1
+                iters = 10 if big else 50
+                ms = cuda_ms(torch, lambda _: launch(args), [None],
+                             iters=iters, warmup=2)
+                dev_ms = device_ms(torch, lambda _: launch(args), [None],
+                                   symbol, iters=iters)
+                ms_solo = cuda_ms(torch, lambda _: [launch(a) for a in solos],
+                                  [None], iters=max(2, iters // 5),
+                                  warmup=1)
+            plain_ms = cuda_ms(torch, lambda _: plain(args), [None],
+                               iters=2 if big else 5, warmup=1)
+            A = W.to_sparse_csr()
+            lib, lib_err = try_library(torch, csr_mm(torch, A, y.dtype),
+                                       [y], iters=iters)
+            nbytes = n * width * 4 * (2 + 2 * ef) + 8 * n * B \
+                + (n * k * 8 if not circ else 0)
+            b_ms, b_by = bound(nbytes, (2 * (k + 1) + 1 + QUANT_F32_OPS
+                                        + 2 * ef) * n * width,
+                               QUANT_INT_OPS * n * width)
+            print(f"  {tag}: ms={ms:.5f} device_ms={dev_ms:.5f} "
+                  f"{B} solo launches {ms_solo:.5f} ms, "
+                  f"plain_ms={plain_ms:.5f} library_ms(sparse.mm, "
+                  f"uncompressed)={lib_text(lib, lib_err)} "
+                  f"bound_ms={b_ms:.5f} ({b_by})")
+            results.setdefault(counter, {})[(n, width, comm, B)] = {
+                "ms": ms, "dev": dev_ms, "plain": plain_ms, "bound": b_ms,
+                "by": b_by, "lib": lib, "err": err, "solo_ms": ms_solo,
+                "jobs": B}
+            del y, hat, args, solos
+            torch.cuda.empty_cache()
 
 
 def ring_sweep_phase(torch, results: dict) -> None:
@@ -1893,7 +2065,7 @@ def large_network_phase(torch, counts_out: dict) -> None:
         return op
     build, tops.make_mixing_op = tops.make_mixing_op, timed_build
     try:
-        seconds = time_in_turns(torch, timed, reps=3, rounds=K_LARGE)
+        seconds = time_in_turns(torch, timed, rounds=K_LARGE)
     finally:
         tops.make_mixing_op = build
     idle_shares(busy, seconds, K_LARGE)
@@ -2594,7 +2766,7 @@ def baselines_phase(torch, counts_out: dict) -> None:
               f"run's checks took {time.perf_counter() - t_run:.1f} s")
         timed[label] = run
     t0 = time.perf_counter()
-    idle_shares(busy, time_in_turns(torch, timed, reps=3, rounds=K_BASE),
+    idle_shares(busy, time_in_turns(torch, timed, rounds=K_BASE),
                 K_BASE)
     print(f"baselines: the timing in turns took "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2744,7 +2916,7 @@ def faults_phase(torch, counts_out: dict) -> None:
         timed[f"unfaulted {net.name} identity"] = \
             lambda dev="cuda", net=net: solve(prob, net, spec_for(
                 faults=None), x0=x0, y0=y0, seed=0, device=dev)
-    idle_shares(busy, time_in_turns(torch, timed, reps=3, rounds=K), K)
+    idle_shares(busy, time_in_turns(torch, timed), K)
     del timed
 
     # an all-ones mask (a FaultSpec that injects nothing) reproduces the
@@ -2839,10 +3011,13 @@ SERVE_GRID = ((0.1, 0.1), (0.08, 0.1), (0.12, 0.1), (0.1, 0.08),
 # elementwise at the GPU-vs-CPU band on the identity wire, by
 # norm-relative error under stochastic rounding (see E2E_NORM_REL)
 SERVE_RTOL, SERVE_ATOL = E2E_RTOL, E2E_ATOL
+# the least network at which the compressed gossips plan the halo tiles
+# (ring int8+ef and ER int8): their buckets of SERVE_WIDTH jobs
+SERVE_HALO_N = 128
 
 
 @functools.lru_cache(maxsize=None)
-def serve_problem(seed: int, device: str = "cuda"):
+def serve_problem(seed: int, device: str = "cuda", n: int = N_AGENTS):
     """The §6.2 MLP on the data of `seed`, its backbone x offset by the
     main path's random start (a data leaf, so a serve job, which starts
     at x = 0, starts where the main path's solve does instead of at the
@@ -2852,12 +3027,12 @@ def serve_problem(seed: int, device: str = "cuda"):
 
     from repro_torch.core.problems import (BilevelProblem,
                                            hyper_representation)
-    base = hyper_representation(N_AGENTS, d=D_IN, hidden=HIDDEN,
+    base = hyper_representation(n, d=D_IN, hidden=HIDDEN,
                                 n_classes=N_CLASSES, m_per=M_PER,
                                 seed=seed, device=device)
     x_base = np.broadcast_to(
         0.3 * np.random.default_rng(42).standard_normal(D1),
-        (N_AGENTS, D1)).astype(np.float32)
+        (n, D1)).astype(np.float32)
     data = dict(base.data, x_base=__import__("torch").as_tensor(
         x_base, device=device))
 
@@ -2870,43 +3045,69 @@ def serve_problem(seed: int, device: str = "cuda"):
                           base.d2, f, g, data, base.mu_g)
 
 
-def serve_specs(comm: str, graph: str, family=serve_problem):
+def serve_specs(comm: str, graph: str, family=serve_problem,
+                n: int = N_AGENTS, jobs: int = SERVE_JOBS,
+                budgets=None, classes=None):
+    """JobSpecs of `jobs` jobs sweeping SERVE_GRID (cycled), K = SERVE_K
+    or the per-job `budgets`, in the per-job priority `classes`."""
     from repro_torch.serve import JobSpec
     from repro_torch.solve import CommSpec, ScheduleSpec, SolverSpec
     gk = {"r": 0.5, "seed": 0} if graph == "erdos_renyi" else {}
-    problem = {"seed": 0}
+    problem = {"seed": 0} if n == N_AGENTS else {"seed": 0, "n": n}
     if family == "hyper_representation":
-        problem = {"n": N_AGENTS, "d": D_IN, "hidden": HIDDEN,
+        problem = {"n": n, "d": D_IN, "hidden": HIDDEN,
                    "n_classes": N_CLASSES, "m_per": M_PER}
+    budgets = budgets or [SERVE_K] * jobs
+    classes = classes or ["standard"] * jobs
     return [JobSpec(family, dict(problem, seed=s),
-                    SolverSpec(K=SERVE_K, M=M, U=U, dihgp="matrix_free",
+                    SolverSpec(K=budgets[s], M=M, U=U, dihgp="matrix_free",
                                schedule=ScheduleSpec(alpha=a, beta=b),
                                comm=CommSpec(comm)),
-                    graph=graph, graph_kwargs=dict(gk, n=N_AGENTS), seed=s)
-            for s, (a, b) in enumerate(SERVE_GRID[:SERVE_JOBS])]
+                    graph=graph, graph_kwargs=dict(gk, n=n), seed=s,
+                    klass=classes[s])
+            for s, (a, b) in ((s, SERVE_GRID[s % len(SERVE_GRID)])
+                              for s in range(jobs))]
 
 
-def serve_rounds() -> int:
-    """Rounds a bucket of SERVE_JOBS runs: SERVE_WIDTH jobs for K rounds,
-    then the backfilled rest for K more, in chunks of SERVE_T."""
-    waves = -(-SERVE_JOBS // SERVE_WIDTH)
+def serve_rounds(jobs: int = SERVE_JOBS) -> int:
+    """Rounds a bucket of `jobs` jobs runs: SERVE_WIDTH jobs for K
+    rounds, then the backfilled rest for K more, in chunks of SERVE_T."""
+    waves = -(-jobs // SERVE_WIDTH)
     return waves * SERVE_K
 
 
-def serve_counts(graph: str, comm: str) -> dict:
-    """The exact launches of one bucket, by the planners' routes at the
-    bucket's (16, width·d) operands: one launch per gossip."""
+def serve_counts(graph: str, comm: str, n: int = N_AGENTS,
+                 rounds: int | None = None) -> dict:
+    """The exact launches of `rounds` bucket rounds (serve_rounds() by
+    default), by the planners' routes at the bucket's (n, width·d)
+    operands: one launch per gossip.  At n = 16 the compressed gossips
+    run the full-operand kernels; where they plan the halo tiles (n =
+    128) every gossip runs the fused circulant halo (row 2f) or the
+    compressed sparse halo's slab (row 4f), EF on ER composing with the
+    plain mix."""
     from repro_torch.kernels import mixing_matvec as mm
-    r = serve_rounds()
+    r = serve_rounds() if rounds is None else rounds
     d2, d1 = SERVE_WIDTH * D2, SERVE_WIDTH * D1
     sms = mm.CARD_SMS
+    ef = comm.endswith("+ef")
+    tier, bn = mm.plan_row_tile(n, h_lo=1 if graph == "ring" else 0,
+                                h_hi=1 if graph == "ring" else 0,
+                                blocks=mm.plan_blocks(True, ef))
+    if comm != "identity" and tier == "halo":
+        if graph == "ring":
+            return {"circulant_mix_matvec_halo_comm_jobs": r * (M + U + 1)}
+        if not ef:
+            name = "sparse_mix_matvec_halo_comm_jobs" \
+                if mm.plan_slab_cols(n) else \
+                "sparse_mix_matvec_halo_comm_rows_jobs"
+            return {name: r * (M + U + 1)}
     if comm == "identity" and graph == "ring":
         counts = {}
         for d, c in ((d2, r * M), (d1, r)):
-            name = ring_mix_counter(N_AGENTS, d)
+            name = ring_mix_counter(n, d)
             counts[name] = counts.get(name, 0) + c
         name = "circulant_neumann_step_jobs" if mm.neumann_ring_plan(
-            N_AGENTS, 1, 1, d=d2) else "circulant_neumann_step_unstaged_jobs"
+            n, 1, 1, d=d2) else "circulant_neumann_step_unstaged_jobs"
         counts[name] = r * U
         return counts
     if comm == "identity":
@@ -2914,19 +3115,45 @@ def serve_counts(graph: str, comm: str) -> dict:
     kind = "circulant" if graph == "ring" else "sparse"
     counts = {}
     gossips = [(d2, r * M), (d1, r)]
-    if comm.endswith("+ef") or graph != "ring":
+    if ef or graph != "ring":
         gossips.append((d2, r * U))
     else:
         name = "circulant_neumann_step_comm_jobs" \
-            if mm.plan_neumann_comm_stripe_cols(N_AGENTS, d2, sms) \
+            if mm.plan_neumann_comm_stripe_cols(n, d2, sms) \
             else "circulant_neumann_step_comm_unstaged_jobs"
         counts[name] = r * U
     for d, c in gossips:
         name = f"{kind}_mix_matvec_comm" + (
-            "" if mm.plan_comm_stripe_cols(N_AGENTS, d, sms)
+            "" if mm.plan_comm_stripe_cols(n, d, sms)
             else "_unstaged") + "_jobs"
         counts[name] = counts.get(name, 0) + c
     return counts
+
+
+# the kernel wrappers MixingOp calls on a job axis, with the position of
+# the seed (table) among their arguments
+JOB_WRAPPER_SEED_AT = {"circulant_mix_matvec": 3, "sparse_mix_matvec": 6,
+                       "circulant_neumann_step": 6,
+                       "circulant_mix_matvec_halo": 3,
+                       "sparse_mix_matvec_halo": 6}
+# each job-axis counter's kernel, as the profiler names it
+JOB_KERNEL_SYMBOL = {
+    "circulant_neumann_step_jobs": "circulant_neumann_ring_kernel",
+    "circulant_neumann_step_unstaged_jobs": "circulant_neumann_kernel",
+    "circulant_mix_matvec_comm_jobs": "circulant_mix_stripe_comm_kernel",
+    "circulant_mix_matvec_comm_unstaged_jobs":
+        "circulant_mix_comm_unstaged_kernel",
+    "sparse_mix_matvec_comm_jobs": "sparse_mix_stripe_comm_kernel",
+    "sparse_mix_matvec_comm_unstaged_jobs":
+        "sparse_mix_comm_unstaged_kernel",
+    "circulant_neumann_step_comm_jobs":
+        "circulant_neumann_stripe_comm_kernel",
+    "circulant_neumann_step_comm_unstaged_jobs":
+        "circulant_neumann_comm_kernel",
+    "circulant_mix_matvec_halo_comm_jobs": "circulant_mix_halo_comm_kernel",
+    "sparse_mix_matvec_halo_comm_jobs": "sparse_mix_slab_comm_kernel",
+    "sparse_mix_matvec_halo_comm_rows_jobs": "sparse_mix_halo_comm_kernel",
+}
 
 
 @contextlib.contextmanager
@@ -2936,8 +3163,7 @@ def capture_job_launches(store: dict):
     holds, job by job, against the solo launch and the plain version."""
     from repro_torch.kernels.ref import is_seed_table
     from repro_torch.topology import ops
-    names = ("circulant_mix_matvec", "sparse_mix_matvec",
-             "circulant_neumann_step")
+    names = tuple(JOB_WRAPPER_SEED_AT)
     saved = {name: getattr(ops, name) for name in names}
 
     def clone(a):
@@ -2945,8 +3171,7 @@ def capture_job_launches(store: dict):
 
     def wrap(name, fn):
         def call(*args, **kw):
-            seed_at = {"circulant_mix_matvec": 3, "sparse_mix_matvec": 6,
-                       "circulant_neumann_step": 6}[name]
+            seed_at = JOB_WRAPPER_SEED_AT[name]
             jobs = len(args) > seed_at and is_seed_table(args[seed_at]) \
                 or hasattr(kw.get("beta"), "shape")
             if jobs:
@@ -2987,13 +3212,13 @@ def job_axis_checks(torch, store: dict, results: dict) -> None:
         if neumann:
             B = kw["beta"].shape[0]
         else:
-            B = len(args[3] if name == "circulant_mix_matvec" else args[6])
+            B = len(args[JOB_WRAPPER_SEED_AT[name]])
         d = width // B
         host = (lambda t: t.tolist() if hasattr(t, "tolist") else list(t))
         tag = f"{counter} ({n}, {B}x{d}) comm={comm}"
         bits = None if comm in (None, "identity") else int(comm[3])
         ef = comm is not None and comm.endswith("+ef")
-        if name == "circulant_mix_matvec":
+        if name.startswith("circulant_mix_matvec"):
             circ = dict(w_self=kw["w_self"], offsets=host(kw["offsets"]),
                         weights=host(kw["weights"]),
                         laplacian=kw.get("laplacian", False))
@@ -3001,7 +3226,7 @@ def job_axis_checks(torch, store: dict, results: dict) -> None:
             def plain(a):
                 return ref.circulant_mix_fused_ref(*a[:5], bits=bits,
                                                    **circ)
-        elif name == "sparse_mix_matvec":
+        elif name.startswith("sparse_mix_matvec"):
             def plain(a):
                 return ref.sparse_mix_fused_ref(
                     *a[:8], laplacian=kw.get("laplacian", False),
@@ -3024,7 +3249,9 @@ def job_axis_checks(torch, store: dict, results: dict) -> None:
         # B) and the seed table in each wrapper's arguments
         states, tables, seeds_at = {
             "circulant_mix_matvec": ((0, 4), (1, 2), 3),
+            "circulant_mix_matvec_halo": ((0, 4), (1, 2), 3),
             "sparse_mix_matvec": ((0, 7), (4, 5), 6),
+            "sparse_mix_matvec_halo": ((0,), (4, 5), 6),
             "circulant_neumann_step": ((0, 1, 2), (3, 4, 5), 6)}[name]
 
         def solo_args(j):
@@ -3053,15 +3280,18 @@ def job_axis_checks(torch, store: dict, results: dict) -> None:
         if diff:
             raise AssertionError(f"{tag}: not bitwise its jobs' solo "
                                  f"launches")
-        ms = cuda_ms(torch, lambda _: fn(*args, **kw), [None], iters=50)
+        iters = 10 if n * width > 1 << 26 else 50
+        ms = cuda_ms(torch, lambda _: fn(*args, **kw), [None], iters=iters)
+        dev_ms = device_ms(torch, lambda _: fn(*args, **kw), [None],
+                           JOB_KERNEL_SYMBOL[counter], iters=iters)
         ms_solo = cuda_ms(torch, lambda _: [fn(*a, **k) for a, k in solos],
-                          [None], iters=20)
+                          [None], iters=max(2, iters // 5))
         plain_ms = cuda_ms(torch, lambda _: plain(args), [None], iters=5,
                            warmup=1)
         W = torch.full((n, n), 1.0 / n, device=args[0].device)
         lib, lib_err = try_library(torch, lambda _: torch.matmul(W, args[0]),
                                    [None], iters=50)
-        k_nbr = 2 if name != "sparse_mix_matvec" else args[2].shape[1]
+        k_nbr = args[2].shape[1] if name.startswith("sparse") else 2
         streams = (3 if neumann else 1) + (1 if ef else 0)
         nbytes = n * width * 4 * (streams + 1 + (1 if ef else 0)) \
             + (8 * n * B if bits else 0) + (4 * n * B if neumann else 0)
@@ -3069,23 +3299,25 @@ def job_axis_checks(torch, store: dict, results: dict) -> None:
                  + (QUANT_F32_OPS if bits else 0)) * n * width
         b_ms, b_by = bound(nbytes, flops,
                            QUANT_INT_OPS * n * width if bits else 0.0)
-        print(f"  {tag}: {ms:.5f} ms on the job axis, {B} solo launches "
+        print(f"  {tag}: {ms:.5f} ms on the job axis (device "
+              f"{dev_ms:.5f} ms), {B} solo launches "
               f"{ms_solo:.5f} ms, plain version {plain_ms:.5f} ms, "
               f"torch.matmul (uncompressed) {lib_text(lib, lib_err)} ms, "
               f"bound {b_ms:.5f} ms ({b_by}); CUDA events, operands "
               f"L2-warm (one copy)")
         results.setdefault(counter, {})[(n, width, comm or "identity",
                                          B)] = {
-            "ms": ms, "dev": None, "plain": plain_ms, "bound": b_ms,
+            "ms": ms, "dev": dev_ms, "plain": plain_ms, "bound": b_ms,
             "by": b_by, "lib": lib, "err": err, "solo_ms": ms_solo,
             "jobs": B}
     mm.reset_launch_counts()
 
 
 def serve_phase(torch, out: dict) -> None:
-    """Five buckets of SERVE_JOBS jobs of the §6.2 MLP through
-    `ServeEngine`, each job held against its solo solve on the card, and
-    the engine's crash-restart bitwise (see the module docstring)."""
+    """Five buckets of SERVE_JOBS jobs of the §6.2 MLP at n = 16 and two
+    of SERVE_WIDTH jobs at n = SERVE_HALO_N through `ServeEngine`, each
+    job held against its solo solve on the card (bitwise at n = 128),
+    and the engine's crash-restart bitwise (see the module docstring)."""
     import tempfile
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -3093,19 +3325,27 @@ def serve_phase(torch, out: dict) -> None:
     from repro_torch.solve import solve
     from repro_torch.topology import make_network
     results, counts_out = out["results"], out["counts"]
-    nets = {"ring": make_network("ring", N_AGENTS),
-            "erdos_renyi": make_network("erdos_renyi", N_AGENTS, r=0.5,
-                                        seed=0)}
     zero = dict.fromkeys(launch_counts(), 0)
     store: dict = {}
-    rounds = serve_rounds()
-    for graph, comm in (("ring", "identity"), ("erdos_renyi", "identity"),
-                        ("ring", "int8+ef"), ("erdos_renyi", "int8+ef"),
-                        ("ring", "int4")):
-        label = f"{graph} {comm}"
-        specs = serve_specs(comm, graph)
-        expected = {**zero, **serve_counts(graph, comm)}
-        print(f"serve: {SERVE_JOBS} jobs of hyper_representation d1={D1} "
+    # n = 16: the full-operand kernels' job axis; n = 128 (8 jobs, no
+    # backfill): the compressed gossips on the halo tiles (rows 2f, 4f),
+    # each job held bitwise against its solo solve
+    for graph, comm, n, jobs in (
+            ("ring", "identity", N_AGENTS, SERVE_JOBS),
+            ("erdos_renyi", "identity", N_AGENTS, SERVE_JOBS),
+            ("ring", "int8+ef", N_AGENTS, SERVE_JOBS),
+            ("erdos_renyi", "int8+ef", N_AGENTS, SERVE_JOBS),
+            ("ring", "int4", N_AGENTS, SERVE_JOBS),
+            ("ring", "int8+ef", SERVE_HALO_N, SERVE_WIDTH),
+            ("erdos_renyi", "int8", SERVE_HALO_N, SERVE_WIDTH)):
+        label = f"{graph} {comm} n={n}"
+        net = make_network(graph, n, **({"r": 0.5, "seed": 0}
+                                        if graph == "erdos_renyi" else {}))
+        specs = serve_specs(comm, graph, n=n, jobs=jobs)
+        rounds = serve_rounds(jobs)
+        expected = {**zero, **serve_counts(graph, comm, n, rounds)}
+        exact = n != N_AGENTS
+        print(f"serve: {jobs} jobs of hyper_representation d1={D1} "
               f"d2={D2} on {label}, K={SERVE_K} M={M} U={U}, "
               f"chunk_rounds={SERVE_T}, max_width={SERVE_WIDTH}")
 
@@ -3135,6 +3375,7 @@ def serve_phase(torch, out: dict) -> None:
         if eng.stats.traces != 1 or eng.stats.chunks != rounds // SERVE_T:
             raise AssertionError(f"serve {label}: {eng.stats}")
         worst = {"x": 0.0, "y": 0.0}
+        differing = 0
         solo_wall = 0.0
         for spec, r in zip(specs, res):
             if r.rounds != SERVE_K or r.quarantined:
@@ -3142,7 +3383,7 @@ def serve_phase(torch, out: dict) -> None:
                                      f"{r.rounds} rounds")
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            ref_run = solve(serve_problem(spec.seed), nets[graph],
+            ref_run = solve(serve_problem(spec.seed, n=n), net,
                             spec.config, seed=spec.seed)
             torch.cuda.synchronize()
             solo_wall += time.perf_counter() - t1
@@ -3154,6 +3395,9 @@ def serve_phase(torch, out: dict) -> None:
                                          f"finite")
                 rel = norm_rel(got, want)
                 worst[name] = max(worst[name], rel)
+                differing += int((got != want).sum())
+                if exact:
+                    continue
                 if comm == "identity":
                     torch.testing.assert_close(got, want, rtol=SERVE_RTOL,
                                                atol=SERVE_ATOL)
@@ -3170,14 +3414,18 @@ def serve_phase(torch, out: dict) -> None:
         if int(led.per_job_bytes().sum()) != led.total_bytes \
                 != sum(r.wire_bytes for r in res):
             raise AssertionError(f"serve {label}: ledger bytes disagree")
-        print(f"  every job vs its solo solve on the card: worst "
-              f"norm_rel_err x {worst['x']:.3e} y {worst['y']:.3e} "
-              f"({'elementwise rtol ' + str(SERVE_RTOL) if comm == 'identity' else 'bound ' + str(E2E_NORM_REL)}); "
+        print(f"  every job vs its solo solve on the card: elements of x "
+              f"and y differing {differing}, worst norm_rel_err x "
+              f"{worst['x']:.3e} y {worst['y']:.3e} "
+              f"({'bitwise' if exact else 'elementwise rtol ' + str(SERVE_RTOL) if comm == 'identity' else 'bound ' + str(E2E_NORM_REL)}); "
               f"wire bytes exact, ledger {led.total_bytes} B")
-        job_rounds = SERVE_JOBS * SERVE_K
+        if exact and differing:
+            raise AssertionError(f"serve {label}: jobs not bitwise their "
+                                 f"solo solves")
+        job_rounds = jobs * SERVE_K
         print(f"  bucket: {wall / rounds:.6f} s per round ({rounds} rounds "
               f"of width {SERVE_WIDTH}), {job_rounds / wall:.2f} job-rounds "
-              f"per s; {SERVE_JOBS} solo solves: "
+              f"per s; {jobs} solo solves: "
               f"{solo_wall / job_rounds:.6f} s per round, "
               f"{job_rounds / solo_wall:.2f} job-rounds per s; peak memory "
               f"{peak:.2f} GiB (host clock, after a warm-up run)")
@@ -3321,26 +3569,216 @@ def obs_phase(torch, _unused) -> None:
         raise AssertionError("obs: checkpoint round trip differs")
 
 
+# ---------------------------------------------------------------------------
+# admission: the always-on loop over the serve engine, at n = 16
+# ---------------------------------------------------------------------------
+
+# jobs of the Poisson schedule the two drivers are held against
+ADMIT_POISSON_JOBS = 24
+
+
+def admission_phase(torch, out: dict) -> None:
+    """`AdmissionLoop` on the §6.2 MLP at n = 16 (width SERVE_WIDTH,
+    chunk_rounds SERVE_T): (1) ring int8+ef, four batch-class jobs of K
+    = 8 and four standard ones of K = 4 packed into one bucket, then a
+    realtime job that preempts one batch job at a chunk boundary: exact
+    launches, one runner build, every job bitwise its solo solve on the
+    card, the preempted one included; (2) a checkpointed loop killed by
+    SimulatedCrash after its first chunk and restored by a fresh loop:
+    the jobs that were queued but never admitted come back off the
+    sidecar and finish bitwise; (3) `drive_poisson_async` against
+    `drive_poisson` on one seeded schedule of ADMIT_POISSON_JOBS jobs at
+    half the jobs/s the wave engine reaches here: p50, p99, jobs/s,
+    peak queue depth and the device's idle share of each."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ServeEngine, SimulatedCrash, build_problem
+    from repro_torch.serve.admission import AdmissionLoop
+    from repro_torch.serve.slo import drive_poisson, drive_poisson_async
+    from repro_torch.solve import solve
+    from repro_torch.topology import make_network
+    counts_out = out["counts"]
+    zero = dict.fromkeys(launch_counts(), 0)
+    net = make_network("ring", N_AGENTS)
+
+    def differing(res, spec, prob):
+        torch.cuda.synchronize()
+        ref = solve(prob, net, spec.config, seed=spec.seed)
+        diff = sum(int((getattr(res, k).to(ref.x.device)
+                        != getattr(ref, k)).sum()) for k in ("x", "y"))
+        if res.wire_bytes != ref.ledger.total_bytes:
+            raise AssertionError(f"admission {res.job_id}: wire bytes "
+                                 f"{res.wire_bytes} != "
+                                 f"{ref.ledger.total_bytes}")
+        return diff
+
+    # (1) two budgets packed, three classes, one preemption
+    t_part = time.perf_counter()
+    W = SERVE_WIDTH
+    specs = serve_specs("int8+ef", "ring", jobs=W + 1,
+                        budgets=[2 * SERVE_K] * (W // 2)
+                        + [SERVE_K] * (W // 2 + 1),
+                        classes=["batch"] * (W // 2)
+                        + ["standard"] * (W // 2) + ["realtime"])
+    print(f"admission: ring int8+ef, {W // 2} batch jobs of K = "
+          f"{2 * SERVE_K} and {W // 2} standard jobs of K = {SERVE_K} "
+          f"packed into one bucket of width {W}, then one realtime job of "
+          f"K = {SERVE_K}; chunk_rounds={SERVE_T}")
+    obs.reset_metrics()
+    loop = AdmissionLoop(chunk_rounds=SERVE_T, max_width=W)
+    reset_launch_counts()
+    ids = loop.submit(specs[:W])
+    loop.step()
+    ids += loop.submit(specs[W])
+    loop.pump()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = {**zero, **serve_counts("ring", "int8+ef", N_AGENTS,
+                                       loop.stats.chunks * SERVE_T)}
+    print(f"  launches {counts} expected {expected} ({loop.stats.chunks} "
+          f"chunks)")
+    if counts != expected:
+        raise AssertionError(f"admission: launch counts {counts} != "
+                             f"{expected}")
+    for name, c in counts.items():
+        counts_out[name] = counts_out.get(name, 0) + c
+    npre = obs.counter_value("serve_preemptions_total")
+    print(f"  preemptions {npre:.0f}, runner builds {loop.stats.traces}, "
+          f"buckets {loop.stats.buckets}, restarts {loop.stats.restarts}")
+    if npre != 1 or loop.stats.traces != 1 or loop.stats.buckets != 1:
+        raise AssertionError(f"admission: {npre} preemptions, "
+                             f"{loop.stats}")
+    total = 0
+    for jid, spec in zip(ids, specs):
+        r = loop.result(jid)
+        if r.rounds != spec.config.K:
+            raise AssertionError(f"admission {jid}: {r.rounds} rounds")
+        diff = differing(r, spec, serve_problem(spec.seed))
+        total += diff
+        print(f"  {jid} ({spec.klass}, K = {spec.config.K}): elements of "
+              f"x and y differing from its solo solve {diff} (bitwise)")
+    if total:
+        raise AssertionError("admission: jobs not bitwise their solo "
+                             "solves")
+    del loop
+    print(f"  {time.perf_counter() - t_part:.1f} s with the solo solves")
+
+    # (2) crash and restore: queued-but-never-admitted jobs off the
+    # sidecar (the zoo family: a callable family does not survive a
+    # restart; identity wire, width 2, 4 jobs)
+    t_part = time.perf_counter()
+    specs = serve_specs("identity", "ring", family="hyper_representation",
+                        jobs=4)
+    base = AdmissionLoop(chunk_rounds=SERVE_T, max_width=2)
+    base.submit(specs)
+    ref = base.run()
+    with tempfile.TemporaryDirectory() as ckdir:
+        crash = AdmissionLoop(chunk_rounds=SERVE_T, max_width=2,
+                              checkpoint_dir=ckdir, checkpoint_every=1,
+                              crash_after_chunks=1, telemetry=False)
+        crash.submit(specs)
+        try:
+            crash.pump()
+            raise AssertionError("admission: crash_after_chunks did not "
+                                 "fire")
+        except SimulatedCrash:
+            pass
+        fresh = AdmissionLoop(chunk_rounds=SERVE_T, max_width=2,
+                              checkpoint_dir=ckdir, telemetry=False)
+        fresh._maybe_restore()
+        queued = fresh.queue.job_ids()
+        fresh.pump()
+    if queued != ["job2", "job3"] or fresh.stats.restarts != 1:
+        raise AssertionError(f"admission: restored queue {queued}, "
+                             f"{fresh.stats}")
+    total = 0
+    for i, (spec, r) in enumerate(zip(specs, ref)):
+        got = fresh.result(f"job{i}")
+        diff = sum(int((getattr(got, k) != getattr(r, k)).sum())
+                   for k in ("x", "y"))
+        if f"job{i}" in queued:
+            diff += differing(got, spec, build_problem(spec, "cuda"))
+        total += diff
+    print(f"admission: crash after chunk 1 and restore (ring identity, 4 "
+          f"jobs, width 2): queued and never admitted {queued}, restored "
+          f"off the sidecar; elements differing from the uninterrupted "
+          f"loop and, for those two, their solo solves {total} (bitwise); "
+          f"{time.perf_counter() - t_part:.1f} s")
+    if total:
+        raise AssertionError("admission: the restored loop differs")
+    del base, crash, fresh, ref
+
+    # (3) the two drivers on one seeded Poisson schedule
+    t_part = time.perf_counter()
+    specs = serve_specs("identity", "ring", jobs=ADMIT_POISSON_JOBS)
+    for s in specs:
+        serve_problem(s.seed)                 # data made before the clock
+    eng = ServeEngine(chunk_rounds=SERVE_T, max_width=W)
+    eng.submit(specs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wave_jobs_s = len(specs) / (time.perf_counter() - t0)
+    rate = 0.5 * wave_jobs_s
+    print(f"admission: the wave engine drains {len(specs)} jobs (ring "
+          f"identity, K = {SERVE_K}, width {W}) at {wave_jobs_s:.4f} "
+          f"jobs/s; Poisson rate {rate:.4f} jobs/s (half), seed {SEED}")
+    reports = {}
+    for label, drive, make in (
+            ("drive_poisson", drive_poisson,
+             lambda: ServeEngine(chunk_rounds=SERVE_T, max_width=W)),
+            ("drive_poisson_async", drive_poisson_async,
+             lambda: AdmissionLoop(chunk_rounds=SERVE_T, max_width=W))):
+        engine = make()
+
+        def run(drive=drive, engine=engine, label=label):
+            reports[label] = drive(engine, specs, rate, seed=SEED,
+                                   driver=label)
+        print(f"  {label} (under the profiler, device activity only):")
+        busy = profile_run(torch, run)
+        rep = reports[label]
+        idle = "not measured" if busy is None \
+            else f"{1 - busy / (rep.wall_s * 1e6):.4f}"
+        print(f"  {label}: p50 {rep.p50_s:.6f} s p99 {rep.p99_s:.6f} s, "
+              f"{rep.throughput_jobs_s:.4f} jobs/s, peak queue depth "
+              f"{rep.peak_queue_depth}, waves {rep.waves}, idle share "
+              f"{idle}, wall {rep.wall_s:.3f} s, retired {rep.retired} of "
+              f"{rep.jobs}")
+        if rep.retired != len(specs) or any(
+                r.rounds != SERVE_K or not torch.isfinite(r.x).all()
+                for r in rep.results):
+            raise AssertionError(f"admission: {label} did not retire "
+                                 f"every job")
+        del engine
+    print(f"admission: drivers {time.perf_counter() - t_part:.1f} s")
+
 
 def median(values):
     return sorted(values)[len(values) // 2]
 
 
-def time_in_turns(torch, timed: dict, reps: int = 5, rounds: int = K
-                  ) -> dict:
+# passes of `time_in_turns`: three keep the whole run within ~800 s on a
+# slow host
+TURNS = 3
+
+
+def time_in_turns(torch, timed: dict, rounds: int = K) -> dict:
     """Seconds per round of every main-path run, timed in turns (each
-    run once per pass, `reps` passes), so that the host's drift over the
+    run once per pass, TURNS passes), so that the host's drift over the
     script falls on all of them alike; returns {label: seconds per round
     of each pass, in pass order}."""
     seconds = {label: [] for label in timed}
-    for _ in range(reps):
+    for _ in range(TURNS):
         for label, run in timed.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run("cuda")
             torch.cuda.synchronize()
             seconds[label].append((time.perf_counter() - t0) / rounds)
-    print(f"seconds per round, {reps} passes in turns (host clock, "
+    print(f"seconds per round, {TURNS} passes in turns (host clock, "
           f"{rounds} rounds per run):")
     for label, ts in seconds.items():
         ts = sorted(ts)
@@ -3527,7 +3965,8 @@ def tensor_core_instructions(lib) -> dict:
 
 
 PHASES = ("kernel", "halo", "ring_sweep", "main", "fig2", "large",
-          "routes", "ops", "baselines", "faults", "serve", "obs")
+          "routes", "ops", "baselines", "faults", "serve", "obs",
+          "admission")
 
 
 def main() -> int:
@@ -3614,7 +4053,8 @@ def main() -> int:
                 (baselines_phase, counts),
                 (faults_phase, counts),
                 (serve_phase, {"results": results, "counts": counts}),
-                (obs_phase, None))):
+                (obs_phase, None),
+                (admission_phase, {"counts": counts}))):
             if only and name not in only:
                 continue
             t0 = time.perf_counter()
@@ -3706,15 +4146,23 @@ def main() -> int:
                if "routes" in row else {}),
             **({key: row[key] for key in ("walk", "stages", "stripe_cols")
                 if key in row})})
-    # the job axis of rows 5, 1f, 3f and 5f: the routes the serve phase's
-    # buckets launched, each row from its captured launch (the widest
-    # operand of that route), timed beside the B solo launches
+    # the job axis of rows 5, 1f, 2f, 3f, 4f and 5f: every route measured
+    # here — the ones the serve and admission phases' buckets launched,
+    # each from its captured launch, and rows 2f and 4f (both routes)
+    # from the kernel phase's checks at n = 128 — each row at its widest
+    # operand, timed beside the B solo launches
     from repro_torch.kernels.mixing_matvec import JOB_COUNTERS
     job_rows = {"circulant_neumann_step": 852, "circulant_mix_matvec_comm":
                 232, "sparse_mix_matvec_comm": 551,
-                "circulant_neumann_step_comm": 826}
+                "circulant_neumann_step_comm": 826,
+                "circulant_mix_matvec_halo_comm": 439,
+                "sparse_mix_matvec_halo_comm": 739,
+                "sparse_mix_matvec_halo_comm_rows": 739}
     for name in JOB_COUNTERS:
-        if not counts.get(name):
+        if counts.get(name) and name not in results:
+            raise AssertionError(f"{name}: launched on the path, never "
+                                 f"checked")
+        if name not in results:
             continue
         base = name.removesuffix("_jobs").removesuffix("_unstaged")
         key = max(results[name], key=lambda k: k[1])
@@ -3723,13 +4171,15 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mixing_matvec.cu",
             "replaces": f"{src}:{job_rows[base]}",
-            "launches": counts[name],
-            "max_abs_err": row["err"],
-            "ms": row["ms"], "plain_ms": row["plain"],
+            "launches": counts.get(name, 0),
+            "max_abs_err": max(r["err"] for r in results[name].values()),
+            "ms": row["ms"], "device_ms": row["dev"],
+            "plain_ms": row["plain"],
             "bound_ms": row["bound"], "bound_by": row["by"],
             "library_ms": row["lib"], "solo_launches_ms": row["solo_ms"],
             "shape": [key[0], key[1]], "jobs": key[3], "dtype": "float32",
-            "comm": key[2], "job_axis": True, "on_main_path": True})
+            "comm": key[2], "job_axis": True,
+            "on_main_path": bool(counts.get(name))})
     # the kernels.ops path's two kernels: not on DAGM's main path; their
     # launches come from the ops path's run, each row (times and error)
     # from its check at qwen3-4b (attention, bf16) and rwkv6-7b (wkv)

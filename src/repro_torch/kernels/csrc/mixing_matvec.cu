@@ -93,6 +93,11 @@ __device__ __forceinline__ float neumann_update(float h, float mix,
 // __grid_constant__ parameter, so a job's entry is read from the
 // parameter bank, never copied.
 constexpr int kMaxJobs = 64;
+// a compile-time flag for a generic lambda's two instantiations
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
 struct JobAxis {
   int jobs;
   int djob;
@@ -272,25 +277,13 @@ __device__ __forceinline__ float roundtrip(float x, float zp, float sc,
   return __fadd_rn(zp, __fmul_rn(sc, q));
 }
 
-// The decoded broadcast of element (r, j) of y (n x d, f32).
+// The decoded broadcast of element (r, j) of y (n x d, f32).  On a
+// bucket's job axis the draw is keyed on (the job's seed, row r, in-job
+// column) and the metadata are the job's, so every element decodes to
+// what the job's solo send decodes it to.
 __device__ __forceinline__ float decoded(const float* __restrict__ y,
-                                         const Wire& w, int r, int j,
-                                         int d) {
-  const size_t at = (size_t)r * d + j;
-  const float u = hash_uniform(w.smix, r, j);
-  const float h = w.hat ? w.hat[at] : 0.0f;
-  const float x = w.hat ? __fsub_rn(y[at], h) : y[at];
-  const float dec = roundtrip(x, w.zp[r], w.scale[r], u, w.levels);
-  return w.hat ? __fadd_rn(h, dec) : dec;
-}
-
-// `decoded` on a bucket's job axis: the draw is keyed on (the job's
-// seed, row r, in-job column), the metadata are the job's, so every
-// element decodes to what the job's solo send decodes it to.
-__device__ __forceinline__ float decoded_job(const float* __restrict__ y,
-                                             const Wire& w,
-                                             const JobAxis& ja, int r,
-                                             int j, int d) {
+                                         const Wire& w, const JobAxis& ja,
+                                         int r, int j, int d) {
   const int job = ja.job(j);
   const size_t at = (size_t)r * d + j;
   const size_t m = (size_t)r * ja.jobs + job;
@@ -315,7 +308,7 @@ __device__ __forceinline__ float decoded_job(const float* __restrict__ y,
 // that overlaps the loads, a materialized payload would cost a second
 // pass over HBM.  With EF the thread also writes its own row's payload.
 // On a bucket's job axis each element decodes with its job's seed and
-// metadata (`decoded_job`), as the job's solo send does.
+// metadata (`decoded`), as the job's solo send does.
 __global__ void circulant_mix_comm_unstaged_kernel(
     const float* __restrict__ y, float* __restrict__ out,
     float* __restrict__ pay, int n, int d, Circ c, Wire w, int laplacian,
@@ -329,11 +322,11 @@ __global__ void circulant_mix_comm_unstaged_kernel(
     for (int t = 0; t < c.k; ++t) {
       int src = i + __ldg(c.off + t);
       if (src >= n) src -= n;
-      acc = term(acc, __ldg(c.w + t), decoded_job(y, w, ja, src, j, d));
+      acc = term(acc, __ldg(c.w + t), decoded(y, w, ja, src, j, d));
     }
     if (laplacian) acc = __fsub_rn(yi, acc);
     out[at] = acc;
-    if (pay) pay[at] = decoded_job(y, w, ja, i, j, d);
+    if (pay) pay[at] = decoded(y, w, ja, i, j, d);
   }
 }
 
@@ -360,11 +353,11 @@ __global__ void sparse_mix_comm_unstaged_kernel(
     const int* ni = nbr + (size_t)i * k;
     const float* wi = wts + (size_t)i * k;
     for (int t = 0; t < k; ++t) {
-      acc = term(acc, wi[t], decoded_job(y, w, ja, ni[t], j, d));
+      acc = term(acc, wi[t], decoded(y, w, ja, ni[t], j, d));
     }
     if (laplacian) acc = __fsub_rn(yi, acc);
     out[at] = acc;
-    if (pay) pay[at] = decoded_job(y, w, ja, i, j, d);
+    if (pay) pay[at] = decoded(y, w, ja, i, j, d);
   }
 }
 
@@ -390,7 +383,7 @@ __global__ void circulant_neumann_comm_kernel(
     for (int t = 0; t < c.k; ++t) {
       int src = i + __ldg(c.off + t);
       if (src >= n) src -= n;
-      mix = term(mix, __ldg(c.w + t), decoded_job(h, w, ja, src, j, d));
+      mix = term(mix, __ldg(c.w + t), decoded(h, w, ja, src, j, d));
     }
     const float di = dsc[(size_t)i * ja.jobs + job];
     out[at] = neumann_update(hi, mix, hvp[at], p[at], di, bj);
@@ -810,6 +803,14 @@ __global__ void __launch_bounds__(kHaloThreads)
 // and the decoded tile, within repro's plan of 4 live buffers (6 under
 // EF): 3 stages without EF and 2 with at the planner's bn
 // (halo_comm_stages in mixing_matvec.py).
+// On a bucket's job axis (ja) the decode pass takes each column's job:
+// one division for a thread's 4 columns, then a step to the next job
+// where the vector straddles one (djob need not be a multiple of 4), the
+// job's zp/scale from the (n, jobs) tables, its seed mix and the in-job
+// column for the hash, `decoded`'s arithmetic; the mix and the EF
+// write-back cover the whole operand as they are.  jobs == 1 is the solo
+// launch, on its own decode loop, the row's metadata read once for the
+// 4 columns.
 constexpr int kHaloCommEfStages = 2;
 // 32 warps: the shared memory at the planner's bn leaves room for one
 // block per SM, and the quantize pass, bound by instruction throughput and
@@ -825,7 +826,8 @@ __global__ void __launch_bounds__(kHaloCommThreads)
                                    int bn, int h_lo, int h_hi, float w_self,
                                    int k, const int* __restrict__ soff,
                                    const float* __restrict__ wts, Wire w,
-                                   int laplacian, int stages) {
+                                   int laplacian, int stages,
+                                   const __grid_constant__ JobAxis ja) {
   constexpr int VW = 4;                       // columns a thread takes
   constexpr int TPR = kHaloBd / VW;           // threads per tile row
   constexpr int RP = kHaloCommThreads / TPR;  // rows side by side
@@ -874,22 +876,50 @@ __global__ void __launch_bounds__(kHaloCommThreads)
     const int col0 = ((int)blockIdx.y + t * (int)gridDim.y) * kHaloBd;
     const int j0 = col0 + c;
     // (1) the decoded tile, one hash per staged element (columns past d
-    // are zero-filled and decoded too, never stored)
-    for (int r = rl; r < ex; r += RP) {
+    // are zero-filled and decoded too, never stored).  The solo pass and
+    // the job axis's are two loops, so that the solo one keeps its
+    // registers: the 1024-thread block allows 64 a thread.
+    const auto decode_row = [&](int r, auto jobs) {
       const int g = wrap_row(row0 - h_lo + r, n);
-      const float zp = __ldg(w.zp + g), sc = __ldg(w.scale + g);
       float x[VW], h[VW], q[VW];
       lds_vec<float, VW>(sy + (size_t)r * kHaloBd + c, x);
       if (ef) lds_vec<float, VW>(ring_h + at + (size_t)r * kHaloBd + c, h);
+      if constexpr (!decltype(jobs)::value) {
+        const float zp = __ldg(w.zp + g), sc = __ldg(w.scale + g);
 #pragma unroll
-      for (int v = 0; v < VW; ++v) {
-        const float u = hash_uniform(w.smix, g, j0 + v);
-        const float dv =
-            roundtrip(ef ? __fsub_rn(x[v], h[v]) : x[v], zp, sc, u, w.levels);
-        q[v] = ef ? __fadd_rn(h[v], dv) : dv;
+        for (int v = 0; v < VW; ++v) {
+          const float u = hash_uniform(ja.smix[0], g, j0 + v);
+          const float dv = roundtrip(ef ? __fsub_rn(x[v], h[v]) : x[v], zp,
+                                     sc, u, w.levels);
+          q[v] = ef ? __fadd_rn(h[v], dv) : dv;
+        }
+      } else {
+        // the first column's job by one division, then a step to the
+        // next job where the vector straddles one (a column past d
+        // takes the last column's job: decoded, never stored)
+        int job = ja.job(j0 < d ? j0 : d - 1), base = job * ja.djob;
+#pragma unroll
+        for (int v = 0; v < VW; ++v) {
+          const int jc = j0 + v < d ? j0 + v : d - 1;
+          while (jc - base >= ja.djob) {
+            ++job;
+            base += ja.djob;
+          }
+          const size_t m = (size_t)g * ja.jobs + job;
+          const float u = hash_uniform(ja.smix[job], g, j0 + v - base);
+          const float dv = roundtrip(ef ? __fsub_rn(x[v], h[v]) : x[v],
+                                     __ldg(w.zp + m), __ldg(w.scale + m), u,
+                                     w.levels);
+          q[v] = ef ? __fadd_rn(h[v], dv) : dv;
+        }
       }
       *reinterpret_cast<float4*>(dec + (size_t)r * kHaloBd + c) =
           make_float4(q[0], q[1], q[2], q[3]);
+    };
+    if (ja.jobs == 1) {
+      for (int r = rl; r < ex; r += RP) decode_row(r, Flag<false>{});
+    } else {
+      for (int r = rl; r < ex; r += RP) decode_row(r, Flag<true>{});
     }
     __syncthreads();  // the decoded tile is whole
     if (j0 >= d) continue;
@@ -994,13 +1024,16 @@ __global__ void sparse_mix_halo_kernel(const T* __restrict__ y,
 // fits (sparse_mix_slab_comm_kernel below): n > 33,536 in f32.
 // Bound: as sparse_mix_comm_unstaged_kernel.
 // Design: sparse_mix_halo_kernel with each neighbor's value decoded from
-// (seed, row, column) by `decoded`, k hashes per element as repro's
-// per-neighbor _quantize.
+// (seed, row, column) as `decoded` does, k hashes per element as repro's
+// per-neighbor _quantize.  On a bucket's job axis (ja) an element's job,
+// in-job column and seed mix are found once, before its k neighbors,
+// and each neighbor row's zp/scale are read at [row, job]; the solo
+// launch (jobs == 1) keeps its own loop.
 __global__ void sparse_mix_halo_comm_kernel(
     const float* __restrict__ y, float* __restrict__ out,
     const float* __restrict__ w_self, const int* __restrict__ nbr,
     const float* __restrict__ wts, int n, int d, int k, int bn, Wire w,
-    int laplacian) {
+    int laplacian, const __grid_constant__ JobAxis ja) {
   extern __shared__ __align__(16) float own_f[];
   const int row0 = blockIdx.x * bn;
   const int ncol = (d + kHaloBd - 1) / kHaloBd;
@@ -1018,8 +1051,23 @@ __global__ void sparse_mix_halo_comm_kernel(
       float acc = __fmul_rn(w_self[i], yi);
       const int* ni = nbr + (size_t)i * k;
       const float* wi = wts + (size_t)i * k;
-      for (int q = 0; q < k; ++q) {
-        acc = term(acc, wi[q], decoded(y, w, ni[q], j, d));
+      if (ja.jobs == 1) {
+        for (int q = 0; q < k; ++q) {
+          const int r = ni[q];
+          acc = term(acc, wi[q],
+                     roundtrip(y[(size_t)r * d + j], w.zp[r], w.scale[r],
+                               hash_uniform(ja.smix[0], r, j), w.levels));
+        }
+      } else {
+        const int job = ja.job(j), jin = j - job * ja.djob;
+        const uint32_t smix = ja.smix[job];
+        for (int q = 0; q < k; ++q) {
+          const int r = ni[q];
+          const size_t m = (size_t)r * ja.jobs + job;
+          acc = term(acc, wi[q],
+                     roundtrip(y[(size_t)r * d + j], w.zp[m], w.scale[m],
+                               hash_uniform(smix, r, jin), w.levels));
+        }
       }
       if (laplacian) acc = __fsub_rn(yi, acc);
       out[(size_t)i * d + j] = acc;
@@ -1104,7 +1152,8 @@ __global__ void __launch_bounds__(kSlabThreads)
                                 const float* __restrict__ w_self,
                                 const int* __restrict__ nbr,
                                 const float* __restrict__ wts, int n, int d,
-                                int k, Wire w, int laplacian) {
+                                int k, Wire w, int laplacian,
+                                const __grid_constant__ JobAxis ja) {
   constexpr int VW = C < 4 ? C : 4;  // columns per lane
   constexpr int LPR = C / VW;        // lanes per row
   constexpr int RPW = slab_rows_per_warp(C);
@@ -1114,6 +1163,7 @@ __global__ void __launch_bounds__(kSlabThreads)
   constexpr int M4 = RPW * P4 / 32;  // pieces per lane and buffer
   static_assert(RPW * LPR == 32 && M * 32 == RPW * KC && M4 * 32 == RPW * P4,
                 "warp geometry");
+  static_assert(kSlabThreads % C == 0, "a thread decodes one slab column");
   extern __shared__ __align__(16) float smem_f[];
   const int nslab = (d + C - 1) / C;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -1157,12 +1207,21 @@ __global__ void __launch_bounds__(kSlabThreads)
     }
     cp_async_wait_all();
     __syncthreads();
-#pragma unroll 4
-    for (int e = tid; e < n * C; e += kSlabThreads) {
-      const int r = e / C, j = c0 + e % C;
+    {
+      // kSlabThreads is a multiple of C: a thread decodes one column of
+      // the slab, so its job is found once per slab, per column (a slab
+      // may straddle two jobs)
+      const int j = c0 + tid % C;
+      const int job = ja.job(j < d ? j : d - 1), jin = j - job * ja.djob;
+      const uint32_t smix = ja.smix[job];
       if (j < d) {
-        slab[e] = roundtrip(slab[e], w.zp[r], w.scale[r],
-                            hash_uniform(w.smix, r, j), w.levels);
+#pragma unroll 4
+        for (int e = tid; e < n * C; e += kSlabThreads) {
+          const int r = e / C;
+          const size_t m = (size_t)r * ja.jobs + job;
+          slab[e] = roundtrip(slab[e], w.zp[m], w.scale[m],
+                              hash_uniform(smix, r, jin), w.levels);
+        }
       }
     }
     __syncthreads();
@@ -2661,25 +2720,25 @@ int launch_circ_halo_comm(const float* y, float* out, float* pay, int n,
                           int d, float w_self, int k, const int* soff,
                           const float* weights, Wire w, int laplacian,
                           int bn, int h_lo, int h_hi, int stages,
-                          int smem_bytes, dim3 grid, cudaStream_t s) {
+                          int smem_bytes, dim3 grid, cudaStream_t s,
+                          const JobAxis& ja) {
   const auto kernel = circulant_mix_halo_comm_kernel<V>;
   const cudaError_t err =
       fill_card(kernel, kHaloCommThreads, smem_bytes, &grid);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kHaloCommThreads, smem_bytes, s>>>(
       y, out, pay, n, d, bn, h_lo, h_hi, w_self, k, soff, weights, w,
-      laplacian, stages);
+      laplacian, stages, ja);
   return (int)cudaGetLastError();
 }
 
-// stages: the ring's raw stages, 1..3 without EF, 1..2 with; smem_bytes
-// the stages' tiles (two per stage under EF) and the decoded tile.
-extern "C" int circulant_mix_halo_comm(
-    const float* y, float* out, float* pay, const float* hat,
-    const float* zp, const float* scale, unsigned int seed, float levels,
-    int n, int d, float w_self, int k, const int* soff,
-    const float* weights, int laplacian, int bn, int h_lo, int h_hi,
-    int stages, int smem_bytes, void* stream) {
+static int mix_halo_comm_circ(const float* y, float* out, float* pay,
+                              const float* hat, const float* zp,
+                              const float* scale, const JobAxis& ja,
+                              float levels, int n, int d, float w_self,
+                              int k, const int* soff, const float* weights,
+                              int laplacian, int bn, int h_lo, int h_hi,
+                              int stages, int smem_bytes, void* stream) {
   const bool ef = hat != nullptr;
   dim3 grid;
   if ((hat == nullptr) != (pay == nullptr) || stages < 1 ||
@@ -2690,9 +2749,9 @@ extern "C" int circulant_mix_halo_comm(
   }
   const auto args = [&](auto launch) {
     return launch(y, out, pay, n, d, w_self, k, soff, weights,
-                  make_wire(zp, scale, hat, seed, levels), laplacian, bn,
+                  make_wire(zp, scale, hat, 0u, levels), laplacian, bn,
                   h_lo, h_hi, stages, smem_bytes, grid,
-                  (cudaStream_t)stream);
+                  (cudaStream_t)stream, ja);
   };
   const int v = vec_bytes(y, out, d, 4, 16);
   const int v_ef = ef ? vec_bytes(hat, pay, d, 4, 16) : 16;
@@ -2701,6 +2760,38 @@ extern "C" int circulant_mix_halo_comm(
     case 8: return args(launch_circ_halo_comm<8>);
     default: return args(launch_circ_halo_comm<4>);
   }
+}
+
+// stages: the ring's raw stages, 1..3 without EF, 1..2 with; smem_bytes
+// the stages' tiles (two per stage under EF) and the decoded tile.
+extern "C" int circulant_mix_halo_comm(
+    const float* y, float* out, float* pay, const float* hat,
+    const float* zp, const float* scale, unsigned int seed, float levels,
+    int n, int d, float w_self, int k, const int* soff,
+    const float* weights, int laplacian, int bn, int h_lo, int h_hi,
+    int stages, int smem_bytes, void* stream) {
+  return mix_halo_comm_circ(y, out, pay, hat, zp, scale,
+                            solo_axis(d, seed), levels, n, d, w_self, k,
+                            soff, weights, laplacian, bn, h_lo, h_hi,
+                            stages, smem_bytes, stream);
+}
+
+// The fused halo gossips on a serve bucket's job axis: zp/scale (n, jobs)
+// tables, seeds a host array of the jobs' send seeds, d = jobs * djob;
+// otherwise as their solo twins.
+extern "C" int circulant_mix_halo_comm_jobs(
+    const float* y, float* out, float* pay, const float* hat,
+    const float* zp, const float* scale, const unsigned int* seeds,
+    int jobs, int djob, float levels, int n, int d, float w_self, int k,
+    const int* soff, const float* weights, int laplacian, int bn, int h_lo,
+    int h_hi, int stages, int smem_bytes, void* stream) {
+  JobAxis ja;
+  if (seeds == nullptr || !job_axis(jobs, djob, d, nullptr, seeds, &ja)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return mix_halo_comm_circ(y, out, pay, hat, zp, scale, ja, levels, n, d,
+                            w_self, k, soff, weights, laplacian, bn, h_lo,
+                            h_hi, stages, smem_bytes, stream);
 }
 
 template <typename T, int C>
@@ -2790,13 +2881,51 @@ extern "C" int sparse_mix_halo(const void* y, void* out, const float* w_self,
 template <int C>
 int launch_slab(const float* y, float* out, const float* w_self,
                 const int* nbr, const float* wts, int n, int d, int k,
-                Wire w, int laplacian, int smem_bytes, cudaStream_t s) {
+                Wire w, int laplacian, int smem_bytes, cudaStream_t s,
+                const JobAxis& ja) {
   const cudaError_t err =
       allow_smem(sparse_mix_slab_comm_kernel<C>, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int nslab = (d + C - 1) / C;
   sparse_mix_slab_comm_kernel<C><<<nslab, kSlabThreads, smem_bytes, s>>>(
-      y, out, w_self, nbr, wts, n, d, k, w, laplacian);
+      y, out, w_self, nbr, wts, n, d, k, w, laplacian, ja);
+  return (int)cudaGetLastError();
+}
+
+static int mix_halo_comm_sparse(const float* y, float* out,
+                                const float* zp, const float* scale,
+                                const JobAxis& ja, float levels,
+                                const float* w_self, const int* nbr,
+                                const float* wts, int n, int d, int k,
+                                int laplacian, int bn, int slab_cols,
+                                int smem_bytes, void* stream) {
+  const Wire w = make_wire(zp, scale, nullptr, 0u, levels);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (slab_cols != 0) {
+    if (bn < 1 || n % bn || smem_bytes != slab_smem_bytes(n, slab_cols)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const auto args = [&](auto launch) {
+      return launch(y, out, w_self, nbr, wts, n, d, k, w, laplacian,
+                    smem_bytes, s, ja);
+    };
+    switch (slab_cols) {
+      case 8: return args(launch_slab<8>);
+      case 4: return args(launch_slab<4>);
+      case 2: return args(launch_slab<2>);
+      case 1: return args(launch_slab<1>);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  dim3 grid;
+  if (!halo_launch(n, d, bn, 0, 0, 4, 1, smem_bytes, &grid)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t err = allow_smem(sparse_mix_halo_comm_kernel,
+                                     smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  sparse_mix_halo_comm_kernel<<<grid, kHaloThreads, smem_bytes, s>>>(
+      y, out, w_self, nbr, wts, n, d, k, bn, w, laplacian, ja);
   return (int)cudaGetLastError();
 }
 
@@ -2811,39 +2940,24 @@ extern "C" int sparse_mix_halo_comm(const float* y, float* out,
                                     const float* wts, int n, int d, int k,
                                     int laplacian, int bn, int slab_cols,
                                     int smem_bytes, void* stream) {
-  const Wire w = make_wire(zp, scale, nullptr, seed, levels);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (slab_cols != 0) {
-    if (bn < 1 || n % bn || smem_bytes != slab_smem_bytes(n, slab_cols)) {
-      return (int)cudaErrorInvalidValue;
-    }
-    switch (slab_cols) {
-      case 8:
-        return launch_slab<8>(y, out, w_self, nbr, wts, n, d, k, w,
-                              laplacian, smem_bytes, s);
-      case 4:
-        return launch_slab<4>(y, out, w_self, nbr, wts, n, d, k, w,
-                              laplacian, smem_bytes, s);
-      case 2:
-        return launch_slab<2>(y, out, w_self, nbr, wts, n, d, k, w,
-                              laplacian, smem_bytes, s);
-      case 1:
-        return launch_slab<1>(y, out, w_self, nbr, wts, n, d, k, w,
-                              laplacian, smem_bytes, s);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  }
-  dim3 grid;
-  if (!halo_launch(n, d, bn, 0, 0, 4, 1, smem_bytes, &grid)) {
+  return mix_halo_comm_sparse(y, out, zp, scale, solo_axis(d, seed),
+                              levels, w_self, nbr, wts, n, d, k, laplacian,
+                              bn, slab_cols, smem_bytes, stream);
+}
+
+extern "C" int sparse_mix_halo_comm_jobs(
+    const float* y, float* out, const float* zp, const float* scale,
+    const unsigned int* seeds, int jobs, int djob, float levels,
+    const float* w_self, const int* nbr, const float* wts, int n, int d,
+    int k, int laplacian, int bn, int slab_cols, int smem_bytes,
+    void* stream) {
+  JobAxis ja;
+  if (seeds == nullptr || !job_axis(jobs, djob, d, nullptr, seeds, &ja)) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t err = allow_smem(sparse_mix_halo_comm_kernel,
-                                     smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  sparse_mix_halo_comm_kernel<<<grid, kHaloThreads, smem_bytes, s>>>(
-      y, out, w_self, nbr, wts, n, d, k, bn, w, laplacian);
-  return (int)cudaGetLastError();
+  return mix_halo_comm_sparse(y, out, zp, scale, ja, levels, w_self, nbr,
+                              wts, n, d, k, laplacian, bn, slab_cols,
+                              smem_bytes, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

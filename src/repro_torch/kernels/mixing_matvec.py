@@ -57,13 +57,13 @@ launch goes through `_cuda_lib.CudaLibrary`, the port's one ctypes
 launch path.
 
 The job axis (a serve bucket's gossip, `repro_torch.serve`): the plain
-Neumann step with β as a (B,) device table and D̃ as (n, B), and the
-comm-fused full-operand gossips and Neumann step with zp/scale as
-(n, B) and a list of B seeds, launch their `*_jobs` entry points on
-every route (the kernels' `JobAxis`: column c is job c // (d / B)'s);
-each job's columns equal its solo launch bit for bit.  These launches
-count apart, as the route's counter with `_jobs` (`JOB_COUNTERS`).  The
-compressed halo kernels take no job axis (`HALO_JOB_AXIS_ITEM`).
+Neumann step with β as a (B,) device table and D̃ as (n, B), and every
+comm-fused gossip (the full-operand ones, the halo ones and the Neumann
+step) with zp/scale as (n, B) and a list of B seeds, launch their
+`*_jobs` entry points on every route (the kernels' `JobAxis`: column c
+is job c // (d / B)'s); each job's columns equal its solo launch bit for
+bit.  These launches count apart, as the route's counter with `_jobs`
+(`JOB_COUNTERS`).
 
 Row tiles and the shared-memory planner
 ---------------------------------------
@@ -223,6 +223,10 @@ _LIB = CudaLibrary("mixing_matvec", {
     # ..., bn, slab columns (0: the row-tiled kernel), smem bytes
     "sparse_mix_halo_comm": (_P, _P, *_WIRE, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I),
+    "circulant_mix_halo_comm_jobs": (_P, _P, _P, _P, *_JOB_WIRE, _I, _I, _F,
+                                     _I, _P, _P, _I, _I, _I, _I, _I, _I),
+    "sparse_mix_halo_comm_jobs": (_P, _P, *_JOB_WIRE, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I),
 })
 
 # launches per kernel, under the names of chip_smoke's kernel list
@@ -243,7 +247,10 @@ _LAUNCHES = dict.fromkeys((
     "circulant_mix_matvec_comm_unstaged_jobs",
     "sparse_mix_matvec_comm_jobs", "sparse_mix_matvec_comm_unstaged_jobs",
     "circulant_neumann_step_comm_jobs",
-    "circulant_neumann_step_comm_unstaged_jobs"), 0)
+    "circulant_neumann_step_comm_unstaged_jobs",
+    "circulant_mix_matvec_halo_comm_jobs",
+    "sparse_mix_matvec_halo_comm_jobs",
+    "sparse_mix_matvec_halo_comm_rows_jobs"), 0)
 
 JOB_COUNTERS = tuple(name for name in _LAUNCHES if name.endswith("_jobs"))
 
@@ -370,17 +377,6 @@ def _check_wire(y, zp, scale, seed, hat, ef: bool) -> int:
         raise ValueError("hat is the error-feedback replica; pass it only "
                          "with comm='int8+ef' or 'int4+ef'")
     return jobs
-
-
-#: Where the compressed halo gossips' job axis is queued.
-HALO_JOB_AXIS_ITEM = "ROADMAP queue 1 item 9c (the compressed halo job axis)"
-
-
-def _no_job_axis(seed) -> None:
-    """The compressed halo kernels (rows 2f and 4f) take one send."""
-    if is_seed_table(seed):
-        raise ValueError(f"the compressed halo kernels take no job axis "
-                         f"yet; that is {HALO_JOB_AXIS_ITEM}")
 
 
 def _seed_table(seeds):
@@ -1230,8 +1226,10 @@ def circulant_mix_matvec_halo(y: torch.Tensor, zp=None, scale=None,
     block staging its rows plus the wraparound halo in shared memory.
     offsets and weights: host sequences (W[i, (i+o) mod n] = c_o, as
     `structure.offsets`/`.weights`); bn | n and halo extents ≤ bn.
-    `comm` and its operands as in `circulant_mix_matvec`.  The result
-    equals the full-operand kernel's bit for bit, for any bn."""
+    `comm` and its operands as in `circulant_mix_matvec`, a seed table
+    with (n, B) zp and scale included (the job axis, counted as
+    `circulant_mix_matvec_halo_comm_jobs`).  The result equals the
+    full-operand kernel's bit for bit, for any bn."""
     fused = parse_kernel_comm(comm)
     _check_state("y", y)
     n, d = y.shape
@@ -1242,9 +1240,8 @@ def circulant_mix_matvec_halo(y: torch.Tensor, zp=None, scale=None,
                          f"weights")
     h_lo, h_hi = halo_extents(offsets, n)
     bits, ef = fused if fused is not None else (None, False)
-    if fused is not None:
-        _no_job_axis(seed)
-        _check_wire(y, zp, scale, seed, hat, ef)
+    jobs = _check_wire(y, zp, scale, seed, hat, ef) \
+        if fused is not None else 1
     # both kernels stage their tiles on a ring, the fused one beside its
     # decoded tile
     stages, smem = _halo_smem(n, bn, h_lo, h_hi, y.element_size(),
@@ -1268,11 +1265,18 @@ def circulant_mix_matvec_halo(y: torch.Tensor, zp=None, scale=None,
                 float(w_self), *geometry, stages, smem)
         return out
     pay = torch.empty_like(y) if ef else None
-    _launch("circulant_mix_halo_comm", "circulant_mix_matvec_halo_comm",
-            y.device, y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
-            zp.data_ptr(), scale.data_ptr(), seed & 0xFFFFFFFF,
-            float(2 ** bits - 1), n, d, float(w_self), *geometry, stages,
+    head = (y.data_ptr(), out.data_ptr(), _ptr(pay), _ptr(hat),
+            zp.data_ptr(), scale.data_ptr())
+    tail = (float(2 ** bits - 1), n, d, float(w_self), *geometry, stages,
             smem)
+    if is_seed_table(seed):
+        table = _seed_table(seed)
+        _launch("circulant_mix_halo_comm_jobs",
+                "circulant_mix_matvec_halo_comm_jobs", y.device, *head,
+                ctypes.addressof(table), jobs, d // jobs, *tail)
+    else:
+        _launch("circulant_mix_halo_comm", "circulant_mix_matvec_halo_comm",
+                y.device, *head, seed & 0xFFFFFFFF, *tail)
     return (out, pay) if ef else out
 
 
@@ -1296,6 +1300,8 @@ def sparse_mix_matvec_halo(y: torch.Tensor, w_self: torch.Tensor,
     (with ``comm`` decoding each neighbor value where it is gathered, k
     hashes per element).  The two routes count apart:
     `sparse_mix_matvec_halo[_comm]` the slab, `..._rows` the row tiles.
+    With ``comm`` a seed table and (n, B) zp and scale run the job axis
+    on either route, counted with `_jobs`.
 
     row_plan: (order, deg), (n,) int32 each on y's device, from
     `sparse_row_plan` on the same tables (plain gather only).  The plain
@@ -1326,9 +1332,8 @@ def sparse_mix_matvec_halo(y: torch.Tensor, w_self: torch.Tensor,
         order, deg = row_plan
         _check_table("row_plan order", order, (n,), torch.int32, y.device)
         _check_table("row_plan deg", deg, (n,), torch.int32, y.device)
-    if fused is not None:
-        _no_job_axis(seed)
-        _check_wire(y, zp, scale, seed, None, False)
+    jobs = _check_wire(y, zp, scale, seed, None, False) \
+        if fused is not None else 1
     _, smem = _halo_smem(n, bn, 0, 0, y.element_size(),
                          plan_blocks(fused is not None), bn)
     if y.device.type == "cpu":
@@ -1353,10 +1358,16 @@ def sparse_mix_matvec_halo(y: torch.Tensor, w_self: torch.Tensor,
                 d, k, _DTYPE_CODE[y.dtype], int(bool(laplacian)), bn,
                 cols or 0, smem)
         return out
-    _launch("sparse_mix_halo_comm", "sparse_mix_matvec_halo_comm"
-            if cols is not None else "sparse_mix_matvec_halo_comm_rows",
-            y.device,
-            y.data_ptr(), out.data_ptr(), zp.data_ptr(), scale.data_ptr(),
-            seed & 0xFFFFFFFF, float(2 ** fused[0] - 1), *tables, n, d, k,
+    counter = "sparse_mix_matvec_halo_comm" if cols is not None \
+        else "sparse_mix_matvec_halo_comm_rows"
+    head = (y.data_ptr(), out.data_ptr(), zp.data_ptr(), scale.data_ptr())
+    tail = (float(2 ** fused[0] - 1), *tables, n, d, k,
             int(bool(laplacian)), bn, cols or 0, smem)
+    if is_seed_table(seed):
+        table = _seed_table(seed)
+        _launch("sparse_mix_halo_comm_jobs", counter + "_jobs", y.device,
+                *head, ctypes.addressof(table), jobs, d // jobs, *tail)
+    else:
+        _launch("sparse_mix_halo_comm", counter, y.device, *head,
+                seed & 0xFFFFFFFF, *tail)
     return out

@@ -143,7 +143,6 @@ class ServeEngine:
         self._cache: dict[tuple, object] = {}
         self._cache_capacity = int(cache_capacity)
         self._trace_counter = obs.TraceCounter(name="serve_chunk")
-        self._halo_checked: dict = {}
 
     # -- queue -------------------------------------------------------------
 
@@ -207,23 +206,6 @@ class ServeEngine:
                 "problem families (repro_torch.solve's inline serve-tier "
                 "wrapper) do not survive a restart — use a problem-zoo "
                 "family name, or drop checkpoint_dir")
-        self._check_halo(spec, sspec)
-
-    def _check_halo(self, spec: JobSpec, sspec) -> None:
-        """Refuse a compressed bucket whose gossips would plan the halo
-        kernels, which take no job axis yet (`MixingOp.jobs_fusion`)."""
-        from ..comm import parse_comm_spec
-        if not parse_comm_spec(sspec.comm.spec).fusable:
-            return
-        net = build_network(spec)
-        key = (net.name, net.n, sspec.mixing.backend, sspec.mixing.dtype,
-               sspec.comm.spec)
-        if key not in self._halo_checked:
-            op = make_mixing_op(net, backend=sspec.mixing.backend,
-                                dtype=sspec.mixing.dtype,
-                                comm=sspec.comm.spec, device="cpu")
-            op.jobs_fusion()
-            self._halo_checked[key] = True
 
     # -- runner cache ------------------------------------------------------
 

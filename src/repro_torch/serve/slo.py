@@ -1,8 +1,7 @@
 """SLO layer — Poisson arrival driving and latency accounting.
 
-A copy of `repro.serve.slo` on the port's engine and `repro_torch.obs`
-(`drive_poisson_async` waits for the admission loop, ROADMAP queue 1
-item 9b).
+A copy of `repro.serve.slo` on the port's engine, admission loop and
+`repro_torch.obs`.
 
 The engine's batch interface (`submit` everything, one `run()`) answers
 "jobs per second" but not the question an always-on hyperopt service is
@@ -22,6 +21,8 @@ scheduling loop:
   instants from the tracer by `job_id` — no second bookkeeping channel,
   the latency a tenant experiences is literally the distance between
   two trace events;
+* `drive_poisson_async` offers the same seeded schedule to an
+  always-on `admission.AdmissionLoop`: no wave barrier;
 * `observe_latencies` publishes the distribution into the metrics
   registry: a `serve_job_latency_seconds` histogram plus p50/p99
   gauges, next to the queue-depth / in-flight gauges the engine itself
@@ -209,10 +210,54 @@ def drive_poisson(engine, specs: Iterable, rate_hz: float,
 
 
 def drive_poisson_async(loop, specs: Iterable, rate_hz: float,
-                        seed: int = 0, reg=None, **labels) -> SLOReport:
-    """`drive_poisson` against `repro`'s always-on admission loop — not
-    ported yet: the loop (`serve/admission/`) is ROADMAP queue 1 item
-    9b (admission)."""
-    raise NotImplementedError(
-        "drive_poisson_async drives the admission loop of "
-        "serve/admission/, which is ROADMAP queue 1 item 9b (admission)")
+                        seed: int = 0, reg=None,
+                        **labels) -> SLOReport:
+    """`drive_poisson` against an `admission.AdmissionLoop`: the SAME
+    seeded arrival schedule, but jobs are submitted to the always-on
+    loop the moment they arrive and join buckets at the next chunk
+    boundary — no wave barrier, so a job's latency no longer includes
+    waiting out every earlier arrival's full run.  `waves` is 0 by
+    construction; the before/after against `drive_poisson` on the same
+    schedule is the admission loop's headline number."""
+    specs = list(specs)
+    arrivals = poisson_arrivals(len(specs), rate_hz, seed)
+    submitted: list[str] = []
+    peak_queue = 0
+    own_thread = not loop.running
+    with obs.tracing() as tr:
+        since = tr.now_us()
+        if own_thread:
+            loop.start()
+        try:
+            t0 = time.perf_counter()
+            for i, spec in enumerate(specs):
+                wait = arrivals[i] - (time.perf_counter() - t0)
+                if wait > 0:
+                    time.sleep(wait)
+                ids = loop.submit(spec)
+                for jid in ids:
+                    tr.instant("arrival", cat="serve.slo", track="load",
+                               job_id=jid,
+                               scheduled_s=float(arrivals[i]))
+                submitted.extend(ids)
+                peak_queue = max(peak_queue, len(loop.queue))
+            results = [loop.result(jid) for jid in submitted]
+            wall = time.perf_counter() - t0
+        finally:
+            if own_thread:
+                loop.stop()
+        lat = job_latencies(tr.events(), since=since)
+    vals = np.array([lat[jid] for jid in submitted if jid in lat])
+    quants = observe_latencies(vals, reg=reg, **labels)
+    reg = reg or obs.registry()
+    reg.gauge(
+        "serve_peak_queue_depth",
+        "max queued jobs observed at a Poisson wave boundary"
+    ).labels(**labels).set(float(peak_queue))
+    return SLOReport(
+        jobs=len(specs), retired=int(vals.size), wall_s=wall,
+        rate_hz=float(rate_hz), waves=0,
+        peak_queue_depth=peak_queue, latencies_s=vals,
+        p50_s=quants[0.5], p99_s=quants[0.99],
+        throughput_jobs_s=float(vals.size) / max(wall, 1e-9),
+        results=results)

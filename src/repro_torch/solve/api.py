@@ -17,7 +17,8 @@ The reference tier (``tier="reference"``) runs every method:
 
 The serve tier (``tier="serve"``, method "dagm") runs the solve as a
 one-job bucket of a `repro_torch.serve.ServeEngine` (its own, or the
-`serve_engine=` passed in, sharing that engine's runner cache); the
+`serve_engine=` passed in — an `AdmissionLoop` too — sharing that
+engine's runner cache); the
 job's trajectory is its reference-tier run's (`repro_torch.core.jobs`).
 `recorder=` threads the flight recorder through either tier and returns
 its rows in `extras["flight"]`; with tracing on (`repro_torch.obs
@@ -88,7 +89,10 @@ def solve(problem, network, spec: SolverSpec, *, x0=None, y0=None,
               rows in `extras["flight"]` (method="dagm").
     serve_engine: optional pre-built `repro_torch.serve.ServeEngine`
               for tier="serve" (built with record_metrics=True, on
-              `device`).
+              `device`).  A `repro_torch.serve.admission.AdmissionLoop`
+              works too: the solve is submitted into the live service
+              and joins a bucket at the next chunk boundary, sharing
+              slots with whatever jobs the loop is already running.
     Runs inside `strict_f32`: the caller's TF32 flags are unchanged on
     return.
     """

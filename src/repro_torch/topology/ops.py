@@ -480,43 +480,50 @@ class MixingOp:
         from ..comm import send_seed
         return send_seed(st.seed, st.sends)
 
+    def _fused_gossip(self, flat, zp, scale, seed, hat, laplacian: bool,
+                      bn: int | None):
+        """One comm-fused kernel call on the (n, D) operand: the halo
+        kernel with row tile bn, or the full-operand one.  seed: one
+        send's, or a bucket's table of per-job seeds (zp, scale (n, B))."""
+        comm = f"int{self.comm.compressor.bits}" + \
+            ("+ef" if self.comm.ef else "")
+        if self.backend == "circulant" and bn is not None:
+            s = self.structure
+            return circulant_mix_matvec_halo(flat, zp, scale, seed, hat,
+                                             w_self=s.w_self,
+                                             offsets=s.offsets,
+                                             weights=s.weights,
+                                             laplacian=laplacian, bn=bn,
+                                             comm=comm)
+        if self.backend == "circulant":
+            return circulant_mix_matvec(flat, zp, scale, seed, hat,
+                                        w_self=self.structure.w_self,
+                                        offsets=self._circ_off,
+                                        weights=self._circ_w,
+                                        laplacian=laplacian, comm=comm)
+        if bn is not None:
+            return sparse_mix_matvec_halo(flat, self._sp_wself,
+                                          self._sp_idx, self._sp_wts, zp,
+                                          scale, seed, laplacian=laplacian,
+                                          bn=bn, comm=comm)
+        return sparse_mix_matvec(flat, self._sp_wself, self._sp_idx,
+                                 self._sp_wts, zp, scale, seed, hat,
+                                 laplacian=laplacian, comm=comm)
+
     def _apply_fused(self, y: torch.Tensor, flat: torch.Tensor, st,
                      laplacian: bool, bn: int | None = None):
         """One comm-fused gossip: the same `row_quant_params` wire
         metadata and state advance (sends + 1, hat ← payload under EF)
-        as `compressed_payload` + `_apply`, in one kernel (the halo
-        kernel with row tile bn, or the full-operand one)."""
+        as `compressed_payload` + `_apply`, in one kernel
+        (`_fused_gossip`)."""
         from ..comm import row_quant_params
-        bits = self.comm.compressor.bits
         ef = self.comm.ef
-        comm = f"int{bits}" + ("+ef" if ef else "")
         seed = self._next_seed(st)
         flat = flat.contiguous()
         hat = st.hat.reshape(flat.shape).contiguous() if ef else None
-        zp, scale = row_quant_params(flat - hat if ef else flat, bits)
-        if self.backend == "circulant" and bn is not None:
-            s = self.structure
-            res = circulant_mix_matvec_halo(flat, zp, scale, seed, hat,
-                                            w_self=s.w_self,
-                                            offsets=s.offsets,
-                                            weights=s.weights,
-                                            laplacian=laplacian, bn=bn,
-                                            comm=comm)
-        elif self.backend == "circulant":
-            res = circulant_mix_matvec(flat, zp, scale, seed, hat,
-                                       w_self=self.structure.w_self,
-                                       offsets=self._circ_off,
-                                       weights=self._circ_w,
-                                       laplacian=laplacian, comm=comm)
-        elif bn is not None:
-            res = sparse_mix_matvec_halo(flat, self._sp_wself, self._sp_idx,
-                                         self._sp_wts, zp, scale, seed,
-                                         laplacian=laplacian, bn=bn,
-                                         comm=comm)
-        else:
-            res = sparse_mix_matvec(flat, self._sp_wself, self._sp_idx,
-                                    self._sp_wts, zp, scale, seed, hat,
-                                    laplacian=laplacian, comm=comm)
+        zp, scale = row_quant_params(flat - hat if ef else flat,
+                                     self.comm.compressor.bits)
+        res = self._fused_gossip(flat, zp, scale, seed, hat, laplacian, bn)
         if ef:
             out, pay = res
             st = dataclasses.replace(st, hat=pay.reshape(y.shape),
@@ -598,26 +605,6 @@ class MixingOp:
     # `send_seed`), so each job's result is bitwise its solo gossip's.
     # Channel states are `repro_torch.comm.JobChannelState`s.
 
-    def _jobs_fused_plan(self, flat: torch.Tensor):
-        """`_fused_plan` of a bucket's (n, B·d) operand, refusing the
-        compressed halo kernels, which take no job axis yet."""
-        plan = self._fused_plan(flat)
-        if plan is not None and plan[1] is not None:
-            from ..kernels.mixing_matvec import HALO_JOB_AXIS_ITEM
-            raise ValueError(
-                f"a serve bucket's compressed gossip at n={self.n} plans "
-                f"the halo kernels (row tile {plan[1]}), which take no job "
-                f"axis yet; that is {HALO_JOB_AXIS_ITEM}")
-        return plan
-
-    def jobs_fusion(self) -> None:
-        """Raise `_jobs_fused_plan`'s ValueError where a bucket's
-        compressed gossips on this op would plan the halo kernels (the
-        plan reads n, never the width) — the serve engine's check at
-        submit."""
-        self._jobs_fused_plan(torch.empty((self.n, 1), dtype=torch.float32,
-                                          device="meta"))
-
     @strict_f32()
     def mix_jobs_c(self, y: torch.Tensor, st, laplacian: bool = False):
         """(W ⊗ I) y (or (I − W)) of every job of y (n, B, d) through the
@@ -626,8 +613,9 @@ class MixingOp:
             return self._apply(y, laplacian), st.bump()
         n, B = y.shape[:2]
         flat = y.reshape(n, -1)
-        if self._jobs_fused_plan(flat) is not None:
-            return self._apply_fused_jobs(y, flat, st, laplacian)
+        plan = self._fused_plan(flat)
+        if plan is not None:
+            return self._apply_fused_jobs(y, flat, st, laplacian, plan[1])
         # the composed wire, one job at a time (as its solo send), then
         # one mix of the bucket's decoded payload
         from ..comm import compressed_payload
@@ -653,26 +641,18 @@ class MixingOp:
                                      self.comm.compressor.bits)
         return zp.reshape(n, B), scale.reshape(n, B)
 
-    def _apply_fused_jobs(self, y, flat, st, laplacian: bool):
+    def _apply_fused_jobs(self, y, flat, st, laplacian: bool,
+                          bn: int | None):
         """One comm-fused gossip of every job of the bucket: one launch
-        on the job axis (`_apply_fused`'s state advance, per slot)."""
-        n, B = y.shape[:2]
-        bits, ef = self.comm.compressor.bits, self.comm.ef
-        comm = f"int{bits}" + ("+ef" if ef else "")
-        seeds = st.send_seeds()
+        on the job axis of the full-operand or the halo kernels
+        (`_apply_fused`'s state advance, per slot)."""
+        B = y.shape[1]
+        ef = self.comm.ef
         flat = flat.contiguous()
         hat = st.hat.reshape(flat.shape).contiguous() if ef else None
         zp, scale = self._jobs_wire(flat, B, hat)
-        if self.backend == "circulant":
-            res = circulant_mix_matvec(flat, zp, scale, seeds, hat,
-                                       w_self=self.structure.w_self,
-                                       offsets=self._circ_off,
-                                       weights=self._circ_w,
-                                       laplacian=laplacian, comm=comm)
-        else:
-            res = sparse_mix_matvec(flat, self._sp_wself, self._sp_idx,
-                                    self._sp_wts, zp, scale, seeds, hat,
-                                    laplacian=laplacian, comm=comm)
+        res = self._fused_gossip(flat, zp, scale, st.send_seeds(), hat,
+                                 laplacian, bn)
         if ef:
             out, pay = res
             st = dataclasses.replace(st, hat=pay.reshape(y.shape),
@@ -712,7 +692,7 @@ class MixingOp:
         n, B = h.shape[:2]
         flat = h.reshape(n, -1)
         if not self.comm.ef \
-                and self._jobs_fused_plan(flat) == ("circulant", None):
+                and self._fused_plan(flat) == ("circulant", None):
             bits = self.comm.compressor.bits
             seeds = st.send_seeds()
             flat = flat.contiguous()

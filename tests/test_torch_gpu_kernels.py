@@ -1742,9 +1742,100 @@ def test_job_axis_comm_neumann_every_route(cuda, cols, bits, B, n, d):
         _bits_equal(_job_slice(out, j, d), solo)
 
 
+# rows 2f and 4f on a job axis: (jobs, n, in-job width); odd widths put a
+# job boundary inside row 2f's 4-column vectors and inside row 4f's slabs
+HALO_JOB_CASES = [(1, 128, 2010), (3, 128, 2011), (8, 128, 2010),
+                  (8, 128, 1003), (5, 16, 7), (64, 16, 3), (8, 128, 157000)]
+
+
+@pytest.mark.parametrize("comm", ["int8", "int4", "int8+ef", "int4+ef"])
+@pytest.mark.parametrize("B,n,d", HALO_JOB_CASES)
+def test_job_axis_circulant_halo_comm(cuda, comm, B, n, d):
+    """Row 2f on a job axis (the fused circulant halo at the planner's
+    bn): one launch, counted as `circulant_mix_matvec_halo_comm_jobs`,
+    output and EF payload bitwise the plain version and each job's solo
+    halo launch over its own d columns; a 64-job seed table too."""
+    bits, ef = int(comm[3]), comm.endswith("+ef")
+    s = circulant_structure(make_network("ring", n).W)
+    kw = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights,
+              laplacian=True, bn=n // 2, comm=comm)
+    y, hat, _, _, _ = _job_inputs(B, n, d, cuda, seed=3 * B)
+    hat = 0.1 * hat if ef else None
+    zp, sc = _job_wire(y, B, bits, hat)
+    seeds = [int(v) for v in np.random.default_rng(B + 1).integers(
+        0, 2 ** 31 - 1, B)]
+    mm.reset_launch_counts()
+    out = mm.circulant_mix_matvec_halo(y, zp, sc, seeds, hat, **kw)
+    _one_job_launch(("circulant_mix_matvec_halo_comm_jobs",))
+    want = ref.circulant_mix_fused_ref(
+        y, zp, sc, seeds, hat, w_self=s.w_self, offsets=s.offsets,
+        weights=s.weights, laplacian=True, bits=bits)
+    for got, w in (zip(out, want) if ef else ((out, want),)):
+        _bits_equal(got, w)
+    for j in range(B):
+        solo = mm.circulant_mix_matvec_halo(
+            _job_slice(y, j, d), zp[:, j:j + 1].contiguous(),
+            sc[:, j:j + 1].contiguous(), seeds[j],
+            None if hat is None else _job_slice(hat, j, d), **kw)
+        for got, w in (zip(out, solo) if ef else ((out, solo),)):
+            _bits_equal(_job_slice(got, j, d), w)
+    del out, want
+    torch.cuda.empty_cache()
+
+
+# the planner's slab (c = 8: at n = 128 its narrower slabs need more
+# shared memory than it, their table stage being the larger) and the row
+# tiles at every case; c = 4, 2, 1 at n = 4096 (ER r = 0.004, k = 36),
+# where a lower budget reaches them
+SPARSE_HALO_JOB_CASES = [
+    (route, *case) for case in HALO_JOB_CASES for route in (8, None)] + [
+    (route, B, 4096, d) for route in (4, 2, 1)
+    for B, d in ((3, 1001), (8, 2010))]
+
+
+@pytest.mark.parametrize("comm", ["int8", "int4"])
+@pytest.mark.parametrize("route,B,n,d", SPARSE_HALO_JOB_CASES)
+def test_job_axis_sparse_halo_comm_every_route(cuda, route, comm, B, n, d):
+    """Row 4f on a job axis, on every route: the slab at c = 8 (the
+    planner's at n = 128), at c = 4, 2, 1 under a lower budget
+    (`smem_budget`, at n = 4096), and the row tiles (None).  One launch counted as
+    the route's `*_jobs`, bitwise the plain version and each job's solo
+    launch on the same route."""
+    bits = int(comm[3])
+    tabs = _er_tables(n, cuda, r=0.5 if n <= 128 else 0.004)
+    y, _, _, _, _ = _job_inputs(B, n, d, cuda, seed=5 * B)
+    y[1, :7] = float("nan")
+    zp, sc = _job_wire(y, B, bits)
+    seeds = [int(v) for v in np.random.default_rng(B + 2).integers(
+        0, 2 ** 31 - 1, B)]
+    if route == 8:
+        budget = mm.SMEM_BUDGET_BYTES
+    elif route is None:      # under every slab's shared memory
+        budget = min(mm.slab_smem_bytes(n, c) for c in mm.SLAB_COLS) - 1
+    else:
+        budget = mm.slab_smem_bytes(n, route)
+    counter = ("sparse_mix_matvec_halo_comm_jobs" if route is not None
+               else "sparse_mix_matvec_halo_comm_rows_jobs")
+    kw = dict(laplacian=True, bn=min(n // 2, 64), comm=comm)
+    with mm.smem_budget(budget):
+        assert mm.plan_slab_cols(n) == route
+        mm.reset_launch_counts()
+        out = mm.sparse_mix_matvec_halo(y, *tabs, zp, sc, seeds, **kw)
+        _one_job_launch((counter,))
+        _bits_equal(out, ref.sparse_mix_fused_ref(
+            y, *tabs, zp, sc, seeds, laplacian=True, bits=bits))
+        for j in range(B):
+            solo = mm.sparse_mix_matvec_halo(
+                _job_slice(y, j, d), *tabs, zp[:, j:j + 1].contiguous(),
+                sc[:, j:j + 1].contiguous(), seeds[j], **kw)
+            _bits_equal(_job_slice(out, j, d), solo)
+    del out
+    torch.cuda.empty_cache()
+
+
 def test_job_axis_refusals_on_the_card(cuda):
-    """The C entry points refuse an axis that does not fit the operand,
-    and the compressed halo kernels refuse any axis."""
+    """The C entry points refuse an axis that does not fit the operand
+    (the plain Neumann step's and the fused halo's)."""
     s = circulant_structure(make_network("ring", 8).W)
     kw = _tables(s, cuda)
     h, hv, p, beta, dsc = _job_inputs(3, 8, 5, cuda)
@@ -1757,7 +1848,98 @@ def test_job_axis_refusals_on_the_card(cuda):
                            kw["offsets"].data_ptr(), kw["weights"].data_ptr(),
                            beta.data_ptr(), jobs, djob)
     zp, sc = _job_wire(h, 3, 8)
-    with pytest.raises(ValueError, match="item 9c"):
-        mm.circulant_mix_matvec_halo(h, zp, sc, [1, 2, 3], comm="int8",
-                                     w_self=s.w_self, offsets=s.offsets,
-                                     weights=s.weights, bn=4)
+    soff, wts = mm._signed_tables(8, tuple(s.offsets), tuple(s.weights),
+                                  cuda)
+    table = mm._seed_table([1, 2, 3])
+    for jobs, djob in ((3, 4), (0, 15), (65, 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mm._LIB.launch("circulant_mix_halo_comm_jobs", cuda,
+                           h.data_ptr(), out.data_ptr(), None, None,
+                           zp.data_ptr(), sc.data_ptr(),
+                           __import__("ctypes").addressof(table), jobs,
+                           djob, 255.0, 8, 15, s.w_self, len(s.offsets),
+                           soff.data_ptr(), wts.data_ptr(), 0, 4, 1, 1, 1,
+                           mm.halo_smem_bytes(6) * 2)
+
+
+# ---------------------------------------------------------------------------
+# The admission loop's scheduler thread launches the kernels
+# ---------------------------------------------------------------------------
+
+def _admission_spec(seed, K=4, comm="int8+ef"):
+    from repro_torch.serve import JobSpec
+    return JobSpec("quadratic", {"n": 8, "d1": 4, "d2": 8, "seed": seed},
+                   SolverSpec(K=K, M=3, U=2, dihgp="matrix_free",
+                              curvature=6.0,
+                              schedule=ScheduleSpec(alpha=0.05, beta=0.1),
+                              comm=CommSpec(comm)), seed=seed)
+
+
+def test_admission_thread_launches_on_the_card(cuda, monkeypatch):
+    """The scheduler thread launches every kernel of its buckets (the
+    job-axis counters move), its first launch loads the kernel library
+    once, under the build lock, on that thread; each job equals the
+    same jobs run synchronously bit for bit and its solo solve within
+    the card's serve band (rtol 1e-4 / atol 1e-5)."""
+    import threading
+
+    from repro_torch.kernels import _build
+    from repro_torch.serve import build_network, build_problem
+    from repro_torch.serve.admission import AdmissionLoop
+    specs = [_admission_spec(s, K=4 if s % 2 else 8) for s in range(5)]
+    sync = AdmissionLoop(chunk_rounds=2, max_width=4)
+    sync.submit(specs)
+    want = {r.job_id: r for r in sync.run()}
+    loads = []
+    real_build = _build.build
+
+    def build(name):
+        loads.append((name, threading.current_thread().name,
+                      _build._LOCK.locked()))
+        return real_build(name)
+    monkeypatch.setattr(_build, "build", build)
+    monkeypatch.setitem(_build._LIBS, "mixing_matvec", None)
+    del _build._LIBS["mixing_matvec"]
+    mm.reset_launch_counts()
+    with AdmissionLoop(chunk_rounds=2, max_width=4) as loop:
+        ids = loop.submit(specs[:3])
+        ids += loop.submit(specs[3:])
+        got = {r.job_id: r for r in loop.as_completed(ids, timeout=600)}
+    assert loads == [("mixing_matvec", "admission-loop", True)]
+    counts = mm.launch_counts()
+    assert sum(counts[c] for c in mm.JOB_COUNTERS) > 0, counts
+    for jid, spec in zip(ids, specs):
+        r = got[jid]
+        assert torch.equal(r.x, want[jid].x) and torch.equal(r.y,
+                                                            want[jid].y)
+        ref = solve(build_problem(spec, cuda), build_network(spec),
+                    spec.config, seed=spec.seed)
+        torch.testing.assert_close(r.x.to(cuda), ref.x, rtol=1e-4,
+                                   atol=1e-5)
+        assert r.wire_bytes == ref.ledger.total_bytes
+
+
+def test_admission_thread_kernel_error_reaches_result(cuda, monkeypatch):
+    """A kernel launch the C entry point refuses on the scheduler thread
+    (a job axis of 0 jobs) fails the run: `result()` and `stop()` raise
+    with the launch error as the cause; the job is never reported
+    finished."""
+    from repro_torch.serve.admission import AdmissionLoop
+    real = mm._LIB.launch
+    refused = []
+
+    def launch(entry, dev, *args):
+        if entry == "circulant_mix_comm_jobs":
+            refused.append(entry)
+            args = args[:7] + (0,) + args[8:]
+        return real(entry, dev, *args)
+    monkeypatch.setattr(mm._LIB, "launch", launch)
+    loop = AdmissionLoop(chunk_rounds=2, max_width=2, max_chunk_retries=0)
+    loop.start()
+    (jid,) = loop.submit(_admission_spec(0))
+    with pytest.raises(RuntimeError, match="was not completed") as err:
+        loop.result(jid, timeout=600)
+    assert "launch failed" in str(err.value.__cause__)
+    assert refused and jid not in loop._results
+    with pytest.raises(RuntimeError, match="thread died"):
+        loop.stop()

@@ -151,7 +151,10 @@ def test_cpu_wrappers_run_the_plain_versions_without_launching():
             "sparse_mix_matvec_comm_jobs",
             "sparse_mix_matvec_comm_unstaged_jobs",
             "circulant_neumann_step_comm_jobs",
-            "circulant_neumann_step_comm_unstaged_jobs"} == set(counts)
+            "circulant_neumann_step_comm_unstaged_jobs",
+            "circulant_mix_matvec_halo_comm_jobs",
+            "sparse_mix_matvec_halo_comm_jobs",
+            "sparse_mix_matvec_halo_comm_rows_jobs"} == set(counts)
 
 
 def test_wrappers_refuse_bad_operands():

@@ -14,8 +14,10 @@ kernels' job axis through their plain versions.
   solve parity tests' band) and exact ledger bytes.  `repro`'s own
   serve tier is not the reference: its bit-exact tests fail there.
 * The job axis: each job's columns of a job-axis call (Neumann step,
-  comm-fused gossips) bitwise its solo call, at B = 1 today's call, and
-  the planner's routes all take the axis.
+  comm-fused gossips, the compressed halo gossips) bitwise its solo
+  call, at B = 1 today's call, and the planner's routes all take the
+  axis; compressed buckets at n = 128 (the halo kernels' row tile) are
+  accepted and each job is its solo solve.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from repro_torch.serve import (JobSpec, ServeEngine, SimulatedCrash,
                                pack_signature, pad_schedule, pad_width)
 from repro_torch.solve import CommSpec, ScheduleSpec, SolverSpec, solve
 from repro_torch.topology import make_network
+from repro_torch.topology.ops import make_mixing_op
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -310,14 +313,26 @@ def test_submit_validation():
             quad_spec(0), family=lambda **kw: None))
 
 
-@pytest.mark.parametrize("comm", ["int8", "int4+ef"])
-def test_compressed_halo_bucket_is_refused_at_submit(comm):
-    spec = JobSpec("quadratic", {"n": 128, "d1": 2, "d2": 3, "seed": 0},
-                   cfg(comm=comm))
-    with pytest.raises(ValueError, match="item 9c"):
-        engine().submit(spec)
-    # the identity wire's halo gossips need no job axis
-    engine().submit(dataclasses.replace(spec, config=cfg()))
+@pytest.mark.parametrize("graph,gkw,comm", [
+    ("ring", {}, "int8"), ("ring", {}, "int4+ef"),
+    ("erdos_renyi", {"r": 0.5}, "int8")])
+def test_compressed_halo_bucket_is_each_jobs_solo_solve(graph, gkw, comm):
+    """At n = 128 the compressed gossips plan the halo kernels' row tile
+    (ER int8+ef composes with the plain mix, as in `repro`): a bucket is
+    accepted and each job ends bitwise at its solo solve, wire bytes
+    exact (on the CPU through the plain versions, the card in chip_smoke
+    and the gpu tests)."""
+    specs = [JobSpec("quadratic", {"n": 128, "d1": 2, "d2": 3, "seed": s},
+                     cfg(alpha=0.05, beta=0.1, K=4, comm=comm,
+                         curvature=6.0),
+                     graph=graph, graph_kwargs=gkw, seed=s)
+             for s in range(3)]
+    op = make_mixing_op(build_network(specs[0]), comm=comm, device="cpu")
+    assert op._fused_plan(torch.empty(128, 3 * 3))[1] == 64
+    eng = engine()
+    eng.submit(specs)
+    for spec, res in zip(specs, eng.run()):
+        _same(res, solo(spec))
 
 
 # ---------------------------------------------------------------------------
@@ -486,6 +501,58 @@ def test_comm_gossip_job_axis_is_each_jobs_solo_send(B, d, comm, graph):
             assert torch.equal(out[:, c], got)
 
 
+@pytest.mark.parametrize("B,d", [(1, 7), (3, 5), (8, 3), (4, 6)])
+@pytest.mark.parametrize("comm", ["int8", "int4+ef"])
+@pytest.mark.parametrize("graph", ["ring", "erdos_renyi"])
+def test_halo_comm_job_axis_is_each_jobs_solo_send(B, d, comm, graph):
+    """Rows 2f and 4f on a job axis (odd in-job widths included): each
+    job's columns of the halo call, output and EF payload, bitwise its
+    solo halo call and the full-operand call.  The sparse halo gossip
+    takes no EF, as `repro`'s."""
+    from repro_torch.topology.structure import sparse_structure
+    if graph == "erdos_renyi" and comm.endswith("+ef"):
+        comm = "int4"
+    bits, ef = int(comm[3]), comm.endswith("+ef")
+    n = 16
+    y, hat, _, _, _ = _job_operands(n, B, d, seed=2 * B + 1)
+    hat = hat * 0.1 if ef else None
+    zp, sc = _wire(y, B, bits, hat)
+    seeds = [77 + 31 * j for j in range(B)]
+    if graph == "ring":
+        s = _ring(n)
+        kw = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights)
+
+        def call(yy, z, c, sd, hh, bn):
+            if bn is None:
+                return mm.circulant_mix_matvec(yy, z, c, sd, hh, comm=comm,
+                                               laplacian=True, **kw)
+            return mm.circulant_mix_matvec_halo(yy, z, c, sd, hh, comm=comm,
+                                                laplacian=True, bn=bn, **kw)
+    else:
+        sp = sparse_structure(make_network("erdos_renyi", n, r=0.5,
+                                           seed=3).W)
+        tabs = [torch.as_tensor(a) for a in (sp.w_self, sp.neighbors,
+                                            sp.weights)]
+
+        def call(yy, z, c, sd, hh, bn):
+            if bn is None:
+                return mm.sparse_mix_matvec(yy, *tabs, z, c, sd, comm=comm)
+            return mm.sparse_mix_matvec_halo(yy, *tabs, z, c, sd, comm=comm,
+                                             bn=bn)
+    out = call(y, zp, sc, seeds, hat, 4)
+    full = call(y, zp, sc, seeds, hat, None)
+    outs = out if ef else (out,)
+    for a, b in zip(outs, full if ef else (full,)):
+        assert torch.equal(a, b)
+    for j in range(B):
+        c = slice(j * d, (j + 1) * d)
+        got = call(y[:, c].contiguous(), zp[:, j:j + 1].contiguous(),
+                   sc[:, j:j + 1].contiguous(), seeds[j],
+                   None if hat is None else hat[:, c].contiguous(), 8)
+        for a, b in zip(outs, got if ef else (got,)):
+            assert torch.equal(a[:, c], b)
+
+
 @pytest.mark.parametrize("B,d", [(1, 9), (3, 5), (8, 2)])
 @pytest.mark.parametrize("bits", [4, 8])
 def test_comm_neumann_job_axis_is_each_jobs_solo_step(B, d, bits):
@@ -546,18 +613,23 @@ def test_job_axis_argument_checks():
         mm.circulant_mix_matvec(torch.zeros(8, big), torch.zeros(8, big),
                                 torch.ones(8, big), list(range(big)),
                                 comm="int8", **kw)
-    with pytest.raises(ValueError, match="item 9c"):
-        mm.circulant_mix_matvec_halo(h, zp, sc, [1, 2, 3], comm="int8",
-                                     bn=4, **kw)
+    with pytest.raises(ValueError, match="zp"):
+        mm.circulant_mix_matvec_halo(h, zp[:, :1].contiguous(),
+                                     sc[:, :1].contiguous(), [1, 2, 3],
+                                     comm="int8", bn=4, **kw)
+    with pytest.raises(ValueError, match="equal"):
+        mm.circulant_mix_matvec_halo(h[:, :11].contiguous(), zp, sc,
+                                     [1, 2, 3], comm="int8", bn=4, **kw)
 
 
 def test_every_route_takes_the_job_axis():
     """The planners' route rule on a job axis: every route of rows 5,
-    1f, 3f and 5f has a job-axis launch (counted apart), so the planner
-    sends a job-axis launch wherever it sends the solo one — the
+    1f, 2f, 3f, 4f and 5f has a job-axis launch (counted apart), so the
+    planner sends a job-axis launch wherever it sends the solo one — the
     stripes and the unstaged kernels of the comm-fused gossips and the
-    comm-fused Neumann step, the ring and the unstaged kernel of the
-    plain one."""
+    comm-fused Neumann step, the fused circulant halo, the compressed
+    sparse halo's slab and row tiles, the ring and the unstaged kernel
+    of the plain Neumann step."""
     assert set(mm.JOB_COUNTERS) == {
         f"{name}_jobs" for name in (
             "circulant_neumann_step", "circulant_neumann_step_unstaged",
@@ -565,10 +637,14 @@ def test_every_route_takes_the_job_axis():
             "circulant_mix_matvec_comm_unstaged", "sparse_mix_matvec_comm",
             "sparse_mix_matvec_comm_unstaged",
             "circulant_neumann_step_comm",
-            "circulant_neumann_step_comm_unstaged")}
+            "circulant_neumann_step_comm_unstaged",
+            "circulant_mix_matvec_halo_comm", "sparse_mix_matvec_halo_comm",
+            "sparse_mix_matvec_halo_comm_rows")}
     for name in ("circulant_neumann_jobs", "circulant_neumann_ring_jobs",
                  "circulant_mix_comm_jobs", "sparse_mix_comm_jobs",
-                 "circulant_neumann_comm_jobs"):
+                 "circulant_neumann_comm_jobs",
+                 "circulant_mix_halo_comm_jobs",
+                 "sparse_mix_halo_comm_jobs"):
         assert name in mm._LIB.signatures
     # both routes of the comm-fused Neumann step and of the plain one
     # take a job-axis call (here through their plain versions)

@@ -1,7 +1,7 @@
 """`repro_torch.serve.slo` against `repro.serve.slo` on the CPU: the same
 seeded Poisson schedules, the same latency pairing and quantiles, the
-same published metrics; `drive_poisson` on the port's engine; and the
-admission-loop driver refused with its ROADMAP item."""
+same published metrics; `drive_poisson` on the port's engine and
+`drive_poisson_async` on its admission loop."""
 from __future__ import annotations
 
 import numpy as np
@@ -96,6 +96,23 @@ def test_drive_poisson_on_the_ports_engine():
         run="cpu") >= 1
 
 
-def test_drive_poisson_async_names_the_admission_item():
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        slo.drive_poisson_async(None, [], 1.0)
+@pytest.mark.parametrize("rate", [200.0, 5.0])
+def test_drive_poisson_async_retires_every_job(rate):
+    """`drive_poisson_async` on the port's admission loop: the same seeded
+    schedule as `drive_poisson`, no waves, every job retired, each
+    latency paired from the loop's own submit/retire instants, and the
+    loop's thread stopped when the driver started it."""
+    from repro_torch.serve.admission import AdmissionLoop
+    loop = AdmissionLoop(chunk_rounds=2, max_width=2, device="cpu")
+    specs = [_spec(s) for s in range(4)]
+    rep = slo.drive_poisson_async(loop, specs, rate_hz=rate, seed=1,
+                                  run="async")
+    assert rep.jobs == rep.retired == 4 and rep.waves == 0
+    assert [r.job_id for r in rep.results] == [f"job{i}" for i in range(4)]
+    assert rep.latencies_s.shape == (4,) and np.all(rep.latencies_s > 0)
+    assert rep.p50_s <= rep.p99_s
+    assert not loop.running
+    assert obs.registry().gauge("serve_peak_queue_depth").value(
+        run="async") >= 0
+    np.testing.assert_array_equal(
+        slo.poisson_arrivals(4, rate, 1), jslo.poisson_arrivals(4, rate, 1))

@@ -151,7 +151,11 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.obs.metrics', 'repro_torch.obs.export', "
         "'repro_torch.obs.recorder', 'repro_torch.serve.jobs', "
         "'repro_torch.serve.batching', 'repro_torch.serve.engine', "
-        "'repro_torch.serve.slo', 'repro_torch.core.jobs')\n"
+        "'repro_torch.serve.slo', 'repro_torch.core.jobs', "
+        "'repro_torch.serve.admission.loop', "
+        "'repro_torch.serve.admission.classes', "
+        "'repro_torch.serve.admission.packing', "
+        "'repro_torch.serve.admission.quotas')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
