@@ -47,7 +47,10 @@ Phases, in order (any failure exits non-zero before the last line):
                halo int8+ef and int8; the compressed sparse halo's slab
                and its row tiles, through a lower budget), bitwise
                against the plain version and the jobs' solo launches,
-               timed against them;
+               timed against them; rows 1, 1f, 3 and 3f at the
+               baselines' operands (DGBO's (16, d2²), DGTBO's (8, d1·d2)
+               and, on an n = 4 ring, (4, d1·d2)), timed beside their
+               plain versions and library calls;
   3b. sweep  — the Neumann ring at every (row tile, stages) its kernel
                takes at (4096, d2/d1), f32 and bf16, and (16, d2/d1),
                and the mix's ring at each stage count, bitwise against
@@ -148,9 +151,24 @@ Phases, in order (any failure exits non-zero before the last line):
                checkpointed loop killed by SimulatedCrash and restored,
                the jobs never admitted back off the sidecar, bitwise;
                `drive_poisson_async` against `drive_poisson` on one
-               seeded schedule of 24 jobs at half the wave engine's
+               seeded schedule of 16 jobs at half the wave engine's
                jobs/s: p50, p99, jobs/s, peak queue depth, idle share;
- 12. the kernel list as one JSON line, then the device JSON line last.
+ 12. sharded — `solve(tier="sharded")` (`repro_torch.distributed`) on
+               the same MLP: a `LocalRing` of 16 agents on the card, K =
+               3, identity, bf16, int4, int8+ef, int8+ef with persist_ef
+               and identity with mix_every=2 (rows 1 and 1f), each with
+               exact launches, ledger bytes and comm_sends equal to
+               `sharded_comm_ledger` and its closed form, bitwise its run
+               through the plain versions; seconds per round in turns
+               beside the reference tier on the same ring and curvature;
+               the identity run against the reference tier after 1, 2, 3
+               rounds; raw g_fn / f_fn over the MLP's leaves (int8+ef
+               bitwise, identity against the flat run); the recorder
+               (inert, wire = ledger, one build); `LocalRing(4096)`, K =
+               2, identity and int8+ef (rows 2 and 2f), bitwise, seconds
+               per round and peak memory; a `ProcessRing` over NCCL at
+               world size 1 (self P2P) against `LocalRing(1)`;
+ 13. the kernel list as one JSON line, then the device JSON line last.
 
 Imports torch and the port only; needs no network.
 """
@@ -931,6 +949,7 @@ def kernel_phase(torch, results: dict) -> None:
                dict(err=err, ms=ms, dev=dev_ms, plain=plain, lib=lib,
                     bound=b_ms, by=b_by))
     halo_job_axis_kernels(torch, results)
+    baseline_operand_kernels(torch, results)
 
 
 # rows 2f and 4f on a serve bucket's job axis: 8 jobs at n = 128 (where
@@ -1083,6 +1102,125 @@ def halo_job_axis_kernels(torch, results: dict) -> None:
                 "jobs": B}
             del y, hat, args, solos
             torch.cuda.empty_cache()
+
+
+def baseline_operand_kernels(torch, results: dict) -> None:
+    """Rows 1, 1f, 3 and 3f at the operands the baselines hand them:
+    DGBO's (16, d2²) gossips (row 1 on the ring, rows 1f and 3f int8+ef
+    W·Y on the ring and the Erdős–Rényi graph), DGTBO's (8, d1·d2) on
+    row 1 (bn = n) and, on an n = 4 ring (the padded sparse gather, k =
+    2), its (4, d1·d2) on row 3.  Each launch bitwise against the plain
+    version; ms (CUDA events), device ms, the plain version's ms, the
+    library call's (`torch.matmul` with the dense W for row 1,
+    `torch.sparse.mm` with a CSR W, uncompressed, for the others) and
+    the bound."""
+    from repro_torch.kernels import mixing_matvec as mm
+    from repro_torch.kernels import ref
+    from repro_torch.topology import make_network
+    from repro_torch.topology.structure import (circulant_structure,
+                                                sparse_structure)
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(2)
+    wide, huge = D2 * D2, D1 * D2
+    print(f"kernel rows 1, 1f, 3, 3f at the baselines' operands (DGBO d2² "
+          f"= {wide}, DGTBO d1·d2 = {huge} columns)")
+
+    def measure(kname, key, label, pool, launch, plain_fn, lib_fn, symbol,
+                b, iters, fused_ef=None):
+        got, want = launch(pool[0]), plain_fn(pool[0])
+        torch.cuda.synchronize()
+        err = check(label, got, want, "float32") if fused_ef is None \
+            else check_fused(label, got, want, fused_ef)
+        bitwise(label, got, want, "the plain version")
+        del got, want
+        ms = cuda_ms(torch, launch, pool, iters=iters, warmup=2)
+        dev_ms = device_ms(torch, launch, pool, symbol, iters=20)
+        plain = cuda_ms(torch, plain_fn, pool, iters=3, warmup=1)
+        lib, lib_err = try_library(torch, lib_fn, pool, iters=iters,
+                                   warmup=2)
+        print(f"    ms={ms:.5f} device_ms={dev_ms:.5f} plain_ms={plain:.5f} "
+              f"library_ms={lib_text(lib, lib_err)} bound_ms={b[0]:.5f} "
+              f"({b[1]})")
+        results.setdefault(kname, {})[key] = dict(
+            err=err, ms=ms, dev=dev_ms, plain=plain, lib=lib,
+            lib_err=lib_err, bound=b[0], by=b[1])
+
+    def ring_of(n):
+        W = make_network("ring", n).W
+        return W, circulant_structure(W), sparse_structure(W)
+
+    # row 1, ring W·Y: DGBO (16, d2²), DGTBO (8, d1·d2)
+    for n, d, iters in ((N_AGENTS, wide, 50), (N_DGTBO, huge, 10)):
+        W, s, _ = ring_of(n)
+        host = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights)
+        Wt = torch.as_tensor(W, dtype=torch.float32, device=dev)
+        pool = [torch.randn((n, d), generator=gen, device=dev)]
+        k = len(s.offsets)
+        measure("circulant_mix_matvec", (n, d, "float32", False),
+                f"row 1 ({n}, {d}) W·Y ring", pool,
+                lambda t: mm.circulant_mix_matvec(t, **host),
+                lambda t: ref.circulant_mix_ref(t, s.w_self, s.offsets,
+                                                s.weights),
+                lambda t: torch.matmul(Wt, t), "circulant_mix_",
+                bound(2 * n * d * 4 + 8 * k, 2 * (k + 1) * n * d), iters)
+        del pool
+        torch.cuda.empty_cache()
+
+    # row 1f, ring int8+ef W·Y at DGBO's (16, d2²)
+    W, s, _ = ring_of(N_AGENTS)
+    host = dict(w_self=s.w_self, offsets=s.offsets, weights=s.weights)
+    csr = torch.as_tensor(W, dtype=torch.float32, device=dev).to_sparse_csr()
+    bits, ef, pool = wire_operands(torch, gen, N_AGENTS, wide, "int8+ef")
+    k = len(s.offsets)
+    measure("circulant_mix_matvec_comm", (N_AGENTS, wide, "int8+ef", False),
+            f"row 1f ({N_AGENTS}, {wide}) int8+ef W·Y ring", pool,
+            lambda t: mm.circulant_mix_matvec(*t[:3], SEED, t[3],
+                                              comm="int8+ef", **host),
+            lambda t: ref.circulant_mix_fused_ref(*t[:3], SEED, t[3],
+                                                  bits=bits, **host),
+            lambda t: torch.sparse.mm(csr, t[0]), "circulant_mix_",
+            fused_bound(N_AGENTS, wide, k, ef, False, 8 * k), 50,
+            fused_ef=ef)
+    del pool
+
+    # row 3f, Erdős–Rényi int8+ef W·Y at DGBO's (16, d2²)
+    net = make_network("erdos_renyi", N_AGENTS, r=0.5, seed=0)
+    sp = sparse_structure(net.W)
+    tabs = [torch.as_tensor(a, device=dev) for a in (sp.w_self,
+                                                     sp.neighbors,
+                                                     sp.weights)]
+    csr = torch.as_tensor(net.W, dtype=torch.float32,
+                          device=dev).to_sparse_csr()
+    bits, ef, pool = wire_operands(torch, gen, N_AGENTS, wide, "int8+ef")
+    measure("sparse_mix_matvec_comm", (N_AGENTS, wide, "int8+ef", False),
+            f"row 3f ({N_AGENTS}, {wide}) int8+ef W·Y Erdős–Rényi "
+            f"k={sp.k}", pool,
+            lambda t: mm.sparse_mix_matvec(t[0], *tabs, *t[1:3], SEED, t[3],
+                                           comm="int8+ef"),
+            lambda t: ref.sparse_mix_fused_ref(t[0], *tabs, *t[1:3], SEED,
+                                               t[3], bits=bits),
+            lambda t: torch.sparse.mm(csr, t[0]), "sparse_mix_",
+            fused_bound(N_AGENTS, wide, sp.nnz / N_AGENTS, ef, False,
+                        sp.nnz * 8 + N_AGENTS * 4), 50, fused_ef=ef)
+    del pool
+
+    # row 3, DGTBO's (4, d1·d2) on an n = 4 ring: the padded gather, k = 2
+    n = 4
+    W, _, sp = ring_of(n)
+    tabs = [torch.as_tensor(a, device=dev) for a in (sp.w_self,
+                                                     sp.neighbors,
+                                                     sp.weights)]
+    csr = torch.as_tensor(W, dtype=torch.float32, device=dev).to_sparse_csr()
+    pool = [torch.randn((n, huge), generator=gen, device=dev)]
+    measure("sparse_mix_matvec", (n, huge, "float32", False),
+            f"row 3 ({n}, {huge}) W·Y ring n = 4 k={sp.k}", pool,
+            lambda t: mm.sparse_mix_matvec(t, *tabs),
+            lambda t: ref.sparse_mix_padded_ref(t, *tabs),
+            lambda t: torch.sparse.mm(csr, t), "sparse_mix_",
+            bound(2 * n * huge * 4 + sp.nnz * 8 + n * 4,
+                  2 * (sp.nnz / n + 1) * n * huge), 10)
+    del pool
+    torch.cuda.empty_cache()
 
 
 def ring_sweep_phase(torch, results: dict) -> None:
@@ -3574,7 +3712,9 @@ def obs_phase(torch, _unused) -> None:
 # ---------------------------------------------------------------------------
 
 # jobs of the Poisson schedule the two drivers are held against
-ADMIT_POISSON_JOBS = 24
+# 16 jobs (24 until the sharded phase joined the run, to keep the whole
+# run near its time)
+ADMIT_POISSON_JOBS = 16
 
 
 def admission_phase(torch, out: dict) -> None:
@@ -3754,6 +3894,375 @@ def admission_phase(torch, out: dict) -> None:
                                  f"every job")
         del engine
     print(f"admission: drivers {time.perf_counter() - t_part:.1f} s")
+
+
+# the sharded tier (`repro_torch.distributed`) on the main phase's MLP:
+# n = 16 agents on one card's LocalRing, K = 3; n = 4096, K = 2
+SHARD_K, SHARD_K_LARGE = 3, 2
+# the sharded tier against the reference tier (matrix-free DIHGP) on the
+# same ring, init and curvature: tests/test_torch_sharded.py's bound
+SHARD_REF_ATOL = 1e-4
+RIDGE = 1e-2      # hyper_representation's inner ridge
+
+
+def mlp_trees(x, y):
+    """The flat (n, d1) / (n, d2) MLP iterates as trees of its leaves: x
+    the (784, 200) weight and (200,) bias, y the (200, 10) and (10,)."""
+    n = x.shape[0]
+    cut1, cut2 = D_IN * HIDDEN, HIDDEN * N_CLASSES
+    return ({"W1": x[:, :cut1].reshape(n, D_IN, HIDDEN),
+             "b1": x[:, cut1:]},
+            {"W2": y[:, :cut2].reshape(n, HIDDEN, N_CLASSES),
+             "b2": y[:, cut2:]})
+
+
+def mlp_tree_objectives(torch):
+    """g and f of `hyper_representation` written on the tree leaves."""
+    def head_ce(yt, feat, lab):
+        logits = feat @ yt["W2"] + yt["b2"]
+        true = torch.gather(logits, -1, lab[:, None])[:, 0]
+        return torch.mean(torch.logsumexp(logits, dim=-1) - true)
+
+    def backbone(xt, Z):
+        return torch.relu(Z @ xt["W1"] + xt["b1"])
+
+    def g(xt, yt, b):
+        return head_ce(yt, backbone(xt, b["Ztr"]), b["ltr"]) \
+            + 0.5 * RIDGE * (torch.sum(yt["W2"] * yt["W2"])
+                             + torch.sum(yt["b2"] * yt["b2"]))
+
+    def f(xt, yt, b):
+        return head_ce(yt, backbone(xt, b["Zval"]), b["lval"])
+    return g, f
+
+
+def sharded_counts(n: int, comm: str, rounds: int, inner: int,
+                   widths_x=(D1,), widths_y=(D2,)) -> dict:
+    """A sharded solve's launches on a LocalRing: per round `inner` inner
+    and U DIHGP gossips of each y leaf and one of each x leaf, on the
+    wire (rows 1/2 plain, 1f/2f fused), plus the consensus metric's
+    full-precision (I−W)·x of each x leaf (row 1/2)."""
+    from repro_torch.kernels import mixing_matvec as mm
+    counts: dict = {}
+
+    def add(name, c):
+        counts[name] = counts.get(name, 0) + c
+
+    for widths, gossips in ((widths_y, rounds * (inner + U)),
+                            (widths_x, rounds)):
+        for d in widths:
+            if comm in ("identity", "bf16"):
+                add(ring_mix_counter(n, d), gossips)
+            elif mm.plan_row_tile(n, h_lo=1, h_hi=1)[0] == "halo":
+                add("circulant_mix_matvec_halo_comm", gossips)
+            else:
+                add("circulant_mix_matvec_comm"
+                    if mm.plan_comm_stripe_cols(n, d)
+                    else "circulant_mix_matvec_comm_unstaged", gossips)
+    for d in widths_x:
+        add(ring_mix_counter(n, d), rounds)
+    return counts
+
+
+def wire_bytes(comm: str, widths) -> int:
+    """One agent's bytes of one send of leaves `widths` on `comm` (one
+    wire row per leaf): f32 / bf16 values, or int8 / int4 codes plus a
+    4-byte bf16 (zp, scale) header."""
+    per = {"identity": lambda d: 4 * d, "bf16": lambda d: 2 * d,
+           "int8": lambda d: d + 4, "int4": lambda d: -(-d // 2) + 4}
+    return sum(per[comm.removesuffix("+ef")](d) for d in widths)
+
+
+def sharded_phase(torch, out: dict) -> None:
+    """`solve(tier="sharded")` on the §6.2 MLP at its published widths,
+    `sharded_spec(alpha=0.1, beta=0.1, M=5, U=3, curvature=c)`, c the
+    power-iteration bound at (x0, y0): (1) `LocalRing(16)`, K = 3:
+    identity, bf16, int4, int8+ef, int8+ef with persist_ef and identity
+    with mix_every=2, each with exact launches, ledger bytes and
+    comm_sends equal to `sharded_comm_ledger` and its closed form,
+    finite metrics, and bitwise its run through the plain versions;
+    seconds per round in turns and the idle share of identity and
+    int8+ef; (2) the identity run against the reference tier
+    (matrix-free, curvature c, the ring W) after 1, 2 and 3 rounds; (3)
+    raw g_fn / f_fn over the MLP's leaves: int8+ef (one wire row per
+    leaf, ledger exact, bitwise its plain-version run) and identity
+    (within E2E tolerance of the flat run); (4) the flight recorder on
+    int8+ef: bitwise inert, wire column the cumulative ledger, one
+    build; (5) `LocalRing(4096)`, K = 2, identity and int8+ef (rows 2 and
+    2f), bitwise their plain-version runs, seconds per round and peak
+    memory; (6) a `ProcessRing` over NCCL at world size 1 (both
+    neighbours the agent itself) against `LocalRing(1)`."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import obs
+    from repro_torch.core.dihgp import estimate_curvature_bound
+    from repro_torch.core.problems import hyper_representation
+    from repro_torch.distributed import LocalRing, sharded_comm_ledger
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solve import dagm_spec, sharded_spec, solve
+    from repro_torch.topology import make_network
+    counts_out = out["counts"]
+    zero = dict.fromkeys(launch_counts(), 0)
+    K_ = SHARD_K
+
+    def mlp(n):
+        prob = hyper_representation(n, d=D_IN, hidden=HIDDEN,
+                                    n_classes=N_CLASSES, m_per=M_PER,
+                                    seed=0, device="cuda")
+        x0, y0 = inputs(torch, n, D1, D2, "cuda")
+        curv = float(estimate_curvature_bound(
+            lambda v: prob.hvp_yy_g(x0, y0, v), y0.shape,
+            device=y0.device).max())
+        return prob, x0, y0, curv
+
+    def spec_of(curv, comm="identity", K=K_, **kw):
+        return sharded_spec(alpha=0.1, beta=0.1, M=M, U=U, curvature=curv,
+                            K=K, comm=comm, **kw)
+
+    def counted(label, run, expected):
+        reset_launch_counts()
+        res = run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"  launches {dict((k, v) for k, v in counts.items() if v)}")
+        if counts != expected:
+            raise AssertionError(f"{label}: launch counts {counts} != "
+                                 f"{expected}")
+        for name, c in counts.items():
+            counts_out[name] = counts_out.get(name, 0) + c
+        return res
+
+    def ledger_check(label, res, spec, x_leaves, y_leaves, closed, rounds):
+        static = sharded_comm_ledger(spec, x_leaves, y_leaves,
+                                     rounds=rounds)
+        print(f"  ledger total_bytes={res.ledger.total_bytes} (static "
+              f"{static.total_bytes}, closed form {closed})")
+        if not res.ledger.total_bytes == static.total_bytes == closed:
+            raise AssertionError(f"{label}: ledger bytes disagree")
+        per_round = static.total_sends() // rounds
+        sends = res.metrics["comm_sends"].cpu()
+        want = per_round * torch.arange(1, rounds + 1) \
+            if spec.comm.persist_ef else torch.full((rounds,), per_round)
+        if not torch.equal(sends, want.float()):
+            raise AssertionError(f"{label}: comm_sends {sends} != {want}")
+
+    t_phase = time.perf_counter()
+    n = N_AGENTS
+    prob, x0, y0, curv = mlp(n)
+    print(f"sharded: hyper_representation d1={D1} d2={D2} n={n}, curvature "
+          f"bound c={curv:.6f} (power iteration at x0, y0)")
+    ring = LocalRing(n)
+    runs = [("identity", {}), ("bf16", dict(comm="bf16")),
+            ("int4", dict(comm="int4")), ("int8+ef", dict(comm="int8+ef")),
+            ("int8+ef persist_ef", dict(comm="int8+ef", persist_ef=True)),
+            ("identity mix_every=2", dict(mix_every=2))]
+    results, timed, busy = {}, {}, {}
+    for label, kw in runs:
+        spec = spec_of(curv, **kw)
+        comm = spec.comm.spec
+        inner = M // 2 if kw.get("mix_every") == 2 else M
+        print(f"sharded: LocalRing({n}) {label}, K={K_} M={M} U={U}")
+
+        def run(dev=None, spec=spec):
+            return solve(prob, None, spec, mesh=ring, x0=x0, y0=y0, seed=0)
+        if not results:
+            run()                                  # the card's warm-up
+        res = counted(label, run, {**zero, **sharded_counts(
+            n, comm, K_, inner)})
+        check_finite(torch, label, res, K_, n, D1, D2)
+        closed = K_ * ((inner + U) * wire_bytes(comm, (D2,))
+                       + wire_bytes(comm, (D1,)))
+        ledger_check(label, res, spec, x0[0], y0[0], closed, K_)
+        print("  metrics", {k: [float(v) for v in val.cpu()]
+                            for k, val in res.metrics.items()})
+        with plain_versions():
+            plain = run()
+        same_bits(torch, f"sharded {label} vs the card's plain versions",
+                  res, plain)
+        del plain
+        results[label] = res
+        if label in ("identity", "int8+ef"):
+            timed[label] = run
+            busy[label] = profile_run(torch, run)
+    # the reference tier on the same ring, spec and curvature, timed in
+    # the same turns (the main phase's reference solves estimate the
+    # curvature by power iteration every round)
+    net = make_network("ring", n)
+    for comm in ("identity", "int8+ef"):
+        rspec = dagm_spec(alpha=0.1, beta=0.1, K=K_, M=M, U=U,
+                          dihgp="matrix_free", curvature=curv, comm=comm)
+
+        def ref_run(dev=None, rspec=rspec):
+            return solve(prob, net, rspec, x0=x0, y0=y0, device="cuda")
+        ref_run()
+        label = f"reference tier {comm}, curvature c"
+        timed[label] = ref_run
+        busy[label] = profile_run(torch, ref_run)
+    idle_shares(busy, time_in_turns(torch, timed, K_), K_)
+
+    # the identity run against the reference tier, round by round
+    for k in range(1, K_ + 1):
+        sh = results["identity"] if k == K_ else solve(
+            prob, None, spec_of(curv, K=k), mesh=ring, x0=x0, y0=y0)
+        rf = solve(prob, net, dagm_spec(alpha=0.1, beta=0.1, K=k, M=M, U=U,
+                                        dihgp="matrix_free", curvature=curv),
+                   x0=x0, y0=y0, device="cuda")
+        dx = (sh.x - rf.x).abs().max().item()
+        dy = (sh.y - rf.y).abs().max().item()
+        dl = abs(float(sh.metrics["outer_loss"][-1])
+                 - float(rf.metrics["outer_obj"][-1]))
+        print(f"sharded vs reference tier after {k} round(s): max|dx|="
+              f"{dx:.3e} max|dy|={dy:.3e} |d outer_loss|={dl:.3e} (atol "
+              f"{SHARD_REF_ATOL})")
+        if max(dx, dy, dl) > SHARD_REF_ATOL:
+            raise AssertionError("the sharded tier left the reference tier")
+    del sh, rf
+
+    # raw objectives over the MLP's leaves
+    g_tree, f_tree = mlp_tree_objectives(torch)
+    xt, yt = mlp_trees(x0, y0)
+    wx, wy = (D_IN * HIDDEN, HIDDEN), (HIDDEN * N_CLASSES, N_CLASSES)
+    for comm in ("int8+ef", "identity"):
+        spec = spec_of(curv, comm)
+        print(f"sharded: LocalRing({n}) tree of the MLP's leaves, {comm}")
+
+        def run(spec=spec):
+            return solve(None, None, spec, mesh=ring, g_fn=g_tree,
+                         f_fn=f_tree, batch=prob.data, x0=xt, y0=yt)
+        res = counted(f"tree {comm}", run, {**zero, **sharded_counts(
+            n, comm, K_, M, widths_x=wx, widths_y=wy)})
+        closed = K_ * ((M + U) * wire_bytes(comm, wy) + wire_bytes(comm, wx))
+        ledger_check(f"tree {comm}", res, spec,
+                     {k: v[0] for k, v in xt.items()},
+                     {k: v[0] for k, v in yt.items()}, closed, K_)
+        flat_x = torch.cat([res.x["W1"].reshape(n, -1), res.x["b1"]], 1)
+        flat_y = torch.cat([res.y["W2"].reshape(n, -1), res.y["b2"]], 1)
+        if comm == "int8+ef":
+            with plain_versions():
+                plain = run()
+            for name in res.x:
+                if not torch.equal(res.x[name], plain.x[name]):
+                    raise AssertionError(f"tree x[{name}] not bitwise")
+            for name in res.y:
+                if not torch.equal(res.y[name], plain.y[name]):
+                    raise AssertionError(f"tree y[{name}] not bitwise")
+            print("  tree int8+ef vs the card's plain versions: x, y "
+                  "bitwise")
+            del plain
+        else:
+            flat = results["identity"]
+            for name, a, b in (("x", flat_x, flat.x), ("y", flat_y, flat.y)):
+                print(f"  tree vs flat identity {name}: max_abs_err="
+                      f"{(a - b).abs().max().item():.3e}")
+                torch.testing.assert_close(a, b, rtol=E2E_RTOL,
+                                           atol=E2E_ATOL)
+        del res
+
+    # the flight recorder on int8+ef
+    spec = spec_of(curv, "int8+ef")
+    t0 = obs.counter_value("jit_traces_total", name="sharded_dagm_step")
+    rres = solve(prob, None, spec, mesh=ring, x0=x0, y0=y0, seed=0,
+                 recorder=obs.RecorderSpec(capacity=32))
+    builds = obs.counter_value("jit_traces_total",
+                               name="sharded_dagm_step") - t0
+    same_bits(torch, "sharded int8+ef with the recorder vs without", rres,
+              results["int8+ef"])
+    fl = rres.extras["flight"]
+    wire = fl[:, obs.FIELDS.index("wire_bytes")]
+    led = [float(sharded_comm_ledger(spec, x0[0], y0[0],
+                                     rounds=k + 1).total_bytes)
+           for k in range(K_)]
+    print(f"sharded recorder: {fl.shape[0]} rows, wire {wire.tolist()} "
+          f"ledger {led}, builds {builds}")
+    if fl.shape[0] != K_ or wire.tolist() != led or builds != 1:
+        raise AssertionError("sharded recorder: rows, wire or builds wrong")
+    del results, rres
+
+    # n = 4096: rows 2 and 2f
+    nb = N_LARGE
+    prob_b, xb, yb, curv_b = mlp(nb)
+    t0 = time.perf_counter()
+    ring_b = LocalRing(nb)
+    for comm in ("identity", "int8+ef"):
+        ring_b.op(comm)
+    print(f"sharded: LocalRing({nb}) set-up {time.perf_counter() - t0:.3f} "
+          f"s (its two MixingOps), curvature bound c={curv_b:.6f}")
+    for comm in ("identity", "int8+ef"):
+        spec = spec_of(curv_b, comm, K=SHARD_K_LARGE)
+        print(f"sharded: LocalRing({nb}) {comm}, K={SHARD_K_LARGE}")
+
+        def run(spec=spec):
+            return solve(prob_b, None, spec, mesh=ring_b, x0=xb, y0=yb)
+        res = counted(f"n={nb} {comm}", run, {**zero, **sharded_counts(
+            nb, comm, SHARD_K_LARGE, M)})
+        check_finite(torch, f"n={nb} {comm}", res, SHARD_K_LARGE, nb, D1, D2)
+        del res
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / SHARD_K_LARGE
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  seconds per round {dt:.6f} (host clock, after a warm-up "
+              f"run, ring set-up excluded), peak memory {peak:.2f} GiB")
+        idle_shares({comm: profile_run(torch, run)}, {comm: [dt]},
+                    SHARD_K_LARGE)
+        with plain_versions():
+            plain = run()
+        same_bits(torch, f"sharded n={nb} {comm} vs the card's plain "
+                  f"versions", res, plain)
+        del res, plain
+    # the reference tier at the same curvature: its solve builds its
+    # MixingOp, so its rounds are read off its `chunk` span (under
+    # tracing the span waits for the device)
+    net_b = make_network("ring", nb)
+    rspec = dagm_spec(alpha=0.1, beta=0.1, K=SHARD_K_LARGE, M=M, U=U,
+                      dihgp="matrix_free", curvature=curv_b)
+
+    def ref_run(dev=None):
+        return solve(prob_b, net_b, rspec, x0=xb, y0=yb, device="cuda")
+    with obs.tracing() as tr:
+        tr.clear()
+        t0 = time.perf_counter()
+        ref_run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        chunk = [e.dur_us for e in tr.events() if e.name == "chunk"][0]
+    net_s = chunk * 1e-6 / SHARD_K_LARGE
+    print(f"sharded: the reference tier at n={nb}, identity, curvature c: "
+          f"seconds per round {dt / SHARD_K_LARGE:.6f} with its MixingOp "
+          f"set-up, {net_s:.6f} its rounds alone (the chunk span)")
+    idle_shares({"reference tier, its rounds": profile_run(torch, ref_run)},
+                {"reference tier, its rounds": [net_s]}, SHARD_K_LARGE)
+    del prob_b, xb, yb, ring_b
+    torch.cuda.empty_cache()
+
+    # a ProcessRing over NCCL at world size 1 against LocalRing(1)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        p1 = hyper_representation(1, d=D_IN, hidden=HIDDEN,
+                                  n_classes=N_CLASSES, m_per=M_PER, seed=0,
+                                  device="cuda")
+        spec = spec_of(curv)
+        a = solve(p1, None, spec, mesh=mesh, x0=x0[:1], y0=y0[:1])
+        b = solve(p1, None, spec, mesh=LocalRing(1), x0=x0[:1], y0=y0[:1])
+        torch.cuda.synchronize()
+        print(f"sharded: ProcessRing over NCCL, world size 1 (self P2P), "
+              f"against LocalRing(1)")
+        compare_runs(torch, "LocalRing(1)", a, b)
+    finally:
+        dist.destroy_process_group()
+    print(f"sharded: phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def median(values):
@@ -3966,7 +4475,7 @@ def tensor_core_instructions(lib) -> dict:
 
 PHASES = ("kernel", "halo", "ring_sweep", "main", "fig2", "large",
           "routes", "ops", "baselines", "faults", "serve", "obs",
-          "admission")
+          "admission", "sharded")
 
 
 def main() -> int:
@@ -4054,7 +4563,8 @@ def main() -> int:
                 (faults_phase, counts),
                 (serve_phase, {"results": results, "counts": counts}),
                 (obs_phase, None),
-                (admission_phase, {"counts": counts}))):
+                (admission_phase, {"counts": counts}),
+                (sharded_phase, {"counts": counts}))):
             if only and name not in only:
                 continue
             t0 = time.perf_counter()

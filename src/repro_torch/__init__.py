@@ -17,7 +17,11 @@ counterpart sits where a reader of the JAX package expects it:
                   edge masks (`lower_faults`, `FaultTrace`),
   * `solve`     — the `solve(problem, network, spec)` front-end
                   (every method on tier="reference"; dagm on
-                  tier="serve"),
+                  tier="serve" and tier="sharded"),
+  * `distributed` — the sharded tier: ring collectives and the sharded
+                  DAGM on one device's agent ring (`LocalRing`) or a
+                  `torch.distributed` process ring (`ProcessRing`),
+  * `optim`     — SGD, AdamW, clipping and step-size schedules,
   * `serve`     — the batched multi-job engine (`ServeEngine`): buckets
                   of jobs gossiping on the kernels' job axis,
   * `obs`       — spans, metrics, export and the flight recorder,

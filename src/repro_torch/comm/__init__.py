@@ -13,14 +13,15 @@ from .compressors import (BF16_BYTES, F32_BYTES, QUANT_META_BYTES,
                           TopKCompressor, make_compressor,
                           parse_comm_spec, row_quant_params)
 from .feedback import (ChannelState, JobChannelState, channel_init,
-                       channel_seeds, compressed_payload, open_channels,
+                       channel_seeds, compressed_payload,
+                       compressed_payload_local, fold_seed, open_channels,
                        send_seed, stack_channels)
 from .ledger import Channel, CommLedger, static_ledger
 
 __all__ = [
     "BF16_BYTES", "Bf16Compressor", "Channel", "ChannelState",
     "CommLedger", "CommPolicy", "Compressor", "F32_BYTES",
-    "JobChannelState",
+    "JobChannelState", "compressed_payload_local", "fold_seed",
     "QUANT_META_BYTES", "RandKCompressor", "StochasticQuantCompressor",
     "TopKCompressor", "channel_init", "channel_seeds",
     "compressed_payload", "make_compressor", "open_channels",

@@ -9,14 +9,16 @@ the wire (`payload_bytes`) — the quantity `CommLedger` accumulates.
 
 Contract (as in `repro`)
 ------------------------
-* `roundtrip(x, seed)` is row-wise: agent i's decoded message depends
-  only on row i.
+* `roundtrip(x, seed, row=0)` is row-wise: agent i's decoded message
+  depends only on row i.  `row` is the agent index of x's first row,
+  so that a rank of the sharded tier's process ring, which holds one
+  agent's row, draws what that agent's row of a stacked call draws.
 * `seed` is a host integer, consumed only when `stochastic` is True.
   The stochastic quantizers draw their uniforms from the position-keyed
   `hash_uniform(seed, row, col)` of `repro_torch.kernels.ref` — the
   same numbers the comm-fused CUDA kernels draw, on every device — and
-  `rand_k` draws its indices from a CPU `torch.Generator` seeded with
-  `seed`.  `repro` draws both from `jax.random`; only the statistics
+  `rand_k` draws its indices, row after row, from a CPU
+  `torch.Generator` seeded with `seed`.  `repro` draws both from `jax.random`; only the statistics
   carry over.
 * `payload_bytes(shape)` / `payload_floats(shape)` take the *per-agent*
   payload shape (x.shape[1:]) and return Python ints.
@@ -94,8 +96,8 @@ class Compressor:
     # kernels compute inside the mix
     fusable: bool = False
 
-    def roundtrip(self, x: torch.Tensor, seed: int | None = None
-                  ) -> torch.Tensor:
+    def roundtrip(self, x: torch.Tensor, seed: int | None = None,
+                  row: int = 0) -> torch.Tensor:
         return x
 
     def payload_floats(self, shape) -> int:
@@ -110,7 +112,7 @@ class Bf16Compressor(Compressor):
     """Deterministic bfloat16 rounding of the wire copy."""
     name: str = "bf16"
 
-    def roundtrip(self, x, seed=None):
+    def roundtrip(self, x, seed=None, row=0):
         return x.to(torch.bfloat16).to(x.dtype)
 
     def payload_bytes(self, shape) -> int:
@@ -132,13 +134,13 @@ class StochasticQuantCompressor(Compressor):
     fusable: bool = True
     bits: int = 8
 
-    def roundtrip(self, x, seed=None):
+    def roundtrip(self, x, seed=None, row=0):
         flat = _rows(x).float()
         zp, scale = row_quant_params(flat, self.bits)
         n, size = flat.shape
         dev = flat.device
         u = hash_uniform(int(seed),
-                         torch.arange(n, device=dev)[:, None],
+                         torch.arange(row, row + n, device=dev)[:, None],
                          torch.arange(size, device=dev)[None, :])
         out = quantize(flat, zp, scale, u, float(2 ** self.bits - 1))
         return out.to(x.dtype).reshape(x.shape)
@@ -160,7 +162,7 @@ class TopKCompressor(Compressor):
     name: str = "top_k"
     frac: float = 0.1
 
-    def roundtrip(self, x, seed=None):
+    def roundtrip(self, x, seed=None, row=0):
         flat = _rows(x)
         k = _k_of(self.frac, flat.shape[1])
         idx = torch.topk(flat.abs(), k, dim=1).indices
@@ -185,14 +187,16 @@ class RandKCompressor(Compressor):
     frac: float = 0.25
     scale: bool = True
 
-    def roundtrip(self, x, seed=None):
+    def roundtrip(self, x, seed=None, row=0):
         flat = _rows(x)
         n, size = flat.shape
         k = _k_of(self.frac, size)
         gain = (size / k) if self.scale else 1.0
         gen = torch.Generator().manual_seed(int(seed))
+        # rows before `row` draw first, so row r's indices are the r-th
+        # draw of the stream however the rows are split
         idx = torch.stack([torch.randperm(size, generator=gen)[:k]
-                           for _ in range(n)]).to(flat.device)
+                           for _ in range(row + n)][row:]).to(flat.device)
         out = torch.zeros_like(flat).scatter_(1, idx,
                                               flat.gather(1, idx) * gain)
         return out.reshape(x.shape)

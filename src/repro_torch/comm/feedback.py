@@ -27,6 +27,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils._pytree import tree_map
 
 from .compressors import CommPolicy
 
@@ -56,6 +57,12 @@ def channel_seeds(seed: int, names) -> dict:
             for i, name in enumerate(names)}
 
 
+def fold_seed(seed: int, data: int) -> int:
+    """A new 32-bit stream from `seed` and a host integer `data` (a
+    round, a leaf), the counterpart of `jax.random.fold_in`."""
+    return _fmix32(_fmix32(seed) ^ _fmix32((data * 0x9E3779B9 + 1) & _M32))
+
+
 def send_seed(channel_seed: int, send: int) -> int:
     """The kernel seed of the channel's `send`-th exchange, in
     [0, 2³¹ − 1) as `repro`'s `randint(0, int32 max)` draws it."""
@@ -67,7 +74,8 @@ def send_seed(channel_seed: int, send: int) -> int:
 class ChannelState:
     """State of one gossip channel.
 
-    hat:   EF replica of the gossiped variable (None without EF).
+    hat:   EF replica of the gossiped variable (None without EF): a
+           tensor, or a tree of tensors on the sharded tier.
     sends: gossip exchanges so far.
     name:  channel label (ledger key).
     seed:  the channel's random stream (`send_seed`).
@@ -84,14 +92,16 @@ class ChannelState:
         """Reopen the channel for a fresh variable (the DIHGP h vector,
         re-initialized every outer round): neighbors' replicas restart
         at zero, the send counter and the stream continue."""
-        hat = None if self.hat is None else torch.zeros_like(self.hat)
+        hat = None if self.hat is None \
+            else tree_map(torch.zeros_like, self.hat)
         return dataclasses.replace(self, hat=hat)
 
 
 def channel_init(policy: CommPolicy, name: str, x, seed: int = 0
                  ) -> ChannelState:
-    """Open a gossip channel for the stacked (n, ...) template `x`."""
-    hat = torch.zeros_like(x) if policy.ef else None
+    """Open a gossip channel for the stacked (n, ...) template `x` (a
+    tensor, or a tree of tensors on the sharded tier)."""
+    hat = tree_map(torch.zeros_like, x) if policy.ef else None
     return ChannelState(hat=hat, sends=0, name=name, seed=int(seed))
 
 
@@ -120,6 +130,24 @@ def compressed_payload(policy: CommPolicy, x, st: ChannelState,
         payload = policy.compressor.roundtrip(x, seed)
         hat = st.hat
     return payload, dataclasses.replace(st, hat=hat, sends=st.sends + 1)
+
+
+def compressed_payload_local(policy: CommPolicy, leaf, hat_leaf, seed,
+                             row: int = 0):
+    """One agent's variant for the sharded tier's process ring: `leaf`
+    is agent `row`'s own tensor (no stacked axis) and goes on the wire
+    as one row, its stochastic draws those of row `row` of a stacked
+    call.  Returns (payload, new hat leaf); the caller owns the seed and
+    the send counter (one bump per exchange, not per leaf)."""
+    if policy.is_identity:
+        return leaf, hat_leaf
+    if policy.ef:
+        q = policy.compressor.roundtrip((leaf - hat_leaf)[None], seed,
+                                        row=row)[0]
+        payload = hat_leaf + q
+        return payload, payload
+    return policy.compressor.roundtrip(leaf[None], seed, row=row)[0], \
+        hat_leaf
 
 
 # ---------------------------------------------------------------------------

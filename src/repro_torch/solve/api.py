@@ -24,9 +24,19 @@ job's trajectory is its reference-tier run's (`repro_torch.core.jobs`).
 its rows in `extras["flight"]`; with tracing on (`repro_torch.obs
 .tracing()`) the reference tier records `repro`'s spans.
 
+The sharded tier (``tier="sharded"``, method "dagm", `sharded_spec`)
+runs `repro_torch.distributed`'s round on a ring of agents, `mesh=`:
+a `LocalRing` (all agents on one device, every gossip through
+`MixingOp`'s kernels) or a `torch.distributed` `DeviceMesh` (one agent
+per rank of the dim(s) `spec.sharded.axis`, a `ProcessRing`).  The
+problem, or raw `g_fn`/`f_fn` tree objectives with `batch` and x0/y0,
+is stacked over the agents; on a process ring every rank passes the
+same stacked problem and gets back its own agent's rows, and the
+metrics — agent means — are equal on every rank.  `extras["ring"]`
+holds the ring's `RingWeights`.
+
 `SolveResult.ledger` charges the exact (compressed) bytes of the sends
-that ran.  The sharded tier raises NotImplementedError naming the
-ROADMAP queue item that ports it.
+that ran.
 """
 from __future__ import annotations
 
@@ -39,14 +49,13 @@ import torch
 from .._device import resolve_device, strict_f32
 from .spec import SolverSpec, mixing_kwargs, validate_spec
 
-_QUEUED_TIERS = {"sharded": "ROADMAP queue 1 item 11 (sharded tier)"}
-
 
 @dataclasses.dataclass
 class SolveResult:
     """Outcome of a `solve` call."""
-    x: torch.Tensor              # final stacked outer iterates (n, d1)
-    y: torch.Tensor              # final stacked inner iterates (n, d2)
+    x: Any                       # final stacked outer iterates (n, d1)
+    y: Any                       # final stacked inner iterates (n, d2);
+    #   trees on the sharded tier, (1, ...) leaves on a process ring
     metrics: dict[str, torch.Tensor]   # per-outer-round traces, (K,)
     ledger: Any = None           # repro_torch.comm.CommLedger (measured)
     channels: Any = None         # final gossip ChannelStates
@@ -73,18 +82,24 @@ def _as_state(a, shape, device) -> torch.Tensor | None:
 @strict_f32()
 def solve(problem, network, spec: SolverSpec, *, x0=None, y0=None,
           seed: int = 0, metrics_fn: Callable | None = None,
-          device=None, recorder=None, serve_engine=None) -> SolveResult:
+          device=None, recorder=None, serve_engine=None, mesh=None,
+          g_fn: Callable | None = None, f_fn: Callable | None = None,
+          batch=None) -> SolveResult:
     """Run `spec` on (problem, network) and return a `SolveResult`.
 
     problem:  a `repro_torch.core.problems.BilevelProblem` whose data
-              lies on `device`.
+              lies on `device`.  The sharded tier can instead take raw
+              `g_fn`/`f_fn` tree objectives with `batch` and x0/y0.
     network:  a `repro_torch.topology.Network`; ignored by "fednest"
-              (its star is implicit).
-    x0/y0:    optional initial stacked iterates, numpy arrays or tensors.
+              (its star is implicit) and tier="sharded" (the ring is
+              the topology).
+    x0/y0:    optional initial stacked iterates, numpy arrays or tensors
+              (trees of them on the sharded tier).
     seed:     the y0 draw (`torch.Generator(device).manual_seed(seed)`)
               and the gossip channels' random streams.
     device:   where the run happens — CUDA unless the caller names
-              another; raises without a card.
+              another (on tier="sharded", the ring's device); raises
+              without a card.
     recorder: optional `repro_torch.obs.RecorderSpec`: per-round flight
               rows in `extras["flight"]` (method="dagm").
     serve_engine: optional pre-built `repro_torch.serve.ServeEngine`
@@ -93,10 +108,20 @@ def solve(problem, network, spec: SolverSpec, *, x0=None, y0=None,
               works too: the solve is submitted into the live service
               and joins a bucket at the next chunk boundary, sharing
               slots with whatever jobs the loop is already running.
+    mesh:     tier="sharded"'s ring: a `repro_torch.distributed
+              .LocalRing` or a `torch.distributed` `DeviceMesh` (or a
+              `ProcessRing`).
+    g_fn/f_fn/batch: tier="sharded"'s raw per-agent objectives and
+              their stacked data tree.
     Runs inside `strict_f32`: the caller's TF32 flags are unchanged on
     return.
     """
     validate_spec(spec)
+    if spec.tier == "sharded":
+        return _solve_sharded(problem, spec, x0=x0, y0=y0, seed=seed,
+                              metrics_fn=metrics_fn, mesh=mesh,
+                              g_fn=g_fn, f_fn=f_fn, batch=batch,
+                              device=device, recorder=recorder)
     dev = resolve_device(device)
     if problem.device != dev:
         raise ValueError(f"the problem's data lies on {problem.device} but "
@@ -117,9 +142,6 @@ def solve(problem, network, spec: SolverSpec, *, x0=None, y0=None,
         if not isinstance(recorder, RecorderSpec):
             raise TypeError(f"recorder must be a repro_torch.obs."
                             f"RecorderSpec, got {type(recorder).__name__}")
-    if spec.tier in _QUEUED_TIERS:
-        raise NotImplementedError(
-            f"tier={spec.tier!r} is {_QUEUED_TIERS[spec.tier]}")
     if spec.tier == "serve":
         return _solve_serve(problem, network, spec, x0=x0, y0=y0,
                             seed=seed, metrics_fn=metrics_fn, device=dev,
@@ -308,3 +330,138 @@ def _solve_serve(prob, net, spec: SolverSpec, *, x0, y0, seed, metrics_fn,
         x=res.x.to(device), y=res.y.to(device), metrics=metrics,
         ledger=engine.ledgers[res.signature], channels=None,
         method="dagm", tier="serve", extras=extras)
+
+
+# ---------------------------------------------------------------------------
+# sharded tier
+# ---------------------------------------------------------------------------
+
+def _as_ring(mesh, spec: SolverSpec, device):
+    """The agent ring `mesh` names, on the solve's device."""
+    from ..distributed import LocalRing, ProcessRing
+    if mesh is None:
+        raise ValueError(
+            "tier='sharded' runs on a ring of agents: pass solve(..., "
+            "mesh=LocalRing(n)) for all agents on one device, or a "
+            "torch.distributed DeviceMesh whose "
+            f"{spec.sharded.axis!r} dim(s) hold one agent per rank")
+    if isinstance(mesh, (LocalRing, ProcessRing)):
+        ring = mesh
+    else:
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a LocalRing, a ProcessRing or "
+                            f"a DeviceMesh, got {type(mesh).__name__}")
+        ring = ProcessRing(mesh, spec.sharded.axis)
+    if device is not None and resolve_device(device) != ring.device:
+        raise ValueError(f"the ring runs on {ring.device}; this solve "
+                         f"asks for {device}")
+    return ring
+
+
+def _state_tree(tree, dev):
+    """numpy or tensor leaves -> float32 tensors on `dev`."""
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda a: torch.as_tensor(
+        np.asarray(a) if not isinstance(a, torch.Tensor) else a,
+        dtype=torch.float32, device=dev).contiguous(), tree)
+
+
+def _solve_sharded(prob, spec: SolverSpec, *, x0, y0, seed, metrics_fn,
+                   mesh, g_fn, f_fn, batch, device, recorder=None
+                   ) -> SolveResult:
+    from torch.utils._pytree import tree_flatten, tree_map
+
+    from .. import obs
+    from ..distributed.dagm_sharded import (make_sharded_dagm,
+                                            open_sharded_channels,
+                                            round_channels,
+                                            sharded_comm_ledger,
+                                            sharded_round_coeffs)
+    if metrics_fn is not None:
+        raise ValueError(
+            "tier='sharded' records the fixed per-agent metrics (outer/"
+            "inner loss, hypergrad norm, consensus, comm sends); a "
+            "custom metrics_fn is a reference-tier feature")
+    if g_fn is None or f_fn is None:
+        if prob is None:
+            raise ValueError(
+                "tier='sharded' needs objectives: pass a BilevelProblem "
+                "as `problem`, or explicit g_fn/f_fn tree objectives "
+                "(with x0/y0/batch)")
+        g_fn = g_fn or prob.g
+        f_fn = f_fn or prob.f
+    if batch is None:
+        if prob is None:
+            raise ValueError(
+                "tier='sharded' with raw g_fn/f_fn needs the stacked "
+                "per-agent `batch` tree (leading agent axis)")
+        batch = prob.data
+    ring = _as_ring(mesh, spec, device)
+    dev = ring.device
+    n = ring.n
+    if x0 is None or y0 is None:
+        if prob is None:
+            raise ValueError(
+                "tier='sharded' with raw g_fn/f_fn needs explicit x0/y0 "
+                "stacked iterates (the shapes are not inferable)")
+    if x0 is None:
+        x0 = torch.zeros((n, prob.d1), dtype=torch.float32, device=dev)
+    if y0 is None:
+        gen = torch.Generator(dev).manual_seed(seed)
+        y0 = 0.01 * torch.randn((n, prob.d2), generator=gen,
+                                dtype=torch.float32, device=dev)
+    x0, y0 = _state_tree(x0, dev), _state_tree(y0, dev)
+    for name, tree in (("x0", x0), ("y0", y0), ("batch", batch)):
+        for leaf in tree_flatten(tree)[0]:
+            if leaf.shape[0] != n or leaf.device != dev:
+                raise ValueError(
+                    f"every {name} leaf needs a leading agent axis of the "
+                    f"ring's n={n} on {dev}; got {tuple(leaf.shape)} on "
+                    f"{leaf.device}")
+    x, y = x0, y0
+    if not ring.stacked:
+        # a process ring's rank runs its own agent's rows
+        x, y, batch = tree_map(lambda t: t[ring.rank], (x, y, batch))
+
+    step, w = make_sharded_dagm(g_fn, f_fn, spec, ring, recorder=recorder)
+    sched = spec.schedule.materialize(spec.K)
+    channels = open_sharded_channels(spec, x, y, seed) \
+        if spec.comm.persist_ef else None
+    rec = obs.recorder_init(recorder, device=dev) \
+        if recorder is not None else None
+    rows = []
+    tr = obs.tracer()
+    # the round loop is the host's, so with tracing on each round span
+    # waits for the device and measures the round's wall time
+    with tr.span("solve", cat="solver", track="solver", method="dagm",
+                 tier="sharded", K=spec.K, seed=seed):
+        for k in range(spec.K):
+            hp = sharded_round_coeffs(float(sched.alpha[k]),
+                                      float(sched.beta[k]),
+                                      spec.curvature, w.w_self)
+            cs = channels if channels is not None \
+                else round_channels(spec, x, y, seed, k)
+            with tr.span("outer_round", cat="solver.round",
+                         track="solver", round=k):
+                if rec is not None:
+                    x, y, m, cs, rec = step(x, y, batch, cs, hp,
+                                            float(sched.gamma[k]), rec)
+                else:
+                    x, y, m, cs = step(x, y, batch, cs, hp)
+                if tr.enabled and dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            if channels is not None:
+                channels = cs
+            rows.append(m)
+    metrics = {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
+    local = tree_map(lambda t: t[0], (x0, y0))
+    ledger = sharded_comm_ledger(spec, local[0], local[1], rounds=spec.K)
+    if not ring.stacked:          # the agent's rows, (1, ...) leaves
+        x, y = tree_map(lambda t: t[None], (x, y))
+    extras = {"ring": w}
+    if rec is not None:
+        extras["flight"] = obs.recorder_rows(rec)
+    return SolveResult(x=x, y=y, metrics=metrics, ledger=ledger,
+                       channels=channels, method="dagm", tier="sharded",
+                       extras=extras)

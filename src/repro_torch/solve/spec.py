@@ -2,21 +2,24 @@
 
     SolverSpec(method="dagm", tier="reference", K=..., M=..., U=...,
                schedule=ScheduleSpec(alpha=..., beta=..., gamma=...),
-               mixing=MixingSpec(...), comm=CommSpec(...))
+               mixing=MixingSpec(...), comm=CommSpec(...),
+               sharded=ShardedSpec(...))
 
 * `ScheduleSpec` — the run's hyper-parameter sequences.  Each of α/β/γ
   is a constant, an explicit length-K tuple, or a callable applied to
-  `np.arange(K)`; `materialize()` lowers all three to (K,) float32
-  arrays.  γ defaults to float32(1)/float32(α), the paper's coupling.
+  `np.arange(K)` (a `repro_torch.optim` schedule); `materialize()`
+  lowers all three to (K,) float32 arrays.  γ defaults to
+  float32(1)/float32(α), the paper's coupling.
 * `MixingSpec` — the gossip execution backend (`repro_torch.topology`).
-* `CommSpec`   — the gossip wire policy (`repro_torch.comm`).
+* `CommSpec`   — the gossip wire policy (`repro_torch.comm`) and, on the
+  sharded tier, whether error feedback persists across rounds.
+* `ShardedSpec`— the sharded tier's ring axis and inner gossip period
+  (`repro_torch.distributed`).
 
 The baselines read `momentum` (MA-DBO), `b` (DGBO) and `N` (DGTBO);
 `faults` takes a `repro_torch.faults.FaultSpec` (DAGM on the reference
-tier).  `repro`'s options of the tiers that are not ported yet
-(`ShardedSpec`, `CommSpec.persist_ef`) arrive with the ROADMAP items
-that port the code reading them; `solve` refuses those tiers until
-then.
+tier).  `repro`'s `ShardedSpec.unroll_loops` has no counterpart: the
+port's loops are Python loops already.
 """
 from __future__ import annotations
 
@@ -108,8 +111,25 @@ class MixingSpec:
 
 @dataclasses.dataclass(frozen=True)
 class CommSpec:
-    """Gossip wire policy — see repro_torch.comm.parse_comm_spec."""
+    """Gossip wire policy — see repro_torch.comm.parse_comm_spec.
+
+    persist_ef: the sharded tier threads its channels (EF replicas, send
+    counters, streams) across outer rounds instead of reopening them
+    each round; the reference and serve tiers always do."""
     spec: str = "identity"
+    persist_ef: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedSpec:
+    """The sharded tier's ring (`repro_torch.distributed`).
+
+    axis: the `DeviceMesh` dim name(s) a `ProcessRing` rings over (a
+          tuple rings over their flattened product).
+    mix_every: j > 1 gossips y only every j-th inner step (the
+          local-updates variant; cuts inner traffic by ~j)."""
+    axis: Any = "data"
+    mix_every: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +143,7 @@ class SolverSpec:
     schedule: ScheduleSpec = ScheduleSpec()
     mixing: MixingSpec = MixingSpec()
     comm: CommSpec = CommSpec()
+    sharded: ShardedSpec = ShardedSpec()
     dihgp: str = "dense"        # "dense" | "matrix_free" | "exact"
     curvature: float | None = None   # λmax bound for matrix_free
     momentum: float = 0.9       # ma_dbo tracker momentum
@@ -183,6 +204,26 @@ def validate_spec(spec: SolverSpec) -> None:
             f"schedule multiplies DAGM's (I−Ŵ)x/α "
             f"penalty gradient, which this baseline never forms; drop "
             f"schedule.gamma or use method='dagm'/'ma_dbo'")
+    if spec.schedule.gamma is not None and spec.tier == "sharded":
+        raise ValueError(
+            "the sharded tier folds the penalty coefficient into the "
+            "Ẃx − α(·) update (α·γ = 1 by construction), so an explicit "
+            "gamma schedule is inexpressible there; use tier='reference' "
+            "for decoupled penalties")
+    if spec.comm.persist_ef and spec.tier != "sharded":
+        raise ValueError(
+            f"CommSpec.persist_ef=True is a sharded-tier knob (the "
+            f"reference and serve tiers already thread channel state "
+            f"through the whole run); got tier={spec.tier!r}")
+    if spec.comm.persist_ef and spec.comm.spec == "identity":
+        raise ValueError(
+            "CommSpec.persist_ef=True with spec='identity' conflicts: "
+            "the identity wire has no error-feedback state to persist; "
+            "pick a compressing spec (e.g. 'top_k:0.1+ef') or drop "
+            "persist_ef")
+    if int(spec.sharded.mix_every) <= 0:
+        raise ValueError(f"ShardedSpec.mix_every must be >= 1 (got "
+                         f"{spec.sharded.mix_every})")
     if spec.dihgp not in ("dense", "matrix_free", "exact"):
         raise ValueError(f"unknown dihgp backend {spec.dihgp!r}")
     from ..comm import parse_comm_spec
@@ -213,6 +254,11 @@ def validate_spec(spec: SolverSpec) -> None:
                 f"whose per-slot operands are hyper-parameters only, and "
                 f"the sharded tier's gossip has no per-round mask "
                 f"channel — use tier='reference'")
+    if spec.tier == "sharded" and spec.curvature is None:
+        raise ValueError(
+            "the sharded tier's scalar-preconditioned DIHGP needs an "
+            "explicit curvature bound (SolverSpec.curvature ≥ "
+            "λmax(∇²_y g_i)); it runs no power iteration")
 
 
 def mixing_kwargs(spec: SolverSpec) -> dict:
@@ -233,3 +279,22 @@ def dagm_spec(alpha=1e-2, beta=1e-2, gamma=None, K: int = 100,
         mixing=MixingSpec(backend=mixing, dtype=mixing_dtype),
         comm=CommSpec(spec=comm), dihgp=dihgp, curvature=curvature,
         faults=faults)
+
+
+def sharded_spec(alpha=1e-2, beta=1e-2, M: int = 5, U: int = 3,
+                 curvature: float = 4.0, axis="data",
+                 comm: str = "identity", comm_dtype: str = "f32",
+                 persist_ef: bool = False, mix_every: int = 1,
+                 K: int = 1) -> SolverSpec:
+    """A tier="sharded" spec from `repro`'s `sharded_spec` kwargs (K is
+    the round budget of `solve`); comm_dtype="bf16" on the identity comm
+    is the bf16 wire."""
+    if comm == "identity" and comm_dtype == "bf16":
+        comm = "bf16"
+    return SolverSpec(
+        method="dagm", tier="sharded", K=K, M=M, U=U,
+        schedule=ScheduleSpec(alpha=alpha, beta=beta),
+        mixing=MixingSpec(dtype=comm_dtype),
+        comm=CommSpec(spec=comm, persist_ef=persist_ef),
+        sharded=ShardedSpec(axis=axis, mix_every=mix_every),
+        dihgp="matrix_free", curvature=curvature)

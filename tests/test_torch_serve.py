@@ -373,8 +373,13 @@ def test_serve_tier_refusals_and_shared_engine():
     a = solve(prob, net, spec, device="cpu", serve_engine=shared)
     b = solve(prob, net, spec, device="cpu", serve_engine=shared)
     assert torch.equal(a.x, b.x) and shared.stats.traces == 1
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # the sharded tier runs on a ring of agents, not on a serve engine
+    with pytest.raises(ValueError, match="mesh=LocalRing"):
         solve(prob, net, cfg(tier="sharded"), device="cpu")
+    from repro_torch.distributed import LocalRing
+    sh = solve(prob, net, cfg(tier="sharded", K=2), device="cpu",
+               mesh=LocalRing(6, device="cpu"))
+    assert sh.tier == "sharded" and sh.ledger.total_sends() == 2 * 6
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The port's `solve` front-end on the CPU: device selection, seeded
-initialisation, schedules, the paths that raise until their ROADMAP
-item ports them (the baselines and faults are in
-test_torch_baselines.py and test_torch_faults.py), the matrix-free curvature estimate, and the import
-isolation of the package.  End-to-end parity with `repro.solve` is in
+initialisation, schedules, that every tier runs (the baselines and
+faults are in test_torch_baselines.py and test_torch_faults.py, the
+sharded tier in test_torch_sharded.py), the matrix-free curvature
+estimate, and the import isolation of the package.  End-to-end parity with `repro.solve` is in
 test_torch_solve.py.
 """
 from __future__ import annotations
@@ -71,16 +71,23 @@ def test_default_init_draws_y0_from_the_seed():
 
 
 def test_queued_paths_raise_naming_their_roadmap_item():
-    """What is still queued: the sharded tier (item 11).  The serve tier
-    and obs (items 9 and 10) run since their slice — the flight recorder
-    with dagm, the obs hooks of the fault trace and the ledger — and so
-    do the baselines and faults (items 6 and 7)."""
+    """No path is queued any more: the sharded tier (item 11) runs since
+    its slice, on a ring of agents (`mesh=`), and the module keeps no
+    stub.  The serve tier and obs (items 9 and 10) run — the flight
+    recorder with dagm, the obs hooks of the fault trace and the ledger
+    — and so do the baselines and faults (items 6 and 7)."""
     from repro_torch import obs
+    from repro_torch.distributed import LocalRing
     from repro_torch.faults import FaultSpec, lower_faults
+    from repro_torch.solve import api, sharded_spec
     tprob = tp.quadratic_bilevel(4, 2, 3, device="cpu")
     net = make_network("ring", 4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    assert not hasattr(api, "_QUEUED_TIERS")
+    with pytest.raises(ValueError, match="curvature"):
         solve(tprob, net, SolverSpec(K=1, tier="sharded"), device="cpu")
+    sh = solve(tprob, net, sharded_spec(K=2, curvature=6.0),
+               mesh=LocalRing(4, device="cpu"))
+    assert sh.tier == "sharded" and sh.metrics["outer_loss"].shape == (2,)
     with pytest.raises(TypeError, match="RecorderSpec"):
         solve(tprob, net, SolverSpec(K=1), device="cpu",
               recorder=object())
@@ -105,19 +112,31 @@ def test_queued_paths_raise_naming_their_roadmap_item():
 
 
 def test_spec_carries_only_what_the_port_reads():
-    """The port's SolverSpec is a subset of repro's: the options of the
-    sharded tier come with the code that reads them, so a caller cannot
-    set one that would be silently ignored; the baselines' momentum, b
-    and N are back with the baselines, at repro's defaults."""
+    """The port's SolverSpec is a subset of repro's: the sharded tier's
+    options came with the code that reads them (`ShardedSpec.axis`,
+    `mix_every`, `CommSpec.persist_ef`), and `repro`'s `unroll_loops`,
+    which only its traced loops read, has no counterpart, so a caller
+    cannot set one that would be silently ignored; the baselines'
+    momentum, b and N are back with the baselines, at repro's
+    defaults."""
+    from repro.solve import CommSpec as JComm
+    from repro.solve import ShardedSpec as JSharded
+
+    from repro_torch.solve import ShardedSpec
     names = {f.name for f in dataclasses.fields(SolverSpec)}
     assert names <= {f.name for f in dataclasses.fields(JSpec)}
-    assert not names & {"sharded"}
+    assert "sharded" in names
     for name in ("momentum", "b", "N"):
         assert getattr(SolverSpec(), name) == getattr(JSpec(), name)
+    sharded = {f.name for f in dataclasses.fields(ShardedSpec)}
+    assert sharded == {f.name for f in dataclasses.fields(JSharded)} \
+        - {"unroll_loops"}
+    for name in sharded:
+        assert getattr(ShardedSpec(), name) == getattr(JSharded(), name)
+    assert CommSpec(persist_ef=True).persist_ef
+    assert CommSpec().persist_ef == JComm().persist_ef is False
     with pytest.raises(TypeError):
-        SolverSpec(sharded=None)
-    with pytest.raises(TypeError):
-        CommSpec(persist_ef=True)
+        ShardedSpec(unroll_loops=True)
 
 
 def test_schedules_materialize_like_repro():
@@ -155,7 +174,10 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.serve.admission.loop', "
         "'repro_torch.serve.admission.classes', "
         "'repro_torch.serve.admission.packing', "
-        "'repro_torch.serve.admission.quotas')\n"
+        "'repro_torch.serve.admission.quotas', "
+        "'repro_torch.distributed.collectives', "
+        "'repro_torch.distributed.dagm_sharded', "
+        "'repro_torch.optim.optimizers')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
