@@ -126,20 +126,24 @@ Phases, in order (any failure exits non-zero before the last line):
                against the unfaulted "sparse_gather_pallas" solve; the
                faulted Erdős–Rényi solve at n = 4096 (row 4's slab);
   9. serve   — five buckets of 10 jobs of the same MLP at n = 16 (K = 4,
-               width 8, chunk_rounds 2; fig4's (α, β) ± 20 %): ring and
-               ER identity, ring and ER int8+ef, ring int4, through
-               `ServeEngine`: every job against its solo solve on the
-               card (wire bytes exact), exact launches (one a bucket
-               gossip, the job-axis counters of rows 5, 1f, 3f and 5f),
-               each bucket's seconds per round and job-rounds per s
-               beside the ten solo solves', device busy, idle share and
+               the identity ones K = 2; width 8, chunk_rounds 2; fig4's
+               (α, β) ± 20 %): ring and ER identity, ring and ER
+               int8+ef, ring int4, through `ServeEngine`: three jobs a
+               bucket (the first and last slot of the first wave, the
+               last backfilled job) against their solo solves on the
+               card, every job's wire bytes exact, exact launches (one
+               a bucket gossip, the job-axis counters of rows 5, 1f, 3f
+               and 5f), each bucket's seconds per round and job-rounds
+               per s beside the solo solves', device busy, idle share and
                peak memory; every captured job-axis launch bitwise its
                plain version and its jobs' solo launches, timed; a run
-               crashed after its first chunk and resumed by a fresh
-               engine bitwise the uninterrupted run; then two buckets of
-               8 jobs at n = 128, where the compressed gossips plan the
-               halo tiles (ring int8+ef: row 2f; ER int8: row 4f's
-               slab), exact launches and each job bitwise its solo solve;
+               crashed after its first chunk, its first wave halfway
+               through the solve (checked off the checkpoint), and
+               resumed by a fresh engine bitwise the uninterrupted run;
+               then two buckets of 8 jobs at n = 128, where the
+               compressed gossips plan the halo tiles (ring int8+ef: row
+               2f; ER int8: row 4f's slab), exact launches, jobs 0 and 7
+               bitwise their solo solves;
  10. obs     — the flight recorder and tracing on the ring int8+ef
                solve (bitwise the plain solve; the recorder's wire bytes
                the ledger's; the trace valid), a checkpoint round trip of
@@ -151,7 +155,7 @@ Phases, in order (any failure exits non-zero before the last line):
                checkpointed loop killed by SimulatedCrash and restored,
                the jobs never admitted back off the sidecar, bitwise;
                `drive_poisson_async` against `drive_poisson` on one
-               seeded schedule of 16 jobs at half the wave engine's
+               seeded schedule of 8 jobs at half the wave engine's
                jobs/s: p50, p99, jobs/s, peak queue depth, idle share;
  12. sharded — `solve(tier="sharded")` (`repro_torch.distributed`) on
                the same MLP: a `LocalRing` of 16 agents on the card, K =
@@ -168,7 +172,25 @@ Phases, in order (any failure exits non-zero before the last line):
                2, identity and int8+ef (rows 2 and 2f), bitwise, seconds
                per round and peak memory; a `ProcessRing` over NCCL at
                world size 1 (self P2P) against `LocalRing(1)`;
- 13. the kernel list as one JSON line, then the device JSON line last.
+ 13. lm      — the LM serving path (`repro_torch.models`) at full
+               width in bf16, one model at a time: qwen3-4b (36 layers,
+               d 2560) prefills a 2,048-token synthetic prompt on the
+               flash-attention kernel (36 launches) and rwkv6-7b (32
+               layers, d 4096) a 1,024-token one on the WKV scan with
+               its final state (32 launches), then 16 greedy tokens
+               each; every launch held against its plain version on its
+               inputs, exact launch counts, prefill seconds, decode
+               seconds per token, peak memory, idle share; then the
+               weights cast to f32, and the kernel route, teacher-forced
+               on the greedy tokens of its twin with the kernel switch
+               off, held to that twin at the prefill and all 16 decode
+               steps (logits within twice a probe's change, greedy
+               tokens equal where the plain margin exceeds twice that);
+               before them the WKV scan's state output against
+               `rwkv6_ref` at rwkv6-7b's head shape (f32, bf16 inputs,
+               and hd 96) and flash attention at qwen3-4b's prefill
+               shape, timed;
+ 14. the kernel list as one JSON line, then the device JSON line last.
 
 Imports torch and the port only; needs no network.
 """
@@ -3137,7 +3159,12 @@ def faults_phase(torch, counts_out: dict) -> None:
 # serve: buckets of the §6.2 MLP through the engine, on the job axis
 # ---------------------------------------------------------------------------
 
+# K = 4 rounds a job in chunks of 2, so that every job's carry (x, y, the
+# wire's EF residuals and send counters) crosses a chunk boundary; the
+# identity buckets at n = 16 run K = SERVE_K_IDENTITY = 2, one chunk a
+# wave (the admission phase carries identity jobs across chunks)
 SERVE_JOBS, SERVE_K, SERVE_T, SERVE_WIDTH = 10, 4, 2, 8
+SERVE_K_IDENTITY = 2
 # fig4's neighbourhood: its (α, β) = (0.1, 0.1), swept ±20 %
 SERVE_GRID = ((0.1, 0.1), (0.08, 0.1), (0.12, 0.1), (0.1, 0.08),
               (0.1, 0.12), (0.09, 0.11), (0.11, 0.09), (0.08, 0.12),
@@ -3207,11 +3234,18 @@ def serve_specs(comm: str, graph: str, family=serve_problem,
                               for s in range(jobs))]
 
 
-def serve_rounds(jobs: int = SERVE_JOBS) -> int:
-    """Rounds a bucket of `jobs` jobs runs: SERVE_WIDTH jobs for K
-    rounds, then the backfilled rest for K more, in chunks of SERVE_T."""
+def serve_rounds(jobs: int = SERVE_JOBS, k: int = SERVE_K) -> int:
+    """Rounds a bucket of `jobs` jobs of K = `k` runs: SERVE_WIDTH jobs
+    for K rounds, then the backfilled rest for K more, in chunks of
+    SERVE_T."""
     waves = -(-jobs // SERVE_WIDTH)
-    return waves * SERVE_K
+    return waves * k
+
+
+def serve_held(jobs: int) -> list[int]:
+    """The jobs of a bucket held against their solo solves: the first
+    slot, the last slot of the first wave and the last backfilled job."""
+    return sorted({0, min(jobs, SERVE_WIDTH) - 1, jobs - 1})
 
 
 def serve_counts(graph: str, comm: str, n: int = N_AGENTS,
@@ -3453,9 +3487,13 @@ def job_axis_checks(torch, store: dict, results: dict) -> None:
 
 def serve_phase(torch, out: dict) -> None:
     """Five buckets of SERVE_JOBS jobs of the §6.2 MLP at n = 16 and two
-    of SERVE_WIDTH jobs at n = SERVE_HALO_N through `ServeEngine`, each
-    job held against its solo solve on the card (bitwise at n = 128),
-    and the engine's crash-restart bitwise (see the module docstring)."""
+    of SERVE_WIDTH jobs at n = SERVE_HALO_N through `ServeEngine`, the
+    `serve_held` jobs of each held against their solo solves on the card
+    (bitwise at n = 128), and the engine's crash-restart bitwise, with
+    jobs halfway through their solve at the crash (see the module
+    docstring)."""
+    import glob
+    import pickle
     import tempfile
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -3468,23 +3506,25 @@ def serve_phase(torch, out: dict) -> None:
     # n = 16: the full-operand kernels' job axis; n = 128 (8 jobs, no
     # backfill): the compressed gossips on the halo tiles (rows 2f, 4f),
     # each job held bitwise against its solo solve
-    for graph, comm, n, jobs in (
-            ("ring", "identity", N_AGENTS, SERVE_JOBS),
-            ("erdos_renyi", "identity", N_AGENTS, SERVE_JOBS),
-            ("ring", "int8+ef", N_AGENTS, SERVE_JOBS),
-            ("erdos_renyi", "int8+ef", N_AGENTS, SERVE_JOBS),
-            ("ring", "int4", N_AGENTS, SERVE_JOBS),
-            ("ring", "int8+ef", SERVE_HALO_N, SERVE_WIDTH),
-            ("erdos_renyi", "int8", SERVE_HALO_N, SERVE_WIDTH)):
+    for graph, comm, n, jobs, k in (
+            ("ring", "identity", N_AGENTS, SERVE_JOBS, SERVE_K_IDENTITY),
+            ("erdos_renyi", "identity", N_AGENTS, SERVE_JOBS,
+             SERVE_K_IDENTITY),
+            ("ring", "int8+ef", N_AGENTS, SERVE_JOBS, SERVE_K),
+            ("erdos_renyi", "int8+ef", N_AGENTS, SERVE_JOBS, SERVE_K),
+            ("ring", "int4", N_AGENTS, SERVE_JOBS, SERVE_K),
+            ("ring", "int8+ef", SERVE_HALO_N, SERVE_WIDTH, SERVE_K),
+            ("erdos_renyi", "int8", SERVE_HALO_N, SERVE_WIDTH, SERVE_K)):
         label = f"{graph} {comm} n={n}"
         net = make_network(graph, n, **({"r": 0.5, "seed": 0}
                                         if graph == "erdos_renyi" else {}))
-        specs = serve_specs(comm, graph, n=n, jobs=jobs)
-        rounds = serve_rounds(jobs)
+        specs = serve_specs(comm, graph, n=n, jobs=jobs, budgets=[k] * jobs)
+        rounds = serve_rounds(jobs, k)
         expected = {**zero, **serve_counts(graph, comm, n, rounds)}
         exact = n != N_AGENTS
+        held = serve_held(jobs)
         print(f"serve: {jobs} jobs of hyper_representation d1={D1} "
-              f"d2={D2} on {label}, K={SERVE_K} M={M} U={U}, "
+              f"d2={D2} on {label}, K={k} M={M} U={U}, "
               f"chunk_rounds={SERVE_T}, max_width={SERVE_WIDTH}")
 
         def run_bucket(specs=specs):
@@ -3512,13 +3552,19 @@ def serve_phase(torch, out: dict) -> None:
             counts_out[name] = counts_out.get(name, 0) + c
         if eng.stats.traces != 1 or eng.stats.chunks != rounds // SERVE_T:
             raise AssertionError(f"serve {label}: {eng.stats}")
+        for r in res:
+            if r.rounds != k or r.quarantined \
+                    or not (torch.isfinite(r.x).all()
+                            and torch.isfinite(r.y).all()):
+                raise AssertionError(f"serve {label}: {r.job_id} ran "
+                                     f"{r.rounds} rounds, finite "
+                                     f"{all_finite(r.x) and all_finite(r.y)}")
         worst = {"x": 0.0, "y": 0.0}
         differing = 0
         solo_wall = 0.0
-        for spec, r in zip(specs, res):
-            if r.rounds != SERVE_K or r.quarantined:
-                raise AssertionError(f"serve {label}: {r.job_id} ran "
-                                     f"{r.rounds} rounds")
+        solo_bytes = set()
+        for j in held:
+            spec, r = specs[j], res[j]
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             ref_run = solve(serve_problem(spec.seed, n=n), net,
@@ -3528,9 +3574,6 @@ def serve_phase(torch, out: dict) -> None:
             for name in ("x", "y"):
                 got = getattr(r, name).to(ref_run.x.device)
                 want = getattr(ref_run, name)
-                if not torch.isfinite(got).all():
-                    raise AssertionError(f"serve {label}: {name} not "
-                                         f"finite")
                 rel = norm_rel(got, want)
                 worst[name] = max(worst[name], rel)
                 differing += int((got != want).sum())
@@ -3543,29 +3586,34 @@ def serve_phase(torch, out: dict) -> None:
                     raise AssertionError(f"serve {label} {r.job_id}: "
                                          f"{name} norm-relative error "
                                          f"{rel} > {E2E_NORM_REL}")
-            if r.wire_bytes != ref_run.ledger.total_bytes:
-                raise AssertionError(f"serve {label} {r.job_id}: wire "
-                                     f"bytes {r.wire_bytes} != "
-                                     f"{ref_run.ledger.total_bytes}")
+            solo_bytes.add(ref_run.ledger.total_bytes)
             del ref_run
+        # the jobs of a bucket share K, graph and wire, so every job's
+        # wire bytes are the held jobs' solo ledger's
+        if len(solo_bytes) != 1 or any(r.wire_bytes not in solo_bytes
+                                       for r in res):
+            raise AssertionError(f"serve {label}: wire bytes "
+                                 f"{[r.wire_bytes for r in res]} against "
+                                 f"the solo ledgers' {solo_bytes}")
         led = eng.ledgers[res[0].signature]
         if int(led.per_job_bytes().sum()) != led.total_bytes \
                 != sum(r.wire_bytes for r in res):
             raise AssertionError(f"serve {label}: ledger bytes disagree")
-        print(f"  every job vs its solo solve on the card: elements of x "
-              f"and y differing {differing}, worst norm_rel_err x "
+        print(f"  jobs {held} vs their solo solves on the card: elements "
+              f"of x and y differing {differing}, worst norm_rel_err x "
               f"{worst['x']:.3e} y {worst['y']:.3e} "
               f"({'bitwise' if exact else 'elementwise rtol ' + str(SERVE_RTOL) if comm == 'identity' else 'bound ' + str(E2E_NORM_REL)}); "
-              f"wire bytes exact, ledger {led.total_bytes} B")
+              f"every job's wire bytes the solo ledger's, ledger "
+              f"{led.total_bytes} B")
         if exact and differing:
             raise AssertionError(f"serve {label}: jobs not bitwise their "
                                  f"solo solves")
-        job_rounds = jobs * SERVE_K
+        job_rounds, solo_rounds = jobs * k, len(held) * k
         print(f"  bucket: {wall / rounds:.6f} s per round ({rounds} rounds "
               f"of width {SERVE_WIDTH}), {job_rounds / wall:.2f} job-rounds "
-              f"per s; {jobs} solo solves: "
-              f"{solo_wall / job_rounds:.6f} s per round, "
-              f"{job_rounds / solo_wall:.2f} job-rounds per s; peak memory "
+              f"per s; {len(held)} solo solves: "
+              f"{solo_wall / solo_rounds:.6f} s per round, "
+              f"{solo_rounds / solo_wall:.2f} job-rounds per s; peak memory "
               f"{peak:.2f} GiB (host clock, after a warm-up run)")
         if busy is not None:
             print(f"  bucket device busy {busy:.1f} us of "
@@ -3581,7 +3629,9 @@ def serve_phase(torch, out: dict) -> None:
     print(f"serve: job-axis checks {time.perf_counter() - t_part:.1f} s")
     t_part = time.perf_counter()
     # crash and restart: the zoo family (a callable family does not
-    # survive a restart), ring int8+ef
+    # survive a restart), ring int8+ef, K = SERVE_K: the crash after the
+    # first chunk leaves the first wave halfway through its solve, EF
+    # residuals and send counters included
     specs = serve_specs("int8+ef", "ring", family="hyper_representation")
     eng = ServeEngine(chunk_rounds=SERVE_T, max_width=SERVE_WIDTH)
     eng.submit(specs)
@@ -3595,6 +3645,15 @@ def serve_phase(torch, out: dict) -> None:
             raise AssertionError("serve: crash_after_chunks did not fire")
         except SimulatedCrash:
             pass
+        with open(max(glob.glob(os.path.join(ckdir, "state_*.pkl"))),
+                  "rb") as f:
+            slots = pickle.load(f)["bucket_host"]
+        mid = int((slots["active"] & (slots["rounds"] > 0)
+                   & (slots["rounds"] < slots["budget"])).sum())
+        if not mid:
+            raise AssertionError(f"serve: no job halfway through its solve "
+                                 f"at the crash: rounds {slots['rounds']}, "
+                                 f"budgets {slots['budget']}")
         # the resumed run checkpoints no more (the restart is what is
         # checked; each step is a ~190 MB compressed write)
         eng = ServeEngine(chunk_rounds=SERVE_T, max_width=SERVE_WIDTH,
@@ -3606,9 +3665,11 @@ def serve_phase(torch, out: dict) -> None:
                + abs(a.wire_bytes - b.wire_bytes)
                for a, b in zip(full, resumed))
     print(f"serve: crash after chunk 1 and restart (ring int8+ef, "
-          f"{SERVE_JOBS} jobs): elements differing from the uninterrupted "
-          f"run {diff} (bitwise), restarts {eng.stats.restarts}; "
-          f"{time.perf_counter() - t_part:.1f} s")
+          f"{SERVE_JOBS} jobs, K = {SERVE_K}; {mid} jobs at rounds "
+          f"{sorted(set(slots['rounds'][slots['active']].tolist()))} of "
+          f"{SERVE_K} at the crash): elements differing from the "
+          f"uninterrupted run {diff} (bitwise), restarts "
+          f"{eng.stats.restarts}; {time.perf_counter() - t_part:.1f} s")
     if diff:
         raise AssertionError("serve: the resumed run differs")
 
@@ -3714,7 +3775,10 @@ def obs_phase(torch, _unused) -> None:
 # jobs of the Poisson schedule the two drivers are held against
 # 16 jobs (24 until the sharded phase joined the run, to keep the whole
 # run near its time)
-ADMIT_POISSON_JOBS = 16
+# jobs of the Poisson schedule the two drivers are held against
+# 8 jobs (24 until the sharded phase joined the run, 16 until the lm
+# phase did, to keep the whole run near its time)
+ADMIT_POISSON_JOBS = 8
 
 
 def admission_phase(torch, out: dict) -> None:
@@ -4265,6 +4329,401 @@ def sharded_phase(torch, out: dict) -> None:
     print(f"sharded: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# The LM serving path (`repro_torch.models`: `Model.prefill`, greedy
+# `decode_step`) at the full width of two configurations the repo ships
+# (src/repro_torch/configs), weights in bf16 as served, drawn on the card
+# from a seeded generator; depth cut to one prompt (B = 1) and 16 greedy
+# tokens.  qwen3-4b's prefill takes the flash-attention kernel in each of
+# its 36 layers, rwkv6-7b's the WKV scan with its final state in each of
+# its 32.
+LM_CASES = {
+    # arch: (prompt tokens, greedy decode steps, prefill kernel counter)
+    "qwen3-4b": (2048, 16, "flash_attention"),
+    "rwkv6-7b": (1024, 16, "rwkv6_scan_state"),
+}
+LM_SEED = 0
+# Tolerances.  (1) Every launch on the path is held against its plain
+# version on the same inputs: |got − want| ≤ atol·m + rtol·|want|, (atol,
+# rtol) ATTN_TOL's line for the dtype (the WKV scan's output and state:
+# WKV_TOL) and m = max(1, max |want|).  The kernels and the plain versions
+# sum in f32 in other orders, and their f32 errors scale with the size of
+# the values summed, which ATTN_TOL and WKV_TOL take as O(1) (the ops
+# phase's N(0, 1) inputs): at qwen3-4b's layers (outputs up to ~3.9)
+# elements near 0 left by cancellation differed by ~1e-6, over bf16's
+# atol of 1e-6 (PERF.md §6: the kernel's f32 route was 9e-5 from an f64
+# truth there, its bf16 outputs within one rounding of it), so atol is
+# taken relative to the output's largest value.  (2) The model against
+# its twin with the kernel switch off (`_sdpa` / `rwkv6_ref`).  In bf16
+# the twins differ by a few flipped roundings a layer, and random deep
+# weights amplify them to ~1 logit (rwkv6-7b, PERF.md §6), so a bf16
+# comparison cannot tell a right kernel from one off by a percent.  The
+# twins run in f32 instead (the served bf16 weights cast up), where the
+# kernels differ from the plain versions by f32 summation order.  The
+# plain twin decodes its own greedy tokens; the kernel route is
+# teacher-forced on them, so the two hold the same cache positions and
+# every one of the 17 logit vectors (prefill, 16 decode steps) is
+# compared.  A probe measures how far the model carries the kernels'
+# differences: the kernel route again, each launch's output (and state)
+# moved elementwise by ±e (ξ = ±1, seeded), e the largest |kernel −
+# plain| that this launch showed on its own inputs in the checked run,
+# so every element moves by as much as the kernel moved its worst one.
+# Step s's logits move by Δ_s from the kernel run's, and the kernel run
+# is held to
+#     max |logits_s − plain logits_s| ≤ tol_s = LM_PROBE_FACTOR · Δ_s
+# (the factor 2 covers the spread of a random perturbation's effect).
+# Two logits each move by ≤ tol_s, so the kernel route's argmax must be
+# the plain twin's token wherever the plain top-2 margin exceeds 2·tol_s.
+LM_PROBE_FACTOR = 2.0
+# the WKV state output at rwkv6-7b's head shape and the prompt's length:
+# (B, T, H, hd), input dtype
+WKV_STATE_CASES = {
+    "rwkv6-7b prefill_1k f32": ((1, 1024, 64, 64), "float32"),
+    "rwkv6-7b prefill_1k bf16": ((1, 1024, 64, 64), "bfloat16"),
+    "head dim 96 f32": ((1, 512, 16, 96), "float32"),
+}
+
+
+@contextlib.contextmanager
+def checked_launches(torch, errs: list):
+    """Hold every flash-attention and WKV-scan launch made through
+    `kernels.ops` inside the block against its plain version on the same
+    inputs (ATTN_TOL by dtype, WKV_TOL for the output and the state, atol
+    relative to the output's largest value); append one (max |error| of
+    the output, of the state or None) per launch to `errs`."""
+    from repro_torch.kernels import ops, ref
+    attention, scan = ops.flash_attention, ops.rwkv6_scan
+
+    def held(got, want, tol, what):
+        atol, rtol = tol
+        want = want.float()
+        diff = (got.float() - want).abs()
+        atol *= max(1.0, want.abs().max().item())
+        if (diff - atol - rtol * want.abs()).max().item() > 0 \
+                or not all_finite(got):
+            raise AssertionError(f"{what} launch {len(errs)} disagrees "
+                                 f"with its plain version: max err "
+                                 f"{diff.max().item():.3e}")
+        return diff.max().item()
+
+    def attention_checked(q, k, v, **kw):
+        out = attention(q, k, v, **kw)
+        errs.append((held(out, ref.flash_attention_ref(q, k, v, **kw),
+                          ATTN_TOL[str(q.dtype).removeprefix("torch.")],
+                          "flash_attention"), None))
+        return out
+
+    def scan_checked(r, k, v, logw, u, **kw):
+        res = scan(r, k, v, logw, u, **kw)
+        out, state = res if kw.get("return_state") else (res, None)
+        want, want_state = ref.rwkv6_ref(r, k, v, logw, u)
+        err = held(out, want, WKV_TOL, "rwkv6_scan")
+        errs.append((err, None if state is None else
+                     held(state, want_state, WKV_TOL, "rwkv6_scan state")))
+        return res
+
+    ops.flash_attention, ops.rwkv6_scan = attention_checked, scan_checked
+    try:
+        yield errs
+    finally:
+        ops.flash_attention, ops.rwkv6_scan = attention, scan
+
+
+@contextlib.contextmanager
+def probed_launches(torch, errs: list, seed: int):
+    """Inside the block launch i of flash attention or the WKV scan (in
+    the order of `errs`, which `checked_launches` filled on the same run)
+    returns its output, and its state, each moved elementwise by e·ξ: e
+    that launch's max |error| from `errs`, ξ = ±1 drawn from a generator
+    seeded with `seed`."""
+    from repro_torch.kernels import ops
+    attention, scan = ops.flash_attention, ops.rwkv6_scan
+    gen = torch.Generator("cuda").manual_seed(seed)
+    launch = iter(errs)
+
+    def moved(t, e):
+        sign = torch.randint(0, 2, t.shape, generator=gen, device=t.device,
+                             dtype=torch.float32).mul_(2).sub_(1)
+        return (t.float() + e * sign).to(t.dtype)
+
+    def attention_probed(*a, **kw):
+        return moved(attention(*a, **kw), next(launch)[0])
+
+    def scan_probed(*a, **kw):
+        res = scan(*a, **kw)
+        e_out, e_state = next(launch)
+        if kw.get("return_state"):
+            return moved(res[0], e_out), moved(res[1], e_state)
+        return moved(res, e_out)
+
+    ops.flash_attention, ops.rwkv6_scan = attention_probed, scan_probed
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.rwkv6_scan = attention, scan
+
+
+def lm_kernel_checks(torch, out: dict) -> None:
+    """The two kernels at the shapes the LM path gives them: the WKV scan
+    with its final-state output against `rwkv6_ref(...)` (output and
+    state, WKV_TOL; the output bitwise the output-only launch's), and
+    flash attention at qwen3-4b's prefill, timed."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+
+    def randn(shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)
+                ).to(dtype)
+
+    rows = out.setdefault("rows", {})
+    for name, ((B, T, H, hd), dt) in WKV_STATE_CASES.items():
+        dtype = getattr(torch, dt)
+        print(f"kernel rwkv6_scan with state: {name} (B={B}, T={T}, H={H}, "
+              f"hd={hd}, {dt} inputs)")
+        r, k, v = (randn((B, T, H, hd), dtype, 0.5) for _ in range(3))
+        logw = (-torch.exp(randn((B, T, H, hd)).clamp(-8, 2))).to(dtype)
+        ins = (r, k, v, logw, randn((H, hd), scale=0.5))
+        got, state = rwkv6_scan(*ins, return_state=True)
+        alone = rwkv6_scan(*ins)
+        want, want_state = ref.rwkv6_ref(*ins)
+        torch.cuda.synchronize()
+        if not torch.equal(got, alone):
+            raise AssertionError(f"{name}: the output with the state "
+                                 f"differs from the output-only launch's")
+        err = allclose_err("output vs rwkv6_ref(...)[0]", got, want,
+                           WKV_TOL)
+        err_s = allclose_err("state vs rwkv6_ref(...)[1]", state, want_state,
+                             WKV_TOL)
+        print("  output bitwise the output-only launch's")
+        ms = cuda_ms(torch, lambda t: rwkv6_scan(*t, return_state=True),
+                     [ins], iters=10, warmup=2)
+        dev_ms, dev_how = device_ms_of(
+            torch, functools.partial(rwkv6_scan, return_state=True), ins,
+            "rwkv6_scan_kernel", iters=5)
+        plain = cuda_ms(torch, lambda t: ref.rwkv6_ref(*t), [ins], iters=1,
+                        warmup=0)
+        item = r.element_size()
+        nbytes = B * T * H * hd * (4 * item + 4) + H * hd * 4 \
+            + B * H * hd * hd * 4
+        flops = 5 * B * T * H * hd * hd
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (0.8 * flops / (TF32_FLOP_PER_S / TF32_SPLIT)
+                 + 0.2 * flops / F32_FLOP_PER_S) * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+        print(f"    ms={ms:.5f} device_ms={dev_ms} ({dev_how}) "
+              f"plain_ms(rwkv6_ref)={plain:.5f} library_ms=n/a "
+              f"bound_ms={b_ms:.5f} ({b_by}: {nbytes} bytes; "
+              f"{flops:.4e} FLOP)")
+        rows[("rwkv6_scan_state", name)] = dict(
+            err=max(err, err_s), ms=ms, dev=dev_ms, dev_how=dev_how,
+            plain=plain, lib=None, bound=b_ms, by=b_by,
+            shape=[B, T, H, hd], dtype=dt)
+        del got, state, alone, want, want_state, ins
+
+    # flash attention at qwen3-4b's prefill: 32 query heads over its 8 kv
+    # heads expanded, as the model hands them over
+    import torch.nn.functional as F
+    B, S, H, KV, hd = 1, 2048, 32, 8, 128
+    name = "qwen3-4b prefill_2k bf16"
+    print(f"kernel flash_attention: {name} (B={B}, S={S}, H={H}, kv heads "
+          f"{KV} expanded, hd={hd}) causal")
+    q = randn((B, S, H, hd), torch.bfloat16)
+    k, v = (randn((B, S, KV, hd), torch.bfloat16).repeat_interleave(
+        H // KV, 2) for _ in range(2))
+    got = flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = allclose_err("vs flash_attention_ref", got, want,
+                       ATTN_TOL["bfloat16"])
+    ms = cuda_ms(torch, lambda t: flash_attention(*t), [(q, k, v)],
+                 iters=10, warmup=1)
+    dev_ms, dev_how = device_ms_of(torch, flash_attention, (q, k, v),
+                                   "flash_attention_kernel", iters=5)
+    plain = cuda_ms(torch, lambda t: ref.flash_attention_ref(*t),
+                    [(q, k, v)], iters=3, warmup=1)
+    lib = cuda_ms(torch, lambda t: F.scaled_dot_product_attention(
+        *(a.transpose(1, 2) for a in t), is_causal=True), [(q, k, v)],
+        iters=10, warmup=1)
+    pairs = attention_pairs(S, True, 0) * B * H
+    nbytes = 4 * B * S * H * hd * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * hd * pairs / BF16_FLOP_PER_S * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    print(f"    ms={ms:.5f} device_ms={dev_ms} ({dev_how}) "
+          f"plain_ms={plain:.5f} library_ms(scaled_dot_product_attention)="
+          f"{lib:.5f} bound_ms={b_ms:.5f} ({b_by})")
+    rows[("flash_attention", name)] = dict(
+        err=err, ms=ms, dev=dev_ms, dev_how=dev_how, plain=plain, lib=lib,
+        bound=b_ms, by=b_by, shape=[B, S, H, hd], dtype="bfloat16")
+
+
+def lm_phase(torch, out: dict) -> None:
+    """Each LM_CASES model at full width: init on the card in bf16 as
+    served; a warm-up in which every launch is held against its plain
+    version on its inputs; the served request (prefill of the prompt, 16
+    greedy tokens) on the kernel route with exact launch counts; seconds,
+    tokens per s, peak memory and the idle share of a profiled rerun;
+    then the weights cast to f32 and the kernel route, teacher-forced on
+    the greedy tokens of its twin with the kernel switch off, held to
+    that twin at all 17 steps within LM_PROBE_FACTOR times the probe's
+    logit change; the model freed before the next."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataConfig, make_token_batch
+    from repro_torch.kernels import (kernel_mode, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.models import build_model
+    from repro_torch.models.steps import (make_decode_step, make_prefill_step,
+                                          sample_greedy)
+
+    lm_kernel_checks(torch, out)
+    zero = dict.fromkeys(launch_counts(), 0)
+    counts_all = out.setdefault("counts", dict(zero))
+    for arch, (S, n_steps, kname) in LM_CASES.items():
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        expected = {**zero, kname: cfg.num_layers}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(seed=LM_SEED, dtype=torch.bfloat16,
+                            device="cuda")
+        params.requires_grad_(False)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"lm {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+              f"{n_params} parameters in bf16 "
+              f"({n_params * 2 / 2 ** 30:.2f} GiB), drawn on the card in "
+              f"{time.perf_counter() - t0:.2f} s")
+        data = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                               global_batch=1, seed=LM_SEED)
+        prompt = {"tokens": make_token_batch(data, 0, device="cuda")
+                  ["tokens"]}
+        decode = make_decode_step(model)
+
+        def serve(prefill, steps=n_steps, forced=None):
+            """(prefill s, decode s, logits of each step, tokens fed):
+            greedy tokens, or those of `forced`."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, prompt, cache_len=S + n_steps)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logit_steps, toks = [logits], []
+            for step in range(steps):
+                tok = sample_greedy(logits)[:, None] if forced is None \
+                    else forced[step]
+                toks.append(tok)
+                logits, cache = decode(params, tok, cache)
+                logit_steps.append(logits)
+            torch.cuda.synchronize()
+            return t1 - t0, time.perf_counter() - t1, logit_steps, toks
+
+        def largest(errs):
+            return max(e for pair in errs for e in pair if e is not None)
+
+        def exact_launches(what):
+            counts = launch_counts()
+            on = ", ".join(f"{k}: {n}" for k, n in counts.items() if n)
+            print(f"  {what}: launches {{{on}}} expected {{{kname}: "
+                  f"{cfg.num_layers}}}, every other 0")
+            if counts != expected:
+                raise AssertionError(f"lm {arch} {what}: launch counts "
+                                     f"{counts} != {expected}")
+            return counts
+
+        # the served request, bf16
+        prefill = make_prefill_step(model, cache_dtype=torch.bfloat16)
+        errs: list = []
+        with checked_launches(torch, errs):          # warm-up
+            serve(prefill, steps=1)
+        if len(errs) != cfg.num_layers:
+            raise AssertionError(f"lm {arch}: {len(errs)} launch checks")
+        print(f"  warm-up: {len(errs)} launches each held against its "
+              f"plain version on its inputs, max err {largest(errs):.3e}")
+        reset_launch_counts()
+        pre_s, dec_s, got, _ = serve(prefill)
+        counts = exact_launches("served bf16 run")
+        counts_all[kname] = counts_all.get(kname, 0) + counts[kname]
+        for step, lg in enumerate(got):
+            if lg.shape != (1, cfg.padded_vocab) or not all_finite(lg):
+                raise AssertionError(f"lm {arch} step {step}: bad logits "
+                                     f"{tuple(lg.shape)}")
+        busy = profile_run(torch, lambda: serve(prefill))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall_us = (pre_s + dec_s) * 1e6
+        idle = None if busy is None else 1 - busy / wall_us
+        print(f"  kernel route: prefill {pre_s:.6f} s ({S / pre_s:.1f} "
+              f"tokens/s), decode {dec_s / n_steps:.6f} s per token "
+              f"({n_steps / dec_s:.2f} tokens/s); peak {peak:.2f} GiB; "
+              f"device busy "
+              f"{'not measured' if busy is None else f'{busy:.1f} us'} of "
+              f"{wall_us:.1f} us unprofiled (idle share "
+              f"{'not measured' if idle is None else f'{idle:.4f}'})")
+        del got
+
+        # the twins, f32: the plain route's own greedy stream, the kernel
+        # route teacher-forced on it (each launch checked), then the probe
+        params.float()
+        torch.cuda.empty_cache()
+        prefill = make_prefill_step(model, cache_dtype=torch.float32)
+        reset_launch_counts()
+        with kernel_mode(False):
+            p_pre_s, p_dec_s, want, toks = serve(prefill)
+        if any(launch_counts().values()):
+            raise AssertionError(f"lm {arch}: the switched-off twin "
+                                 f"launched {launch_counts()}")
+        reset_launch_counts()
+        errs = []
+        with checked_launches(torch, errs):
+            got = serve(prefill, forced=toks)[2]
+        exact_launches("f32 kernel route")
+        if len(errs) != cfg.num_layers:
+            raise AssertionError(f"lm {arch}: {len(errs)} launch checks")
+        print(f"  f32 kernel route: {len(errs)} launches each held against "
+              f"its plain version on its inputs, max err {largest(errs):.3e}")
+        with probed_launches(torch, errs, LM_SEED):
+            probe = serve(prefill, forced=toks)[2]
+        compared, worst = 0, 0.0
+        for step, (g, w, p) in enumerate(zip(got, want, probe)):
+            g, w = g.float(), w.float()
+            diff = (g - w).abs().max().item()
+            tol = LM_PROBE_FACTOR * (p.float() - g).abs().max().item()
+            top2 = torch.topk(w[0], 2).values
+            margin = (top2[0] - top2[1]).item()
+            held = margin > 2 * tol
+            same = torch.equal(sample_greedy(g), sample_greedy(w))
+            print(f"  step {step}: max|Δlogit| {diff:.4e} (tol {tol:.4e}, "
+                  f"largest plain logit {w.abs().max().item():.4e}); plain "
+                  f"top-2 margin {margin:.4e}; greedy tokens "
+                  f"{'equal' if same else 'differ'}"
+                  f"{'' if held else ' (margin <= 2·tol: not held)'}")
+            if not diff <= tol or not all_finite(g):
+                raise AssertionError(f"lm {arch} step {step}: logits differ "
+                                     f"by {diff:.4e} > {tol:.4e}")
+            if held and not same:
+                raise AssertionError(f"lm {arch} step {step}: greedy token "
+                                     f"differs at margin {margin:.4e} > "
+                                     f"2·tol")
+            compared += held
+            worst = max(worst, diff / tol if tol else 0.0)
+        print(f"  greedy tokens held at {compared} of {n_steps + 1} steps; "
+              f"largest |Δlogit| / tol {worst:.4f}; plain f32 twin: prefill "
+              f"{p_pre_s:.6f} s, decode {p_dec_s / n_steps:.6f} s per token; "
+              f"{time.perf_counter() - t_arch:.1f} s in all")
+        out.setdefault("runs", {})[arch] = dict(
+            prefill_s=pre_s, decode_s_per_token=dec_s / n_steps,
+            plain_prefill_s=p_pre_s, peak_gib=peak, idle=idle,
+            compared=compared, worst_of_tol=worst)
+        del params, got, want, probe, prompt
+        torch.cuda.empty_cache()
+
+
 def median(values):
     return sorted(values)[len(values) // 2]
 
@@ -4475,7 +4934,7 @@ def tensor_core_instructions(lib) -> dict:
 
 PHASES = ("kernel", "halo", "ring_sweep", "main", "fig2", "large",
           "routes", "ops", "baselines", "faults", "serve", "obs",
-          "admission", "sharded")
+          "admission", "sharded", "lm")
 
 
 def main() -> int:
@@ -4547,6 +5006,7 @@ def main() -> int:
     results: dict = {}
     counts: dict = {}
     ops_out: dict = {}
+    lm_out: dict = {}
     routes: dict = {}
     # the plain versions' matmuls in full f32 for the whole run
     with strict_f32():
@@ -4564,7 +5024,8 @@ def main() -> int:
                 (serve_phase, {"results": results, "counts": counts}),
                 (obs_phase, None),
                 (admission_phase, {"counts": counts}),
-                (sharded_phase, {"counts": counts}))):
+                (sharded_phase, {"counts": counts}),
+                (lm_phase, lm_out))):
             if only and name not in only:
                 continue
             t0 = time.perf_counter()
@@ -4690,19 +5151,34 @@ def main() -> int:
             "shape": [key[0], key[1]], "jobs": key[3], "dtype": "float32",
             "comm": key[2], "job_axis": True,
             "on_main_path": bool(counts.get(name))})
-    # the kernels.ops path's two kernels: not on DAGM's main path; their
-    # launches come from the ops path's run, each row (times and error)
-    # from its check at qwen3-4b (attention, bf16) and rwkv6-7b (wkv)
-    for name, case, src_line in (
+    # rows 7-8: not on DAGM's main path.  Each is on the LM serving path
+    # (the lm phase's prefills: flash attention 36 launches in qwen3-4b,
+    # the WKV scan with its state 32 in rwkv6-7b) and on the kernels.ops
+    # path; `launches` is the lm path's count (the ops path's where the
+    # lm path does not launch it), `launches_by_path` both.  The times and
+    # error come from the check at qwen3-4b's train_4k (attention, bf16)
+    # and rwkv6-7b's (the output-only scan) as before, the state launch's
+    # from its check at rwkv6-7b's prefill, and `lm_case` is the kernel
+    # at the shape the lm path gives it
+    rows_all = {**ops_out["rows"], **lm_out["rows"]}
+    for name, case, lm_case in (
             ("flash_attention", "qwen3-4b train_4k bf16",
-             "src/repro/kernels/flash_attention.py:71"),
-            ("rwkv6_scan", WKV_CASE[0], "src/repro/kernels/rwkv6_scan.py:51")):
-        row = ops_out["rows"][(name, case)]
-        kernels.append({
+             "qwen3-4b prefill_2k bf16"),
+            ("rwkv6_scan", WKV_CASE[0], None),
+            ("rwkv6_scan_state", "rwkv6-7b prefill_1k f32", None)):
+        row = rows_all[(name, case)]
+        by_path = {"kernels.ops": ops_out["counts"].get(name, 0),
+                   "lm": lm_out["counts"].get(name, 0)}
+        src_line = ("src/repro/kernels/flash_attention.py:71"
+                    if name == "flash_attention"
+                    else "src/repro/kernels/rwkv6_scan.py:51")
+        entry = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": "src/repro_torch/kernels/csrc/"
+                      f"{name.removesuffix('_state')}.cu",
             "replaces": src_line,
-            "launches": ops_out["counts"][name],
+            "launches": by_path["lm"] or by_path["kernels.ops"],
+            "launches_by_path": by_path,
             "max_abs_err": row["err"],
             "ms": row["ms"], "device_ms": row["dev"],
             "device_ms_method": row["dev_how"],
@@ -4710,7 +5186,19 @@ def main() -> int:
             "bound_ms": row["bound"], "bound_by": row["by"],
             "library_ms": row["lib"],
             "shape": row["shape"], "dtype": row["dtype"],
-            "case": case, "on_main_path": False})
+            "case": case, "on_main_path": bool(by_path["lm"])}
+        if lm_case is not None:
+            lm_row = rows_all[(name, lm_case)]
+            entry["lm_case"] = {
+                "case": lm_case, "shape": lm_row["shape"],
+                "dtype": lm_row["dtype"], "max_abs_err": lm_row["err"],
+                "ms": lm_row["ms"], "device_ms": lm_row["dev"],
+                "plain_ms": lm_row["plain"], "bound_ms": lm_row["bound"],
+                "bound_by": lm_row["by"], "library_ms": lm_row["lib"]}
+        kernels.append(entry)
+    for name in ("flash_attention", "rwkv6_scan_state"):
+        if not lm_out["counts"].get(name):
+            raise AssertionError(f"{name}: not launched on the lm path")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

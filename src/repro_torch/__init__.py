@@ -26,6 +26,13 @@ counterpart sits where a reader of the JAX package expects it:
                   of jobs gossiping on the kernels' job axis,
   * `obs`       — spans, metrics, export and the flight recorder,
   * `checkpoint` — tensor trees to atomic .npz steps (`repro`'s layout),
+  * `configs`   — the LM workload's architectures (`ArchConfig`),
+  * `data`      — its synthetic token pipeline,
+  * `models`    — its model zoo's serving path (prefill, decode, greedy
+                  sampling), self-attention and the RWKV mix on the
+                  attention and WKV-scan kernels,
+  * `launch`    — device meshes for it (`distributed.sharding` maps its
+                  logical axes onto them),
   * `interop`   — builds port objects from `repro`'s numpy arrays.
 
 The port imports `torch` only.  Entry points run on the CUDA device

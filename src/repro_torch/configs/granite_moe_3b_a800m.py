@@ -1,0 +1,10 @@
+"""granite-moe-3b-a800m [moe] — 32 experts top-8, GQA.
+[hf:ibm-granite/granite-3.0-1b-a400m-base] (assignment: 40e top-8)."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-moe-3b-a800m", family="moe",
+    citation="hf:ibm-granite/granite-3.0-1b-a400m-base",
+    num_layers=32, d_model=1536, num_heads=24, num_kv_heads=8,
+    d_ff=512, vocab_size=49155, num_experts=40, top_k=8,
+)

@@ -228,3 +228,18 @@ def dagm_run_chunk(prob: BilevelProblem, W, cfg, carry,
     if rec is not None:
         return ((x, y), cs, rec), metrics
     return ((x, y), cs), metrics
+
+
+def dagm_comm_bytes(spec, net, d1: int, d2: int,
+                    bytes_per: int = 4) -> int:
+    """Total bytes moved over spec.K rounds: each agent sends its payload
+    to every neighbor each exchange ⇒ 2·|E| directed sends per exchange.
+
+    Computed from the spec's `CommLedger` (`SolverSpec.comm_ledger`);
+    `bytes_per` scales the uncompressed word size (identity wire only)
+    and is ignored once a compressor sets the wire format."""
+    led = spec.comm_ledger(d1, d2)
+    sends = led.network_multiplier(net.num_edges)
+    if spec.comm.spec == "identity":
+        return led.total_floats * bytes_per * sends
+    return led.total_bytes * sends

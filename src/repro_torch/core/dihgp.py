@@ -94,6 +94,20 @@ def dihgp_dense_c(prob: BilevelProblem, W, beta: float,
     return h, st
 
 
+def neumann_truncation_error(prob: BilevelProblem, W, beta: float,
+                             x: Tensor, y: Tensor, U: int) -> Tensor:
+    """‖h_(U) − h_exact‖ — Lemma 6's exponential decay in U (reference
+    tier)."""
+    from .penalty import exact_ihgp
+    return torch.linalg.norm(dihgp_dense(prob, W, beta, x, y, U)
+                             - exact_ihgp(prob, W, beta, x, y))
+
+
+def dihgp_comm_vectors(U: int) -> int:
+    """Vector exchanges per agent per DIHGP call (Appendix S1: U rounds)."""
+    return U
+
+
 # ---------------------------------------------------------------------------
 # Matrix-free tier
 # ---------------------------------------------------------------------------

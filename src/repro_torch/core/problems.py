@@ -431,6 +431,24 @@ def _build_hyper_representation(data: dict, *, hidden: int = 200,
                           mu_g=ridge)
 
 
+def hyperrep_accuracy(prob: BilevelProblem, x: Tensor, y: Tensor) -> float:
+    """Mean validation accuracy across agents for hyper_representation
+    (§6.2, Fig. 4): each agent's backbone x_i and head y_i on its Zval."""
+    di = prob.data
+    d = di["Zval"].shape[-1]
+    hidden = prob.d1 // (d + 1)
+    C = prob.d2 // (hidden + 1)
+
+    def acc_one(x_i, y_i, Z, lab):
+        W1 = x_i[: d * hidden].reshape(d, hidden)
+        Hf = torch.relu(Z @ W1 + x_i[d * hidden:])
+        W2 = y_i[: hidden * C].reshape(hidden, C)
+        pred = torch.argmax(Hf @ W2 + y_i[hidden * C:], dim=-1)
+        return torch.mean((pred == lab).to(torch.float32))
+
+    return float(torch.mean(vmap(acc_one)(x, y, di["Zval"], di["lval"])))
+
+
 # ---------------------------------------------------------------------------
 # 4. Heterogeneous fair loss tuning (§6.3, Fig. 5)
 # ---------------------------------------------------------------------------
@@ -539,3 +557,23 @@ FAMILY_FROM_DATA = {
     "fair_loss_tuning": _build_fair_loss_tuning,
 }
 
+
+def balanced_accuracy(prob: BilevelProblem, y: Tensor) -> float:
+    """Mean over agents of the class-balanced validation accuracy of the
+    linear classifier y_i (§6.3, Fig. 5); classes absent from an agent's
+    Zval do not count."""
+    di = prob.data
+    d = di["Zval"].shape[-1]
+    C = prob.d1
+
+    def acc_one(y_i, Z, lab):
+        Wm = y_i[: d * C].reshape(d, C)
+        pred = torch.argmax(Z @ Wm + y_i[d * C:], dim=-1)
+        onehot = torch.nn.functional.one_hot(lab.long(), C).to(torch.float32)
+        correct = (pred == lab).to(torch.float32)
+        per_class = (onehot * correct[:, None]).sum(0) \
+            / (onehot.sum(0) + 1e-6)
+        present = (onehot.sum(0) > 0).to(torch.float32)
+        return (per_class * present).sum() / present.sum()
+
+    return float(torch.mean(vmap(acc_one)(y, di["Zval"], di["lval"])))

@@ -1,5 +1,7 @@
 // The RWKV6 WKV recurrence on (B, T, H, hd) r, k, v, logw and (H, hd) u,
-// from a zero (hd x hd) state per (batch, head), output f32 (B, T, H, hd):
+// from a zero (hd x hd) state per (batch, head), output f32 (B, T, H, hd)
+// and, where asked for, the final state S_T (B, H, hd, hd) f32 (a model's
+// prefill hands it to decode):
 //
 //   out_t = r_t (S + diag(u) k_t^T v_t),   S <- diag(exp(logw_t)) S + k_t^T v_t
 //
@@ -300,8 +302,8 @@ __global__ void __launch_bounds__(kNT, 2)
     rwkv6_scan_kernel(Operand r, Operand k, Operand v, Operand w,
                       const __grid_constant__ Maps maps,
                       const float* __restrict__ u, float* __restrict__ out,
-                      float* __restrict__ s_dev, int T_len, int H, int hd,
-                      int cw, int cwv, int tma) {
+                      float* __restrict__ s_dev, float* __restrict__ s_out,
+                      int T_len, int H, int hd, int cw, int cwv, int tma) {
   constexpr int MT = CV / 16;     // 16-column m-tiles of the state tile
   constexpr int GQ = kWarps / MT;  // warps sharing an m-tile
   constexpr int NTW = kRT / 8 / GQ;  // 8-row n-tiles of a warp, per unit
@@ -609,6 +611,17 @@ __global__ void __launch_bounds__(kNT, 2)
     }
   }
   cp_async_wait_all();
+  // the final state S_T, where asked for: the tile's columns of every
+  // row, written once after the last chunk (rows of s_out are i, its
+  // columns j)
+  if (s_out != nullptr) {
+    __syncthreads();
+    float* so = s_out + (size_t)bh * hd * hd;
+    for (int e = tid; e < hd * CV; e += kNT) {
+      const int i = e / CV, jj = e % CV;
+      if (jc + jj < hd) so[(size_t)i * hd + jc + jj] = S[(size_t)jj * srows + i];
+    }
+  }
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -663,8 +676,8 @@ bool make_maps(Maps* maps, const Operand* ops, int B, int T_len, int H,
 
 template <typename T, int CV>
 int launch(const Operand* ops, const float* u, float* out, float* s_dev,
-           int B, int T_len, int H, int hd, int cw, int itemsize,
-           cudaStream_t stream) {
+           float* s_out, int B, int T_len, int H, int hd, int cw,
+           int itemsize, cudaStream_t stream) {
   const long long blocks = (long long)B * H * ((hd + CV - 1) / CV);
   const long long bytes = smem_bytes(hd, CV, itemsize, s_dev == nullptr);
   if (blocks > kMaxGrid || bytes > kSmemOptIn) {
@@ -686,20 +699,20 @@ int launch(const Operand* ops, const float* u, float* out, float* s_dev,
     return (int)cudaErrorNotSupported;
   }
   kernel<<<(unsigned)blocks, kNT, (size_t)bytes, stream>>>(
-      ops[0], ops[1], ops[2], ops[3], maps, u, out, s_dev, T_len, H, hd, cw,
-      cwv, (int)tma);
+      ops[0], ops[1], ops[2], ops[3], maps, u, out, s_dev, s_out, T_len, H,
+      hd, cw, cwv, (int)tma);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_cols(int cols, const Operand* ops, const float* u, float* out,
-                  float* s_dev, int B, int T_len, int H, int hd, int cw,
-                  cudaStream_t s) {
+                  float* s_dev, float* s_out, int B, int T_len, int H, int hd,
+                  int cw, cudaStream_t s) {
   constexpr int it = (int)sizeof(T);
   switch (cols) {
-    case 64: return launch<T, 64>(ops, u, out, s_dev, B, T_len, H, hd, cw, it, s);
-    case 32: return launch<T, 32>(ops, u, out, s_dev, B, T_len, H, hd, cw, it, s);
-    case 16: return launch<T, 16>(ops, u, out, s_dev, B, T_len, H, hd, cw, it, s);
+    case 64: return launch<T, 64>(ops, u, out, s_dev, s_out, B, T_len, H, hd, cw, it, s);
+    case 32: return launch<T, 32>(ops, u, out, s_dev, s_out, B, T_len, H, hd, cw, it, s);
+    case 16: return launch<T, 16>(ops, u, out, s_dev, s_out, B, T_len, H, hd, cw, it, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -727,10 +740,12 @@ int copy_bytes(const Operand* ops, int hd, int itemsize) {
 // hd >= 1.  cols: the state tile's columns per block (64, 32 or 16).
 // s_dev: nullptr to hold the state tile in shared memory, else a device
 // scratch of B * H * ceil(hd / cols) * cols * (ceil(hd / 64) * 64 + 4)
-// f32 values.
+// f32 values.  s_out: nullptr, or the final state S_T, (B, H, hd, hd) f32
+// contiguous (S_T[b, h, i, j] multiplies r_i into output column j).
 extern "C" int rwkv6_scan(const void* r, const void* k, const void* v,
                           const void* logw, const float* u, float* out,
-                          float* s_dev, int B, int T_len, int H, int hd,
+                          float* s_dev, float* s_out, int B, int T_len,
+                          int H, int hd,
                           int dtype, int cols, long long r_sb,
                           long long r_st, long long r_sh, long long k_sb,
                           long long k_st, long long k_sh, long long v_sb,
@@ -745,12 +760,13 @@ extern "C" int rwkv6_scan(const void* r, const void* k, const void* v,
                           {logw, {w_sb, w_st, w_sh}}};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    return dispatch_cols<float>(cols, ops, u, out, s_dev, B, T_len, H, hd,
-                                copy_bytes(ops, hd, 4), s);
+    return dispatch_cols<float>(cols, ops, u, out, s_dev, s_out, B, T_len,
+                                H, hd, copy_bytes(ops, hd, 4), s);
   }
   if (dtype == 1) {
-    return dispatch_cols<__nv_bfloat16>(cols, ops, u, out, s_dev, B, T_len,
-                                        H, hd, copy_bytes(ops, hd, 2), s);
+    return dispatch_cols<__nv_bfloat16>(cols, ops, u, out, s_dev, s_out, B,
+                                        T_len, H, hd, copy_bytes(ops, hd, 2),
+                                        s);
   }
   return (int)cudaErrorInvalidValue;
 }

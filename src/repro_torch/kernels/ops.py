@@ -3,7 +3,9 @@ the counterpart of `repro.kernels.ops` — and their on/off switch.
 
   * `ring_laplacian(y, w_self, w_edge)` — (I − W)·Y for a ring W;
   * `attention(q, k, v, *, causal, window)` — softmax attention;
-  * `wkv(r, k, v, logw, u, *, chunk)` — the RWKV6 WKV mix.
+  * `wkv(r, k, v, logw, u, *, chunk, return_state)` — the RWKV6 WKV
+    mix from a zero state, and with `return_state` its final state too
+    (a model's prefill).
 
 Each keeps `repro`'s dispatch rules: with the switch on, the same shape
 conditions send an input to the kernel (`ring_laplacian_matvec` when y
@@ -11,7 +13,7 @@ is f32 with n % 8 == 0, or bf16 with n % 16 == 0, and d % 128 == 0;
 `flash_attention` when S % 128 == 0; `rwkv6_scan` when T % chunk == 0);
 every other input, and every input with the switch off, goes to the
 oracle (`ref.ring_laplacian_ref`, `ref.attention_ref`,
-`ref.rwkv6_ref(...)[0]`).  The kernel route of `attention` has the
+`ref.rwkv6_ref(...)[0]`, or the pair `ref.rwkv6_ref(...)`).  The kernel route of `attention` has the
 kernel's masks (the window holds without causal too) and the oracle's
 does not, exactly as in `repro`.
 
@@ -99,9 +101,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 @strict_f32()
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64
-        ) -> torch.Tensor:
-    """The RWKV6 WKV mix, f32 (B, T, H, hd)."""
+        logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64,
+        return_state: bool = False):
+    """The RWKV6 WKV mix from a zero state, f32 (B, T, H, hd); with
+    `return_state`, (out, S_T) with the final state f32 (B, H, hd, hd)."""
     if _ENABLED and r.shape[1] % chunk == 0:
-        return rwkv6_scan(r, k, v, logw, u, chunk=chunk).to(torch.float32)
-    return ref.rwkv6_ref(r, k, v, logw, u)[0]
+        return rwkv6_scan(r, k, v, logw, u, chunk=chunk,
+                          return_state=return_state)
+    out, state = ref.rwkv6_ref(r, k, v, logw, u)
+    return (out, state) if return_state else out

@@ -5,7 +5,10 @@ kernel).
 `rwkv6_scan(r, k, v, logw, u, *, chunk)` keeps `repro`'s signature
 without `interpret`: r, k, v, logw are (B, T, H, hd), f32 or bf16, u is
 (H, hd); the output is f32 (B, T, H, hd), the recurrence run from a zero
-state.  T must be a multiple of `chunk`, `repro`'s time block; the CUDA
+state.  With `return_state=True` the same launch also writes the final
+state S_T, f32 (B, H, hd, hd), which a model's prefill hands to decode
+(`repro`'s model takes it from its `lax.scan`); it returns (out, S_T),
+and the plain version is `ref.rwkv6_ref(...)`.  T must be a multiple of `chunk`, `repro`'s time block; the CUDA
 kernel scans its own chunks of `WKV_CHUNK` steps, which need not divide
 T.
 
@@ -16,7 +19,8 @@ strides (the last one must be 1) and takes any hd ≥ 1, as `repro`'s
 does: each block holds `plan_wkv_cols` columns of the (hd × hd) state
 over all hd rows, in shared memory where that fits
 (`wkv_smem_bytes`) and else in a device-memory scratch allocated here.
-No autograd.  Launches are counted in `launch_counts()`.
+No autograd.  Launches are counted in `launch_counts()`: those with the
+state output as `rwkv6_scan_state`, the others as `rwkv6_scan`.
 """
 from __future__ import annotations
 
@@ -24,13 +28,14 @@ import torch
 
 from ._cuda_lib import (CARD_SMS, DTYPE_CODE, LL, CudaLibrary, I, P,
                         card_sms, check_operands)
-from .ref import rwkv6_scan_ref
+from .ref import rwkv6_ref, rwkv6_scan_ref
 
 _LIB = CudaLibrary("rwkv6_scan", {
-    # r, k, v, logw, u, out, state scratch, B, T, H, hd, dtype, cols, 3
-    # strides each of r, k, v, logw
-    "rwkv6_scan": (P, P, P, P, P, P, P, I, I, I, I, I, I, *(LL,) * 12)})
-_LAUNCHES = {"rwkv6_scan": 0}
+    # r, k, v, logw, u, out, state scratch, final state, B, T, H, hd,
+    # dtype, cols, 3 strides each of r, k, v, logw
+    "rwkv6_scan": (P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                   *(LL,) * 12)})
+_LAUNCHES = {"rwkv6_scan": 0, "rwkv6_scan_state": 0}
 
 # The kernel's geometry (csrc/rwkv6_scan.cu): chunks of WKV_CHUNK steps,
 # row tiles of WKV_ROWS rows, a ring of WKV_STAGES units, and the state
@@ -78,14 +83,16 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES["rwkv6_scan"] = 0
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               logw: torch.Tensor, u: torch.Tensor, *,
-               chunk: int = 64) -> torch.Tensor:
+               logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64,
+               return_state: bool = False):
     """out_t = r_t (S + diag(u) k_tᵀv_t), S ← diag(e^{logw_t}) S + k_tᵀv_t
-    from S = 0; returns f32 (B, T, H, hd).  T % chunk == 0 is required
+    from S = 0; returns f32 (B, T, H, hd), or (out, S_T) with S_T f32
+    (B, H, hd, hd) where `return_state`.  T % chunk == 0 is required
     (`repro`'s assertion).  The state tile's width is `plan_wkv_cols`',
     and it lives in shared memory where `wkv_smem_bytes` fits
     `WKV_SMEM_BYTES`, else in a device scratch (f32: hd above 512 at 64
@@ -102,6 +109,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if chunk < 1 or T % chunk:
         raise ValueError(f"T = {T} must be a multiple of chunk = {chunk}")
     if r.device.type == "cpu":
+        if return_state:
+            return rwkv6_ref(r, k, v, logw, u)
         return rwkv6_scan_ref(r, k, v, logw, u, chunk=chunk)
     cols = plan_wkv_cols(B, H, hd, card_sms(r.device))
     shared = wkv_smem_bytes(hd, cols, r.element_size()) <= WKV_SMEM_BYTES
@@ -110,11 +119,17 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scratch = None if shared else torch.empty(
         B * H * -(-hd // cols) * cols * wkv_state_rows(hd),
         dtype=torch.float32, device=r.device)
+    state = torch.empty((B, H, hd, hd), dtype=torch.float32,
+                        device=r.device) if return_state else None
     strides = [s for t in (r, k, v, logw) for s in t.stride()[:3]]
     _LIB.launch("rwkv6_scan", r.device, r.data_ptr(), k.data_ptr(),
                 v.data_ptr(), logw.data_ptr(), u32.data_ptr(),
                 out.data_ptr(), None if scratch is None
-                else scratch.data_ptr(), B, T, H, hd, DTYPE_CODE[r.dtype],
+                else scratch.data_ptr(), None if state is None
+                else state.data_ptr(), B, T, H, hd, DTYPE_CODE[r.dtype],
                 cols, *strides)
-    _LAUNCHES["rwkv6_scan"] += 1
-    return out
+    if state is None:
+        _LAUNCHES["rwkv6_scan"] += 1
+        return out
+    _LAUNCHES["rwkv6_scan_state"] += 1
+    return out, state

@@ -669,9 +669,15 @@ def _schedule(pkg):
     finally:
         mp.undo()
     spent = {t: led.spent(t) for t in ("acme", "beta")}
-    return dict(log=log, events=events, spent=spent, results=results,
-                preemptions=obs_mod.counter_value("serve_preemptions_total"),
-                buckets=loop.stats.buckets, traces=loop.stats.traces)
+    out = dict(log=log, events=events, spent=spent, results=results,
+               preemptions=obs_mod.counter_value("serve_preemptions_total"),
+               buckets=loop.stats.buckets, traces=loop.stats.traces)
+    # the process-default tracer and metrics of `repro.obs` outlive this
+    # module (`_fresh_obs` resets only the port's): leave them empty for
+    # the JAX package's tests that run later in this process
+    obs_mod.tracer().clear()
+    obs_mod.reset_metrics()
+    return out
 
 
 @pytest.fixture(scope="module")

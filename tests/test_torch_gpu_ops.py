@@ -238,8 +238,8 @@ def test_launch_errors_raise(cuda):
     for hd, cols in ((0, 64), (-1, 64), (64, 8)):
         with pytest.raises(RuntimeError, match="launch failed"):
             twkv._LIB.launch("rwkv6_scan", q.device, *(q.data_ptr(),) * 5,
-                             out.data_ptr(), None, 1, 128, 1, hd, 0, cols,
-                             *(0,) * 12)
+                             out.data_ptr(), None, None, 1, 128, 1, hd, 0,
+                             cols, *(0,) * 12)
     z = torch.zeros((1, 128, 1, 264), device=cuda)
     with pytest.raises(ValueError, match="up to 256"):
         tfa.flash_attention(z, z, z)

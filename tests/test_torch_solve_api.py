@@ -177,7 +177,15 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.serve.admission.quotas', "
         "'repro_torch.distributed.collectives', "
         "'repro_torch.distributed.dagm_sharded', "
-        "'repro_torch.optim.optimizers')\n"
+        "'repro_torch.optim.optimizers', 'repro_torch.configs', "
+        "'repro_torch.configs.base', 'repro_torch.configs.qwen3_4b', "
+        "'repro_torch.data', 'repro_torch.data.synthetic', "
+        "'repro_torch.models', 'repro_torch.models.layers', "
+        "'repro_torch.models.ssm', 'repro_torch.models.moe', "
+        "'repro_torch.models.transformer', 'repro_torch.models.whisper', "
+        "'repro_torch.models.model_zoo', 'repro_torch.models.steps', "
+        "'repro_torch.launch', 'repro_torch.launch.mesh', "
+        "'repro_torch.distributed.sharding')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
