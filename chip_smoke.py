@@ -190,7 +190,30 @@ Phases, in order (any failure exits non-zero before the last line):
                `rwkv6_ref` at rwkv6-7b's head shape (f32, bf16 inputs,
                and hd 96) and flash attention at qwen3-4b's prefill
                shape, timed;
- 14. the kernel list as one JSON line, then the device JSON line last.
+ 14. train   — the LM trainer (`models.steps.make_train_step`,
+               `launch/`): AdamW on qwen3-4b at its published widths,
+               depth 4 (1.18e9 parameters, f32), 6 steps of B 8 × S 512
+               in 2 microbatches: losses finite and falling, step
+               seconds, tokens/s, the model-FLOPs share (6·N·D, N
+               without the input embedding) and the traced FLOPs' share
+               of the f32 peak, peak memory, the
+               idle share, no kernel launched in the step; the reduced
+               model's step on the card against the CPU; the launcher
+               (`launch.train.main --smoke`) run, checkpointed and
+               resumed; the paper's bilevel LM round
+               (`launch.dagm_dryrun.build_dagm_bilevel` through
+               `make_sharded_dagm` on LocalRing(4)) at qwen3-4b's widths,
+               depth 1, bf16, 2 rounds on the identity wire and 2 on
+               int8+ef: every gossip on rows 3 / 3f, exact launch counts,
+               each launch bitwise its plain version, wire bytes equal to
+               `sharded_comm_ledger`, no flash-attention launch; on the
+               identity wire near its run with the kernel switch off;
+               the timed rounds' y and metrics bitwise the counted
+               ones', x within 2^-20; seconds per
+               round, peak, idle share, losses, consensus_x; one dry-run
+               line (`launch.dryrun.run_one("qwen3-4b", "train_4k")` on
+               the meta device) beside the measured step;
+ 15. the kernel list as one JSON line, then the device JSON line last.
 
 Imports torch and the port only; needs no network.
 """
@@ -4724,13 +4747,527 @@ def lm_phase(torch, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the LM trainer and the paper's decentralized bilevel LM round
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-4b"
+# the AdamW step: qwen3-4b's published widths at depth 4 (1.18e9
+# parameters, f32), a global batch of 8 × 512 tokens in 2 microbatches
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 512, 2, 6
+# the launcher's default rate (at 1e-3 a step moved the logits of the
+# 2560-wide unembedding by ~2 and the loss rose before it fell, on the
+# H100)
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
+TRAIN_TIMED = 4             # the step time is the median of the last 4
+# card against CPU: the reduced model's step, tests/test_torch_train.py's
+# rate and tolerance (the two sum in other orders; AdamW's normalised
+# update carries that into the parameters in proportion to the rate)
+TRAIN_TWIN_LR, TRAIN_TOL = 3e-4, dict(rtol=1e-4, atol=1e-5)
+LAUNCH_STEPS, LAUNCH_RESUMED = 8, 12
+# the bilevel LM round: 4 agents on one card (rows 3 / 3f), qwen3-4b at
+# its widths and depth 1 in bf16 (one f32 tree is ~14 GB at n = 4, and a
+# round holds ~8), B·S per agent cut to 2 × 128; examples/train_lm_dagm.py's
+# step sizes and loops
+LM_DAGM_AGENTS, LM_DAGM_BATCH, LM_DAGM_SEQ, LM_DAGM_ROUNDS = 4, 2, 128, 2
+LM_DAGM_SPEC = dict(alpha=0.3, beta=0.1, M=2, U=2, curvature=8.0)
+LM_DAGM_COMMS = ("identity", "int8+ef")
+LM_DAGM_CHUNK = 1 << 24     # columns a plain-version check holds at once
+# the switch-off twin sums each bf16 gossip in bf16 where the kernels (and
+# their plain versions) sum in f32 and round once: per launch ~1-2 bf16
+# ulps apart (3.9e-3 at these leaves), which two rounds carried to 0.92 %
+# of y's leaves and 1.8e-4 of the losses (on the H100); held at 2^-5 =
+# 3.1 %, a check of the route (the kernels are held bitwise in (a)).
+# x and the DIHGP's metrics pass through an ill-conditioned solve (the
+# hyper-gradient grows 1e5-fold in round 1 at these widths: curvature 8
+# does not bound the LM's Hessian) and are printed, not held
+LM_DAGM_OFF_REL = 2.0 ** -5
+# two runs of one route from the same draw: y and every metric bitwise;
+# after the train step's runs, the first run's x_D (the log weight
+# decay, whose hyper-gradient sums h·y over every leaf) stood 1-2 ulps
+# from the later runs' in one agent (2.8e-14 at 4.5e-7, 1.8e-12 at
+# 8.8e-6, with either regulariser; on the H100), and not without the
+# train step first: x is held to 2^-20 relative, 8 ulps
+LM_DAGM_X_RTOL = 2.0 ** -20
+
+
+def train_step_run(torch, out: dict) -> None:
+    """make_train_step on qwen3-4b at depth TRAIN_LAYERS: the losses of
+    TRAIN_STEPS AdamW steps (finite, falling), the step seconds (median of
+    the last TRAIN_TIMED), tokens per s, the model-FLOPs share, peak
+    memory, the idle share of a profiled step, and no kernel launched."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data import TokenDataConfig, make_token_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.costs import (forward_flops,
+                                          model_flops_convention,
+                                          reduced_depth)
+    from repro_torch.launch.mesh import H100_PEAK_FLOPS_BF16
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import param_tree
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import adamw, cosine_schedule
+
+    cfg = reduced_depth(get_config(TRAIN_ARCH), TRAIN_LAYERS)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = param_tree(model.init(seed=0, device="cuda"))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # the input embedding is a gather: 6·N·D counts the rest
+    n_matmul = n_params - sum(t.numel() for t in tree_leaves(params["embed"]))
+    opt = adamw(cosine_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    state = opt.init(params)
+    step = make_train_step(model, opt, microbatches=TRAIN_MICRO)
+    data = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=0)
+    batches = [make_token_batch(data, s, device="cuda")
+               for s in range(TRAIN_STEPS)]
+    print(f"train {TRAIN_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{n_params} parameters f32 ({n_params * 4 / 2 ** 30:.2f} GiB); "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} microbatches; "
+          f"adamw(cosine_schedule({TRAIN_LR}, {TRAIN_WARMUP}, "
+          f"{TRAIN_STEPS}))")
+    reset_launch_counts()
+    losses, seconds = [], []
+    for s, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        print(f"  step {s}: loss {losses[-1]:.6f} ({seconds[-1]:.6f} s)")
+    launched = {k: n for k, n in launch_counts().items() if n}
+    if launched:
+        raise AssertionError(f"train: the step launched {launched}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses} not finite and "
+                             f"falling")
+    step_s = median(seconds[-TRAIN_TIMED:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    model_flops = model_flops_convention(cfg, shape, n_matmul)
+    step_flops = 3 * forward_flops(cfg, TRAIN_SEQ, ctx=TRAIN_SEQ,
+                                   batch=TRAIN_BATCH)
+    busy = profile_run(torch, lambda: step(params, state, batches[-1]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    idle = None if busy is None else 1 - busy / (step_s * 1e6)
+    print(f"  step {step_s:.6f} s (median of the last {TRAIN_TIMED}: "
+          f"{' '.join(f'{t:.6f}' for t in seconds[-TRAIN_TIMED:])}), "
+          f"{tokens / step_s:.1f} tokens/s; model FLOPs 6·N·D with N "
+          f"{n_matmul} (the parameters outside the input embedding) "
+          f"{model_flops:.4e}: {model_flops / step_s / 1e12:.2f} TFLOP/s, "
+          f"{model_flops / step_s / H100_PEAK_FLOPS_BF16:.4f} of the bf16 "
+          f"peak, {model_flops / step_s / F32_FLOP_PER_S:.4f} of the f32 "
+          f"peak (the step runs in f32 without TF32); traced-equivalent "
+          f"{step_flops:.4e} FLOP ({step_flops / step_s / 1e12:.2f} "
+          f"TFLOP/s, {step_flops / step_s / F32_FLOP_PER_S:.4f} of the f32 "
+          f"peak); peak {peak:.2f} GiB; idle share "
+          f"{'not measured' if idle is None else f'{idle:.4f}'}; "
+          f"launches {{}}")
+    out["step"] = dict(seconds=step_s, tokens_per_s=tokens / step_s,
+                       model_flops=model_flops, step_flops=step_flops,
+                       peak_gib=peak, idle=idle, losses=losses)
+    del params, state, batches
+    torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu(torch) -> None:
+    """The reduced qwen3-4b step on the card against the same step on the
+    CPU from the same draw: 2 steps (microbatches 2), f32 (TF32 off),
+    losses, parameters and AdamW moments to TRAIN_TOL."""
+    from torch.utils._pytree import tree_flatten, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataConfig, make_token_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import param_tree
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import adamw, cosine_schedule
+
+    cfg = get_config(TRAIN_ARCH).reduced()
+    model = build_model(cfg)
+    data = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                           global_batch=4, seed=0)
+    runs = {}
+    cpu_params = param_tree(model.init(seed=0, device="cpu"))
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev), cpu_params)
+        opt = adamw(cosine_schedule(TRAIN_TWIN_LR, 1, 4))
+        state = opt.init(params)
+        step = make_train_step(model, opt, microbatches=2)
+        losses = []
+        for s in range(2):
+            params, state, m = step(params, state,
+                                    make_token_batch(data, s, device=dev))
+            losses.append(m["loss"].cpu())
+        runs[dev] = (losses, params, state.mu, state.nu)
+    worst = 0.0
+    for what, got, want in zip(("losses", "params", "mu", "nu"),
+                               runs["cuda"], runs["cpu"]):
+        for g, w in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
+            g = g.cpu()
+            torch.testing.assert_close(g, w, **TRAIN_TOL)
+            worst = max(worst, (g - w).abs().max().item())
+    print(f"  card vs CPU, reduced {TRAIN_ARCH}, 2 steps f32: losses, "
+          f"parameters and moments within rtol {TRAIN_TOL['rtol']} atol "
+          f"{TRAIN_TOL['atol']} (largest |difference| {worst:.3e})")
+
+
+def train_launcher_run(torch) -> None:
+    """`launch.train.main` on the card: --smoke for LAUNCH_STEPS steps with
+    checkpoints, then resumed from `latest_step` to LAUNCH_RESUMED."""
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import train
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    argv = ["--arch", TRAIN_ARCH, "--smoke", "--device", "cuda",
+            "--ckpt-dir", ckpt, "--ckpt-every", "4", "--log-every", "4"]
+    try:
+        for steps, restored in ((LAUNCH_STEPS, None),
+                                (LAUNCH_RESUMED, LAUNCH_STEPS)):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                code = train.main(argv + ["--steps", str(steps)])
+            text = buf.getvalue()
+            for line in text.splitlines():
+                print(f"  {line}")
+            print(f"  launcher exit {code}, latest_step "
+                  f"{latest_step(ckpt)}, {time.perf_counter() - t0:.1f} s")
+            if code != 0 or latest_step(ckpt) != steps:
+                raise AssertionError(f"train launcher: exit {code}, latest "
+                                     f"step {latest_step(ckpt)} != {steps}")
+            if restored and f"restored step {restored}" not in text:
+                raise AssertionError("train launcher: no resume")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def sparse_gossips(torch, record: list, errs: list | None = None):
+    """Every sparse gather that `MixingOp` launches inside the block:
+    (operand shape, dtype, comm) appended to `record`.  With `errs`, each
+    launch is held bitwise against its plain version on the same inputs
+    (a plain gather by LM_DAGM_CHUNK columns at a time; a comm-fused one
+    with its payload), and the largest |difference| between its output
+    and the switch-off route's arithmetic on those inputs (a bf16 operand
+    summed in bf16; a compressed one composed as `MixingOp` composes it)
+    is appended to `errs`."""
+    from repro_torch.kernels import ref
+    from repro_torch.topology import ops
+    real = ops.sparse_mix_matvec
+
+    def checked(y, w_self, nbr, wts, zp=None, scale=None, seed=None,
+                hat=None, *, laplacian=False, comm=None):
+        res = real(y, w_self, nbr, wts, zp, scale, seed, hat,
+                   laplacian=laplacian, comm=comm)
+        record.append((tuple(y.shape), y.dtype, comm or "identity"))
+        out = res[0] if isinstance(res, tuple) else res
+        if errs is not None:
+            e = 0.0
+            if comm in (None, "identity"):
+                for c0 in range(0, y.shape[1], LM_DAGM_CHUNK):
+                    yc = y[:, c0:c0 + LM_DAGM_CHUNK]
+                    want = ref.sparse_mix_padded_ref(
+                        yc.float(), w_self, nbr, wts, laplacian).to(y.dtype)
+                    got = out[:, c0:c0 + LM_DAGM_CHUNK]
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"sparse_mix_matvec {tuple(y.shape)} "
+                            f"{y.dtype}: not bitwise its plain version")
+                    off = ref.sparse_mix_padded_ref(yc, w_self, nbr, wts,
+                                                    laplacian)
+                    e = max(e, (got.float() - off.float()).abs().max()
+                            .item())
+            else:
+                want = ref.sparse_mix_fused_ref(
+                    y, w_self, nbr, wts, zp, scale, seed, hat,
+                    laplacian=laplacian, bits=int(comm[3]))
+                if not all(torch.equal(g, w) for g, w in zip(
+                        res if isinstance(res, tuple) else (res,),
+                        want if isinstance(want, tuple) else (want,))):
+                    raise AssertionError(f"sparse_mix_matvec {comm}: not "
+                                         f"bitwise its plain version")
+                pay = ref._payload(y, zp, scale, seed, hat, int(comm[3]))
+                off = ref.sparse_mix_padded_ref(pay, w_self, nbr, wts) \
+                    + w_self[:, None] * (y - pay)
+                off = y - off if laplacian else off
+                e = (out - off).abs().max().item()
+            errs.append(e)
+        return res
+
+    ops.sparse_mix_matvec = checked
+    try:
+        yield record
+    finally:
+        ops.sparse_mix_matvec = real
+
+
+def lm_dagm_rounds(torch, out: dict) -> None:
+    """`build_dagm_bilevel` through `make_sharded_dagm` on LocalRing(4) at
+    qwen3-4b's widths, depth 1, bf16: LM_DAGM_ROUNDS rounds on each wire
+    from the same draw, (a) every gossip launch recorded and held bitwise
+    against its plain version, exact launch counts (rows 3 / 3f, one a
+    leaf a gossip; no flash-attention launch), the wire bytes equal to
+    `sharded_comm_ledger`; on the identity wire, (b) the kernel switch
+    off (`kernel_mode(False)` around the step, whose gossips sum a bf16
+    operand in bf16): each leaf of y and the losses within
+    LM_DAGM_OFF_REL, x and the DIHGP's metrics printed (int8+ef's
+    launches are held one by one in (a); its y gossips compose the
+    quantizer with the same row-3 launches, its x gossip is row 3f);
+    (c) timed: seconds per round, its metrics and every leaf of y
+    bitwise (a)'s, x within LM_DAGM_X_RTOL, then one more round
+    profiled for the idle share;
+    peak, the losses, consensus_x.  All under deterministic algorithms;
+    the runs' results are compared on the card, leaf by leaf, against a
+    pinned host copy of (a)'s.  (a) holds each launch bitwise its plain
+    version on its own inputs, so a run through `plain_versions()`
+    would hold the kernels to nothing more."""
+    from torch.utils._pytree import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (LocalRing, make_sharded_dagm,
+                                         round_channels,
+                                         sharded_comm_ledger,
+                                         sharded_policy)
+    from repro_torch.kernels import (kernel_mode, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.launch import dagm_dryrun as dd
+    from repro_torch.launch.costs import reduced_depth
+    from repro_torch.models import build_model
+    from repro_torch.solve import sharded_spec
+
+    n = LM_DAGM_AGENTS
+    cfg = reduced_depth(get_config(TRAIN_ARCH), 1)
+    model = build_model(cfg)
+    # one agent's autodiff at a time: four agents' HVPs at once do not fit
+    ring = LocalRing(n, device="cuda", agent_chunk=1)
+    batches = [dd.agent_batches(cfg, n, LM_DAGM_SEQ, LM_DAGM_BATCH, k,
+                                device="cuda")
+               for k in range(LM_DAGM_ROUNDS + 1)]
+    zero = dict.fromkeys(launch_counts(), 0)
+    counts_all = out.setdefault("counts", dict(zero))
+    torch.cuda.empty_cache()
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+
+    def leaves_of(x, y):
+        return [x] + tree_flatten(y)[0]
+
+    try:
+        for comm in LM_DAGM_COMMS:
+            spec = sharded_spec(comm=comm, **LM_DAGM_SPEC)
+            pol = sharded_policy(spec)
+            g_fn, f_fn = dd.build_dagm_bilevel(
+                cfg, seq_len=LM_DAGM_SEQ, batch_per_agent=LM_DAGM_BATCH,
+                dcfg=spec)
+            step, _ = make_sharded_dagm(g_fn, f_fn, spec, ring)
+
+            def run(timed=None, rounds=LM_DAGM_ROUNDS):
+                """(x, y) on the card after `rounds` rounds from the seeded
+                draw, and each round's metrics."""
+                y = dd.init_agents(model, n, seed=0, dtype=torch.bfloat16,
+                                   device="cuda")
+                x = torch.zeros((n, dd.N_DOMAINS + 1), device="cuda")
+                metrics = []
+                for k in range(rounds):
+                    ch = round_channels(spec, x, y, 0, k)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    # the round's returned channels are not kept: their
+                    # EF replicas are two model-sized trees
+                    x, y, m = step(x, y, batches[k], ch)[:3]
+                    torch.cuda.synchronize()
+                    if timed is not None:
+                        timed.append(time.perf_counter() - t0)
+                    metrics.append({k_: float(v) for k_, v in m.items()})
+                return x, y, metrics
+
+            one = tree_flatten(dd.init_agents(
+                model, 1, dtype=torch.bfloat16, device="meta"))[0]
+            L = len(one)
+            led = sharded_comm_ledger(
+                spec, torch.empty(dd.N_DOMAINS + 1, device="meta"),
+                [t[0] for t in one])
+            # (a) the counted run, kept in pinned host memory
+            record, errs = [], []
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            with sparse_gossips(torch, record, errs):
+                x, y, metrics = run()
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            got = []
+            for t in leaves_of(x, y):
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                got.append(host.copy_(t))
+            del x, y
+            gossips = spec.M + spec.U
+            fused = pol.stochastic          # x's outer gossip on row 3f
+            want = {**zero, "sparse_mix_matvec": LM_DAGM_ROUNDS * (
+                gossips * L + (1 if fused else 2))}
+            if fused:
+                want["sparse_mix_matvec_comm"] = LM_DAGM_ROUNDS
+            on = {k: v for k, v in counts.items() if v}
+            print(f"  {comm}: {L} leaves; launches {on} (expected "
+                  f"{ {k: v for k, v in want.items() if v} }); "
+                  f"{len(errs)} launches each bitwise its plain version; "
+                  f"peak {peak:.2f} GiB")
+            if counts != want or len(record) != sum(want.values()):
+                raise AssertionError(f"lm dagm {comm}: launches {counts} "
+                                     f"!= {want}")
+            for k_, v in counts.items():
+                counts_all[k_] = counts_all.get(k_, 0) + v
+            per_round = len(record) // LM_DAGM_ROUNDS
+            wire = 0
+            for r in range(LM_DAGM_ROUNDS):
+                launches = record[r * per_round:(r + 1) * per_round]
+                shape_c, _, comm_c = launches[-1]   # the consensus mix
+                if shape_c != (n, dd.N_DOMAINS + 1) or comm_c != "identity":
+                    raise AssertionError(f"lm dagm: the round's last launch "
+                                         f"{launches[-1]} is not the "
+                                         f"consensus mix")
+                wire += sum(pol.compressor.payload_bytes((s[1],))
+                            for s, _, _ in launches[:-1])
+            if wire != led.total_bytes * LM_DAGM_ROUNDS or any(
+                    m["comm_sends"] != led.total_sends() for m in metrics):
+                raise AssertionError(f"lm dagm {comm}: wire bytes {wire} "
+                                     f"!= ledger {led.total_bytes} x "
+                                     f"{LM_DAGM_ROUNDS}")
+            print(f"  wire bytes per agent {wire // LM_DAGM_ROUNDS} a round "
+                  f"= sharded_comm_ledger {led.total_bytes} "
+                  f"({led.total_sends()} sends); flash_attention launches "
+                  f"{counts.get('flash_attention', 0)}")
+            if comm == "identity":
+                # (b) the switch-off twin: its bf16 gossips sum in bf16
+                with kernel_mode(False):
+                    x, y, off_m = run()
+                rel = {f"y{i}": norm_rel(d, h) for i, (h, d) in
+                       enumerate(zip(got[1:], leaves_of(x, y)[1:]))}
+                for r, (g, o) in enumerate(zip(metrics, off_m)):
+                    rel.update((f"round {r} {key}", abs(o[key] - g[key])
+                                / abs(g[key])) for key in
+                               ("outer_loss", "inner_loss"))
+                shown = {"x": norm_rel(x, got[0])}
+                for r, (g, o) in enumerate(zip(metrics, off_m)):
+                    shown.update((f"round {r} {key}", abs(o[key] - g[key])
+                                  / max(abs(g[key]), 1e-30)) for key in
+                                 ("hypergrad_norm", "consensus_x"))
+                del x, y
+                worst = max(rel, key=rel.get)
+                print(f"  vs the switch-off run: each leaf of y and the "
+                      f"losses within {rel[worst]:.4e} relative ({worst}; "
+                      f"held at {LM_DAGM_OFF_REL}); per-launch |kernel - "
+                      f"switch-off arithmetic| up to {max(errs):.3e}")
+                print("    " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                         {**rel, **shown}.items()))
+                if not rel[worst] <= LM_DAGM_OFF_REL:
+                    raise AssertionError(f"lm dagm {comm}: the switch-off "
+                                         f"run's {worst} differs by "
+                                         f"{rel[worst]:.4e}")
+            # (c) timed, then one more round profiled
+            seconds = []
+            torch.cuda.reset_peak_memory_stats()
+            x, y, timed_m = run(timed=seconds)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            apart = {}
+            for i, (h, d) in enumerate(zip(got, leaves_of(x, y))):
+                h = h.to("cuda", non_blocking=True)
+                if not torch.equal(h, d):
+                    apart[f"y{i - 1}" if i else "x"] = (
+                        (h != d).sum().item(),
+                        (h.float() - d.float()).abs().max().item())
+            x_far = ((x - got[0].to("cuda")).abs()
+                     > LM_DAGM_X_RTOL * got[0].to("cuda").abs()).any()
+            del got
+            if set(apart) - {"x"} or x_far or timed_m != metrics:
+                raise AssertionError(
+                    f"lm dagm {comm}: the timed run is not the counted "
+                    f"run: leaves apart (elements, largest |difference|) "
+                    f"{apart} (x held to {LM_DAGM_X_RTOL} relative); "
+                    f"metrics {timed_m} against {metrics}")
+            k = LM_DAGM_ROUNDS
+            ch = round_channels(spec, x, y, 0, k)
+            busy = profile_run(torch, lambda: step(x, y, batches[k], ch))
+            del x, y, ch
+            idle = None if busy is None else \
+                1 - busy / (median(seconds) * 1e6)
+            for r, m in enumerate(timed_m):
+                print(f"  round {r}: {seconds[r]:.6f} s, outer loss "
+                      f"{m['outer_loss']:.6f}, inner loss "
+                      f"{m['inner_loss']:.6f}, consensus_x "
+                      f"{m['consensus_x']:.4e}, hypergrad_norm "
+                      f"{m['hypergrad_norm']:.4e}")
+            if timed_m != metrics or not all(
+                    math.isfinite(v) for m in timed_m for v in m.values()):
+                raise AssertionError(f"lm dagm {comm}: the timed run's "
+                                     f"metrics differ or are not finite")
+            print(f"  {comm}: the timed run's y and metrics bitwise the "
+                  f"counted run's, x "
+                  f"{'bitwise' if 'x' not in apart else apart['x']}")
+            print(f"  {comm}: {median(seconds):.6f} s per round (median of "
+                  f"{LM_DAGM_ROUNDS}); peak {peak:.2f} GiB; idle share of "
+                  f"round {k} "
+                  f"{'not measured' if idle is None else f'{idle:.4f}'}")
+            out.setdefault("dagm", {})[comm] = dict(
+                seconds=seconds, peak_gib=peak, idle=idle,
+                launches={k_: v for k_, v in want.items() if v},
+                wire_bytes=led.total_bytes, metrics=timed_m)
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+
+
+def train_dryrun_line(torch, out: dict) -> None:
+    """`launch.dryrun.run_one("qwen3-4b", "train_4k")` on the meta device,
+    its roofline terms beside the measured step scaled to the same
+    per-device FLOPs."""
+    from repro_torch.launch.dryrun import run_one
+    res = run_one(TRAIN_ARCH, "train_4k")
+    if not res.ok:
+        raise AssertionError(f"dry run: {res.error}")
+    rf = res.roofline()
+    step = out["step"]
+    scaled = step["seconds"] * res.flops / step["step_flops"]
+    print(f"  dry run {TRAIN_ARCH} train_4k (16x16, {res.microbatches} "
+          f"microbatches, traced in {res.compile_s:.1f} s): per device "
+          f"{res.flops:.4e} FLOP, {res.hbm_bytes_accessed:.4e} bytes of "
+          f"traced operands, peak {res.peak_memory_per_device / 1e9:.2f} "
+          f"GB, collectives {sum(res.collective_bytes.values()):.4e} "
+          f"bytes; roofline compute {rf['compute_s']:.6f} s, memory "
+          f"{rf['memory_s']:.6f} s, collective {rf['collective_s']:.6f} s "
+          f"({rf['bottleneck']}); the measured step (f32, no TF32, one "
+          f"card) scaled to the same FLOPs {scaled:.6f} s, "
+          f"{scaled / rf['compute_s']:.1f}x the compute term")
+
+
+def train_phase(torch, out: dict) -> None:
+    """The LM trainer and the paper's bilevel LM round (the module
+    docstring's phase 14)."""
+    t0 = time.perf_counter()
+    train_step_run(torch, out)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    train_card_vs_cpu(torch)
+    train_launcher_run(torch)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    lm_dagm_rounds(torch, out)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    train_dryrun_line(torch, out)
+
+
 def median(values):
     return sorted(values)[len(values) // 2]
 
 
-# passes of `time_in_turns`: three keep the whole run within ~800 s on a
-# slow host
-TURNS = 3
+# passes of `time_in_turns`: two (three before the train phase, whose
+# time they paid for); the median of two is their larger
+TURNS = 2
 
 
 def time_in_turns(torch, timed: dict, rounds: int = K) -> dict:
@@ -4804,25 +5341,38 @@ def plain_versions():
     """MixingOp with every kernel wrapper replaced by its plain PyTorch
     version, run on the card's tensors: the same solve, same device,
     same autodiff, without the kernels."""
+    import torch
     from repro_torch.kernels import ref
     from repro_torch.topology import ops
 
     def host(table):      # MixingOp passes host tuples or device tables
         return table.tolist() if hasattr(table, "tolist") else list(table)
 
+    def by_columns(fn, y):
+        """fn(y) column slab by column slab (each column's result is its
+        own: the same bits), so that an LM leaf's f32 plain version holds
+        one slab at a time; a bf16 operand is summed in f32 and rounded
+        once, as the kernel."""
+        out = torch.empty_like(y)
+        for c0 in range(0, y.shape[1], LM_DAGM_CHUNK):
+            cols = slice(c0, c0 + LM_DAGM_CHUNK)
+            out[:, cols] = fn(y[:, cols].float()).to(y.dtype)
+        return out
+
     def circ(y, zp=None, scale=None, seed=None, hat=None, *, w_self,
              offsets, weights, laplacian=False, comm=None):
         kw = dict(w_self=w_self, offsets=host(offsets),
                   weights=host(weights), laplacian=laplacian)
         if comm in (None, "identity"):
-            return ref.circulant_mix_ref(y, **kw)
+            return by_columns(lambda t: ref.circulant_mix_ref(t, **kw), y)
         return ref.circulant_mix_fused_ref(y, zp, scale, seed, hat,
                                            bits=int(comm[3]), **kw)
 
     def sparse(y, w_self, nbr, wts, zp=None, scale=None, seed=None,
                hat=None, *, laplacian=False, comm=None):
         if comm in (None, "identity"):
-            return ref.sparse_mix_padded_ref(y, w_self, nbr, wts, laplacian)
+            return by_columns(lambda t: ref.sparse_mix_padded_ref(
+                t, w_self, nbr, wts, laplacian), y)
         return ref.sparse_mix_fused_ref(y, w_self, nbr, wts, zp, scale,
                                         seed, hat, laplacian=laplacian,
                                         bits=int(comm[3]))
@@ -4934,7 +5484,7 @@ def tensor_core_instructions(lib) -> dict:
 
 PHASES = ("kernel", "halo", "ring_sweep", "main", "fig2", "large",
           "routes", "ops", "baselines", "faults", "serve", "obs",
-          "admission", "sharded", "lm")
+          "admission", "sharded", "lm", "train")
 
 
 def main() -> int:
@@ -4945,6 +5495,13 @@ def main() -> int:
                         help="run only these phases (a probe: no kernel "
                              "list and no result line)")
     only = parser.parse_args().phase
+    # cuBLAS reads its workspace setting when it starts; the train phase's
+    # deterministic runs need a fixed one (32 MiB, as PyTorch's own default
+    # on this card), so it is set before anything touches cuBLAS
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # the bilevel LM round holds ~8 parameter trees of 7 GB on the card;
+    # growable segments keep the allocator's free blocks usable for them
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -5007,6 +5564,7 @@ def main() -> int:
     counts: dict = {}
     ops_out: dict = {}
     lm_out: dict = {}
+    train_out: dict = {}
     routes: dict = {}
     # the plain versions' matmuls in full f32 for the whole run
     with strict_f32():
@@ -5025,7 +5583,8 @@ def main() -> int:
                 (obs_phase, None),
                 (admission_phase, {"counts": counts}),
                 (sharded_phase, {"counts": counts}),
-                (lm_phase, lm_out))):
+                (lm_phase, lm_out),
+                (train_phase, train_out))):
             if only and name not in only:
                 continue
             t0 = time.perf_counter()
@@ -5103,6 +5662,10 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/mixing_matvec.cu",
             "replaces": f"{src}:{line}",
             "launches": counts[name],
+            # the DAGM paths' launches, and the train path's (the bilevel
+            # LM round on LocalRing(4): rows 3 / 3f)
+            "launches_by_path": {"dagm": counts[name],
+                                 "train": train_out["counts"].get(name, 0)},
             "max_abs_err": max(r["err"] for k, r in results[name].items()
                                if k[2] != "bfloat16"),
             "ms": row["ms"], "device_ms": row["dev"],
@@ -5199,6 +5762,9 @@ def main() -> int:
     for name in ("flash_attention", "rwkv6_scan_state"):
         if not lm_out["counts"].get(name):
             raise AssertionError(f"{name}: not launched on the lm path")
+    for name in ("sparse_mix_matvec", "sparse_mix_matvec_comm"):
+        if not train_out["counts"].get(name):
+            raise AssertionError(f"{name}: not launched on the train path")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

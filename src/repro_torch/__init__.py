@@ -28,11 +28,13 @@ counterpart sits where a reader of the JAX package expects it:
   * `checkpoint` — tensor trees to atomic .npz steps (`repro`'s layout),
   * `configs`   — the LM workload's architectures (`ArchConfig`),
   * `data`      — its synthetic token pipeline,
-  * `models`    — its model zoo's serving path (prefill, decode, greedy
-                  sampling), self-attention and the RWKV mix on the
-                  attention and WKV-scan kernels,
+  * `models`    — its model zoo: serving (prefill, decode, greedy
+                  sampling; self-attention and the RWKV mix on the
+                  attention and WKV-scan kernels) and the training step,
   * `launch`    — device meshes for it (`distributed.sharding` maps its
-                  logical axes onto them),
+                  logical axes onto them), its cost model, training
+                  launcher and dry runs, and the decentralized bilevel LM
+                  round,
   * `interop`   — builds port objects from `repro`'s numpy arrays.
 
 The port imports `torch` only.  Entry points run on the CUDA device

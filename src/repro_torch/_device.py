@@ -13,8 +13,10 @@ def resolve_device(device=None) -> torch.device:
 
     Raises RuntimeError when CUDA is asked for (explicitly or by
     default) and no card is present — the port never carries on on the
-    CPU unless ``device="cpu"`` was passed.  Sets no global state: the
-    entry points keep float32 in full precision inside `strict_f32`."""
+    CPU unless ``device="cpu"`` was passed.  ``"meta"`` is taken too: a
+    dry run (`repro_torch.launch.dryrun`) traces the entry points on it
+    and allocates nothing.  Sets no global state: the entry points keep
+    float32 in full precision inside `strict_f32`."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -23,8 +25,9 @@ def resolve_device(device=None) -> torch.device:
                 "available; pass device='cpu' to run on the CPU")
         if dev.index is None:        # "cuda" names the current card
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; expected cuda, cpu "
+                         f"or meta")
     return dev
 
 

@@ -34,7 +34,7 @@ import math
 
 import torch
 
-from ..kernels.ref import hash_uniform, quantize
+from ..kernels.ref import _PAYLOAD_BLOCK, hash_uniform, quantize
 
 F32_BYTES = 4
 BF16_BYTES = 2
@@ -135,15 +135,26 @@ class StochasticQuantCompressor(Compressor):
     bits: int = 8
 
     def roundtrip(self, x, seed=None, row=0):
-        flat = _rows(x).float()
-        zp, scale = row_quant_params(flat, self.bits)
+        flat = _rows(x)
         n, size = flat.shape
         dev = flat.device
-        u = hash_uniform(int(seed),
-                         torch.arange(row, row + n, device=dev)[:, None],
-                         torch.arange(size, device=dev)[None, :])
-        out = quantize(flat, zp, scale, u, float(2 ** self.bits - 1))
-        return out.to(x.dtype).reshape(x.shape)
+        # the wire metadata depends on each row's extremes only, and the
+        # code is elementwise: blocks of columns keep the f32 and int64
+        # temporaries of a parameter-sized row near _PAYLOAD_BLOCK
+        # elements, bit for bit the whole-row roundtrip
+        zp, scale = row_quant_params(torch.cat(
+            [flat.amin(1, keepdim=True), flat.amax(1, keepdim=True)], 1)
+            .float(), self.bits)
+        rows = torch.arange(row, row + n, device=dev)[:, None]
+        out = torch.empty_like(flat)
+        step = max(1, _PAYLOAD_BLOCK // max(n, 1))
+        for c0 in range(0, size, step):
+            c1 = min(size, c0 + step)
+            u = hash_uniform(int(seed), rows,
+                             torch.arange(c0, c1, device=dev)[None, :])
+            out[:, c0:c1] = quantize(flat[:, c0:c1].float(), zp, scale, u,
+                                     float(2 ** self.bits - 1)).to(x.dtype)
+        return out.reshape(x.shape)
 
     def payload_bytes(self, shape) -> int:
         codes = math.ceil(_payload_size(shape) * self.bits / 8)

@@ -124,7 +124,10 @@ def compressed_payload(policy: CommPolicy, x, st: ChannelState,
     if seed is None:
         seed = send_seed(st.seed, st.sends)
     if policy.ef:
-        payload = st.hat + policy.compressor.roundtrip(x - st.hat, seed)
+        payload = policy.compressor.roundtrip(x - st.hat, seed)
+        # hat + C(x − hat), the sum in place where no gradient is taken
+        payload = st.hat + payload if payload.requires_grad \
+            else payload.add_(st.hat)
         hat = payload
     else:
         payload = policy.compressor.roundtrip(x, seed)

@@ -126,14 +126,22 @@ class _LeafOp(MixingOp):
 
 class LocalRing:
     """All n agents on one device (see module docstring).  `device`:
-    CUDA unless the caller names another."""
+    CUDA unless the caller names another.  `agent_chunk`: how many agents'
+    autodiff `per_agent` runs at once (None: all n), each chunk's results
+    written into the stacked outputs — an LM's per-agent gradients and
+    HVPs hold several parameter trees each, which n at once may not fit
+    on one card."""
 
     stacked = True
 
-    def __init__(self, n: int, device=None):
+    def __init__(self, n: int, device=None, agent_chunk: int | None = None):
         if n < 1:
             raise ValueError(f"a ring needs n >= 1 agents, got {n}")
+        if agent_chunk is not None and agent_chunk < 1:
+            raise ValueError(f"agent_chunk must be None or >= 1, got "
+                             f"{agent_chunk}")
         self.n = int(n)
+        self.agent_chunk = agent_chunk
         self.device = resolve_device(device)
         self.w = RingWeights.metropolis_ring(self.n)
         self._W = self.w.matrix()
@@ -191,7 +199,23 @@ class LocalRing:
 
         def call(*args):
             dims = tuple(None if a is None else 0 for a in args)
-            return vmap(fn, in_dims=dims)(*args)
+            k = self.agent_chunk
+            if k is None or k >= self.n:
+                return vmap(fn, in_dims=dims)(*args)
+            # agent_chunk agents at a time, each chunk's results written
+            # into the stacked outputs as they come
+            out = None
+            for a in range(0, self.n, k):
+                rows = slice(a, a + k)
+                part = vmap(fn, in_dims=dims)(*(
+                    None if x is None else tree_map(lambda t: t[rows], x)
+                    for x in args))
+                if out is None:
+                    out = tree_map(lambda t: t.new_empty(
+                        (self.n,) + tuple(t.shape[1:])), part)
+                tree_map(lambda o, p: o[rows].copy_(p), out, part)
+                del part
+            return out
         return call
 
     def agent_sum(self, t: torch.Tensor) -> torch.Tensor:

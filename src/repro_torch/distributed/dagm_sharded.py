@@ -22,12 +22,13 @@ per-round coefficients (tier="sharded").
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 from torch.func import grad, jvp
-from torch.utils._pytree import tree_flatten
+from torch.utils._pytree import tree_flatten, tree_map
 
 from .collectives import (ring_laplacian, ring_laplacian_c, ring_mix_c,
                           tadd, taxpy, tdot, tscale, tsub)
@@ -83,11 +84,22 @@ def _check_spec(spec) -> None:
             "Hessians)")
 
 
+def _zero_hats(st):
+    """The channel with its EF replicas at zero, each leaf's zeros one
+    element broadcast to the leaf's shape: a model's replica tree is
+    gigabytes, and the first send replaces it with the payload."""
+    if st.hat is None:
+        return st
+    return dataclasses.replace(st, hat=tree_map(
+        lambda t: t.new_zeros(()).expand(t.shape), st.hat))
+
+
 def _open(spec, x, y, seeds: dict) -> dict:
     from ..comm import channel_init
     pol = sharded_policy(spec)
     tpl = {"inner_y": y, "dihgp_h": y, "outer_x": x}
-    return {name: channel_init(pol, name, tpl[name], seeds[name])
+    return {name: _zero_hats(channel_init(pol, name, tpl[name],
+                                          seeds[name]))
             for name in CHANNELS}
 
 
@@ -146,7 +158,7 @@ def dagm_local_round(g_fn: Callable, f_fn: Callable, spec, ring,
     grad_x_f = agent(grad(f_fn, argnums=0))
     grad_y_f = agent(grad(f_fn, argnums=1))
     st_y = channels["inner_y"]
-    st_h = channels["dihgp_h"].reset_hat()
+    st_h = _zero_hats(channels["dihgp_h"])        # h restarts at zero
     st_x = channels["outer_x"]
 
     # ---- inner loop: y ← W y − β ∇_y g  (Eq. 15/16), M steps ----
@@ -157,6 +169,8 @@ def dagm_local_round(g_fn: Callable, f_fn: Callable, spec, ring,
         else:
             mixed = y
         y = taxpy(neg_beta, grad_y_g(x, y, batch), mixed)
+        # each tree dropped when done: an LM's are several GB
+        del mixed
 
     # ---- DIHGP (Alg. 1, scalar-preconditioned, matrix-free) ----
     def hvp_one(xi, yi, bi, vi):
@@ -166,10 +180,16 @@ def dagm_local_round(g_fn: Callable, f_fn: Callable, spec, ring,
     p = grad_y_f(x, y, batch)
     h = tscale(neg_inv_d, p)
     for _ in range(spec.U):
+        # the HVP before the gossip: its autodiff, the round's largest
+        # live set, then holds no gossip output beside it
+        hvp_h = hvp(x, y, batch, h)
         lap, st_h = ring_laplacian_c(h, ring, pol, st_h)
-        bh_mix = taxpy(beta, hvp(x, y, batch, h), lap)
+        bh_mix = taxpy(beta, hvp_h, lap)
+        del hvp_h, lap
         bh = tsub(tscale(d, h), bh_mix)                       # B̃ h
+        del bh_mix
         h = tscale(inv_d, tsub(bh, p))
+        del bh
 
     # ---- outer hyper-gradient (Eq. 17b) and step ----
     def cross_one(xi, yi, bi, hi):

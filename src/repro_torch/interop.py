@@ -22,6 +22,12 @@ port's state dict, so both packages run one model on identical weights:
     params = build_model(cfg).init(device="meta")
     params.load_state_dict(state, assign=True)
 
+`stack_layers` / `unstack_layers` convert a parameter tree
+(`models.layers.param_tree`) to and from `repro`'s layout, the layers
+of `blocks` / `enc_layers` / `dec_layers` stacked on a leading axis:
+the trainer checkpoints the stacked tree, so `repro.checkpoint` restores
+the port's files into `repro`'s own parameter template.
+
 This module imports nothing of `repro`; the caller converts.
 """
 from __future__ import annotations
@@ -85,6 +91,34 @@ def _leaves(tree):
 def _index(tree, i: int):
     return {k: _index(v, i) if isinstance(v, dict) else np.asarray(v)[i]
             for k, v in tree.items()}
+
+
+def stack_layers(tree: dict) -> dict:
+    """`repro`'s layout of a port parameter tree: each per-layer list of
+    `blocks` / `enc_layers` / `dec_layers` stacked on a leading axis."""
+    def stack(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stack([lay[k] for lay in layers]) for k in first}
+        return torch.stack(layers)
+    return {k: stack(v) if k in _STACKED and isinstance(v, list)
+            else stack_layers(v) if isinstance(v, dict) else v
+            for k, v in tree.items()}
+
+
+def unstack_layers(tree: dict) -> dict:
+    """The inverse of `stack_layers`: the stacked layers as a list of
+    per-layer trees (views of the stacked tensors)."""
+    def take(t, i):
+        return {k: take(v, i) for k, v in t.items()} \
+            if isinstance(t, dict) else t[i]
+    out = {}
+    for k, v in tree.items():
+        if k in _STACKED and isinstance(v, dict):
+            out[k] = [take(v, i) for i in range(next(_leaves(v)).shape[0])]
+        else:
+            out[k] = unstack_layers(v) if isinstance(v, dict) else v
+    return out
 
 
 def load_lm_params(cfg, params: dict, *, device=None) -> dict:

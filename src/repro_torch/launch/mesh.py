@@ -9,8 +9,10 @@ one-rank group on this process (gloo on the CPU, NCCL on a card) when
 none is initialised, as the tests and examples need.  Both are functions,
 so importing this module touches no process group.
 
-The roofline constants are the card's: an NVIDIA H100 SXM's HBM3 rate
-and dense bf16 tensor-core peak (data sheet, at its 700 W limit).
+The roofline constants are the card's: an NVIDIA H100 SXM's HBM3 rate,
+dense bf16 tensor-core peak and NVLink rate (data sheet, at its 700 W
+limit: NVLink 4, 900 GB/s per GPU in both directions together, so 450
+GB/s each way).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch.distributed as dist
 
 H100_PEAK_FLOPS_BF16 = 989e12     # FLOP/s, dense
 H100_HBM_BYTES_PER_S = 3.35e12    # bytes/s
+H100_NVLINK_BYTES_PER_S = 450e9   # bytes/s, one direction
 
 
 def _free_port() -> int:

@@ -55,6 +55,20 @@ class ParamTree(nn.Module):
         return getattr(self, name)
 
 
+def param_tree(module: nn.Module):
+    """A `ParamTree`'s parameters as a plain tree — dicts, lists (for a
+    `ModuleList`) and detached tensors sharing the parameters' storage —
+    which every model function takes in the module's place, and which
+    `repro_torch.optim` and `torch.func` map over (the trainer's and the
+    decentralized LM round's parameter trees)."""
+    if isinstance(module, nn.ModuleList):
+        return [param_tree(m) for m in module]
+    tree = {name: p.detach()
+            for name, p in module.named_parameters(recurse=False)}
+    tree.update((name, param_tree(m)) for name, m in module.named_children())
+    return tree
+
+
 class Maker:
     """Parameter factory: each call draws one parameter from the seeded
     generator (normal × scale, default 1/√fan_in with fan_in = shape[0];

@@ -16,7 +16,7 @@ Serving (`prefill`, `decode_step`) runs without autograd.  The
 attention and WKV kernels have no backward, so a `loss` that would
 build a gradient through a kernel route raises (the wrappers refuse
 operands that require grad); take it under `torch.no_grad()` or with the
-kernel switch off.
+kernel switch off, as `steps.make_train_step` does.
 """
 from __future__ import annotations
 

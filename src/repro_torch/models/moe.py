@@ -99,7 +99,10 @@ def _moe_dispatch(p: Params, xt, cfg):
     order = torch.argsort(flat_e, stable=True)
     se, st, sg = flat_e[order], flat_t[order], flat_g[order]
     # rank within expert group = position - group start
-    counts = torch.bincount(se, minlength=E)
+    # (an index_add_ of ones rather than bincount, which the meta device
+    # of the dry run cannot trace; the counts are exact integers either way)
+    counts = torch.zeros(E, dtype=se.dtype, device=se.device).index_add_(
+        0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.arange(T * k, device=xt.device) - starts[se]
     keep = slot < C                                            # drop overflow

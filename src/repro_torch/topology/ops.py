@@ -551,7 +551,13 @@ class MixingOp:
                                        self._next_seed(st))
         mixed = self._apply(y_hat, laplacian=False)
         expand = (slice(None),) + (None,) * (y.dim() - 1)
-        mixed = mixed + self._diag[expand].to(y.dtype) * (y - y_hat)
+        diag = self._diag[expand].to(y.dtype)
+        if mixed.requires_grad or y.requires_grad:
+            mixed = mixed + diag * (y - y_hat)
+        else:
+            # the same products and sum, in place: a model-sized leaf
+            # then holds one temporary fewer
+            mixed.add_((y - y_hat).mul_(diag))
         return (y - mixed) if laplacian else mixed, st
 
     @strict_f32()

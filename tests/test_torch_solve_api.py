@@ -185,7 +185,9 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.models.transformer', 'repro_torch.models.whisper', "
         "'repro_torch.models.model_zoo', 'repro_torch.models.steps', "
         "'repro_torch.launch', 'repro_torch.launch.mesh', "
-        "'repro_torch.distributed.sharding')\n"
+        "'repro_torch.distributed.sharding', 'repro_torch.launch.costs', "
+        "'repro_torch.launch.train', 'repro_torch.launch.dryrun', "
+        "'repro_torch.launch.dagm_dryrun', 'repro_torch.interop')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
