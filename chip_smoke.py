@@ -175,9 +175,10 @@ Phases, in order (any failure exits non-zero before the last line):
  13. lm      — the LM serving path (`repro_torch.models`) at full
                width in bf16, one model at a time: qwen3-4b (36 layers,
                d 2560) prefills a 2,048-token synthetic prompt on the
-               flash-attention kernel (36 launches) and rwkv6-7b (32
-               layers, d 4096) a 1,024-token one on the WKV scan with
-               its final state (32 launches), then 16 greedy tokens
+               flash-attention kernel (36 launches) and rwkv6-7b (d
+               4096, depth cut from 32 layers to 16) a 1,024-token one
+               on the WKV scan with its final state (16 launches), then
+               16 greedy tokens
                each; every launch held against its plain version on its
                inputs, exact launch counts, prefill seconds, decode
                seconds per token, peak memory, idle share; then the
@@ -200,7 +201,11 @@ Phases, in order (any failure exits non-zero before the last line):
                idle share, no kernel launched in the step; the reduced
                model's step on the card against the CPU; the launcher
                (`launch.train.main --smoke`) run, checkpointed and
-               resumed; the paper's bilevel LM round
+               resumed; the step on DTensor parameters at qwen3-4b's
+               widths, depth 2, on a (data 1, model 2) mesh of two
+               threads (torch's threaded process group) against the
+               one-process step: losses, first-step gradients, shard
+               shapes, the collectives per step; the paper's bilevel LM round
                (`launch.dagm_dryrun.build_dagm_bilevel` through
                `make_sharded_dagm` on LocalRing(4)) at qwen3-4b's widths,
                depth 1, bf16, 2 rounds on the identity wire and 2 on
@@ -208,8 +213,8 @@ Phases, in order (any failure exits non-zero before the last line):
                each launch bitwise its plain version, wire bytes equal to
                `sharded_comm_ledger`, no flash-attention launch; on the
                identity wire near its run with the kernel switch off;
-               the timed rounds' y and metrics bitwise the counted
-               ones', x within 2^-20; seconds per
+               the timed rounds' x, y and metrics bitwise the counted
+               ones'; seconds per
                round, peak, idle share, losses, consensus_x; one dry-run
                line (`launch.dryrun.run_one("qwen3-4b", "train_4k")` on
                the meta device) beside the measured step;
@@ -4355,14 +4360,18 @@ def sharded_phase(torch, out: dict) -> None:
 # The LM serving path (`repro_torch.models`: `Model.prefill`, greedy
 # `decode_step`) at the full width of two configurations the repo ships
 # (src/repro_torch/configs), weights in bf16 as served, drawn on the card
-# from a seeded generator; depth cut to one prompt (B = 1) and 16 greedy
+# from a seeded generator; cut to one prompt (B = 1) and 16 greedy
 # tokens.  qwen3-4b's prefill takes the flash-attention kernel in each of
 # its 36 layers, rwkv6-7b's the WKV scan with its final state in each of
-# its 32.
+# its layers.
 LM_CASES = {
-    # arch: (prompt tokens, greedy decode steps, prefill kernel counter)
-    "qwen3-4b": (2048, 16, "flash_attention"),
-    "rwkv6-7b": (1024, 16, "rwkv6_scan_state"),
+    # arch: (prompt tokens, greedy decode steps, prefill kernel counter,
+    # layers: None for the configuration's depth)
+    "qwen3-4b": (2048, 16, "flash_attention", None),
+    # each checked launch's plain version walks the prompt step by step:
+    # 16 of the 32 layers leave room in the run's time for the train
+    # phase's model-parallel step
+    "rwkv6-7b": (1024, 16, "rwkv6_scan_state", 16),
 }
 LM_SEED = 0
 # Tolerances.  (1) Every launch on the path is held against its plain
@@ -4599,6 +4608,7 @@ def lm_phase(torch, out: dict) -> None:
     from repro_torch.data import TokenDataConfig, make_token_batch
     from repro_torch.kernels import (kernel_mode, launch_counts,
                                      reset_launch_counts)
+    from repro_torch.launch.costs import reduced_depth
     from repro_torch.models import build_model
     from repro_torch.models.steps import (make_decode_step, make_prefill_step,
                                           sample_greedy)
@@ -4606,9 +4616,11 @@ def lm_phase(torch, out: dict) -> None:
     lm_kernel_checks(torch, out)
     zero = dict.fromkeys(launch_counts(), 0)
     counts_all = out.setdefault("counts", dict(zero))
-    for arch, (S, n_steps, kname) in LM_CASES.items():
+    for arch, (S, n_steps, kname, layers) in LM_CASES.items():
         t_arch = time.perf_counter()
         cfg = get_config(arch)
+        if layers is not None:
+            cfg = reduced_depth(cfg, layers)
         model = build_model(cfg)
         expected = {**zero, kname: cfg.num_layers}
         torch.cuda.empty_cache()
@@ -4783,13 +4795,6 @@ LM_DAGM_CHUNK = 1 << 24     # columns a plain-version check holds at once
 # hyper-gradient grows 1e5-fold in round 1 at these widths: curvature 8
 # does not bound the LM's Hessian) and are printed, not held
 LM_DAGM_OFF_REL = 2.0 ** -5
-# two runs of one route from the same draw: y and every metric bitwise;
-# after the train step's runs, the first run's x_D (the log weight
-# decay, whose hyper-gradient sums h·y over every leaf) stood 1-2 ulps
-# from the later runs' in one agent (2.8e-14 at 4.5e-7, 1.8e-12 at
-# 8.8e-6, with either regulariser; on the H100), and not without the
-# train step first: x is held to 2^-20 relative, 8 ulps
-LM_DAGM_X_RTOL = 2.0 ** -20
 
 
 def train_step_run(torch, out: dict) -> None:
@@ -4949,6 +4954,251 @@ def train_launcher_run(torch) -> None:
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
+# the model-parallel step: qwen3-4b's widths at depth 2 (f32, TF32 off), a
+# global batch of 4 × 512 in 2 microbatches, 2 AdamW steps at 3e-4, on a
+# (data 1, model 2) mesh whose two ranks are two threads of this process in
+# torch's threaded process group (one card holds no NCCL group of two
+# ranks), against the one-process step on the same batch: the losses
+# within 1e-4 relative, the first step's gradients within 1e-4 of each
+# leaf's largest element
+MP_LAYERS, MP_BATCH, MP_SEQ, MP_MICRO, MP_STEPS, MP_LR = 2, 4, 512, 2, 2, 3e-4
+MP_WORLD, MP_LOSS_RTOL, MP_GRAD_TOL, MP_JOIN_S = 2, 1e-4, 1e-4, 600
+
+
+def threaded_ranks(torch, world: int, fn) -> list:
+    """[fn(rank)] with each rank a thread of this process in torch's
+    threaded process group (its ranks' collectives are tensor ops on the
+    same card).  A rank's failure wakes the others and fails the call."""
+    import threading
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import multi_threaded_pg as mt
+    isolate = torch._C._distributed_c10d._set_thread_isolation_mode
+    if dist.is_initialized():
+        raise AssertionError("threaded ranks: a process group exists")
+    hook = sys.excepthook           # each rank's init chains its own
+    isolate(True)
+    mt._install_threaded_pg()
+    store = dist.HashStore()
+    results, errors = [None] * world, []
+
+    def body(rank):
+        # each thread's group lives in the threaded world, which
+        # `_uninstall_threaded_pg` drops whole (torch 2.11's
+        # `destroy_process_group` cannot read that world)
+        try:
+            dist.init_process_group("threaded", rank=rank, world_size=world,
+                                    store=store)
+            results[rank] = fn(rank)
+        except BaseException as e:          # reported below, after join
+            errors.append((rank, e))
+            mt.ProcessLocalGroup.exception_handle(e)
+
+    threads = [threading.Thread(target=body, args=(r,), daemon=True)
+               for r in range(world)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(MP_JOIN_S)
+        hung = [r for r, t in enumerate(threads) if t.is_alive()]
+    finally:
+        mt.ProcessLocalGroup.reset()
+        mt._uninstall_threaded_pg()
+        isolate(False)
+        sys.excepthook = hook
+    if hung:
+        raise AssertionError(f"threaded ranks {hung} did not finish in "
+                             f"{MP_JOIN_S} s")
+    if errors:
+        rank, err = errors[0]
+        raise AssertionError(f"threaded rank {rank} failed: {err!r}") from err
+    return results
+
+
+def comm_bytes_mode(torch):
+    """A `CommDebugMode` that also sums each collective's tensor operand
+    bytes by kind (`.bytes`)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils._pytree import tree_leaves
+
+    class CommBytes(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            kind = func.__name__.split(".")[0]
+            if out is not NotImplemented and getattr(func, "namespace", "") \
+                    in ("_c10d_functional", "c10d_functional", "c10d") \
+                    and not kind.startswith(("wait", "_")):
+                self.bytes[kind] = self.bytes.get(kind, 0) + sum(
+                    t.numel() * t.element_size()
+                    for t in tree_leaves((args, kwargs))
+                    if isinstance(t, torch.Tensor))
+            return out
+
+    return CommBytes()
+
+
+def train_model_parallel(torch, out: dict) -> None:
+    """`make_train_step(rules=)` on DTensor parameters (`distribute_params`
+    on `tree_param_sharding`'s placements) at qwen3-4b's widths, two
+    ranks in threads (`threaded_ranks`) on a (data 1, model 2) mesh,
+    against the one-process step run first and freed: each step's loss
+    within MP_LOSS_RTOL relative, the first step's gradients (taken as
+    the step takes them, then gathered) within MP_GRAD_TOL of each leaf's
+    largest element, each leaf's local shard the shape its placements
+    give; the step seconds (two ranks on one card: not a speed), peak
+    memory, and each step's collectives by kind and bytes
+    (`CommDebugMode`) beside `launch.dryrun.train_collective_bytes`."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data import TokenDataConfig, make_token_batch
+    from repro_torch.distributed.sharding import (distribute_params,
+                                                  make_rules,
+                                                  replicate_plain_tensors,
+                                                  use_rules)
+    from repro_torch.kernels import kernel_mode
+    from repro_torch.launch.costs import reduced_depth
+    from repro_torch.launch.dryrun import MeshShape, train_collective_bytes
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import param_tree
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = reduced_depth(get_config(TRAIN_ARCH), MP_LAYERS)
+    model = build_model(cfg)
+    axes = model.param_axes()
+    data = TokenDataConfig(vocab_size=cfg.vocab_size, seq_len=MP_SEQ,
+                           global_batch=MP_BATCH, seed=0)
+    batches = [make_token_batch(data, s, device="cuda")
+               for s in range(MP_STEPS)]
+
+    def first_grads(params, batch, rules):
+        leaves, spec = tree_flatten(params)
+        live = [t.detach().requires_grad_() for t in leaves]
+        with use_rules(rules), replicate_plain_tensors(), \
+                kernel_mode(False):
+            loss, _ = model.loss(tree_unflatten(live, spec), batch)
+            grads = torch.autograd.grad(loss, live)
+        if rules is None:
+            return list(grads)
+        return [g.redistribute(p.device_mesh, p.placements)
+                for g, p in zip(grads, leaves)]
+
+    # the one-process step, then freed
+    torch.cuda.empty_cache()
+    params = param_tree(model.init(seed=0, device="cuda"))
+    ref_grads = first_grads(params, batches[0], None)
+    opt = adamw(MP_LR)
+    state = opt.init(params)
+    step = make_train_step(model, opt, microbatches=MP_MICRO)
+    ref_losses = []
+    for batch in batches:
+        params, state, metrics = step(params, state, batch)
+        ref_losses.append(float(metrics["loss"]))
+    del params, state, step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+
+    def rank_fn(rank):
+        mesh = init_device_mesh("cuda", (1, MP_WORLD),
+                                mesh_dim_names=("data", "model"))
+        rules = make_rules(cfg, mesh)
+        params = distribute_params(param_tree(model.init(seed=0,
+                                                         device="cuda")),
+                                   axes, rules)
+        names = list(axes)
+        wrong = []
+        for name, t in zip(names, tree_flatten(params)[0]):
+            want = list(t.shape)
+            for i, p in enumerate(t.placements):
+                if isinstance(p, Shard):
+                    want[p.dim] //= mesh.size(i)
+            if list(t.to_local().shape) != want:
+                wrong.append((name, list(t.to_local().shape), want))
+        feed = lambda b: {k: DTensor.from_local(
+            v, mesh, rules.placements("batch", None), run_check=False)
+            for k, v in b.items()}
+        grads = first_grads(params, feed(batches[0]), rules)
+        worst = (0.0, "")
+        for name, g, r in zip(names, grads, ref_grads):
+            e = ((g.full_tensor() - r).abs().max()
+                 / r.abs().max().clamp(min=1e-30)).item()
+            worst = max(worst, (e, name))
+        del grads
+        opt = adamw(MP_LR)
+        state = opt.init(params)
+        step = make_train_step(model, opt, microbatches=MP_MICRO,
+                               rules=rules)
+        losses, seconds, comms = [], [], []
+        for batch in batches:
+            mode = comm_bytes_mode(torch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mode:
+                params, state, metrics = step(params, state, feed(batch))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            comms.append(({str(k).split(".")[-1]: v for k, v in
+                           mode.get_comm_counts().items()}, mode.bytes))
+        return dict(wrong=wrong, worst=worst, losses=losses,
+                    seconds=seconds, comms=comms)
+
+    # the kernel switch is one flag for the process, and each rank's step
+    # saves it, turns it off and restores it: two threads doing so at once
+    # left it off after them on the card, so it is off around them
+    with kernel_mode(False):
+        runs = threaded_ranks(torch, MP_WORLD, rank_fn)
+    wall = time.perf_counter() - t_all
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del ref_grads
+    torch.cuda.empty_cache()
+    res = runs[0]
+    rules = make_rules(cfg, MeshShape.of({"data": 1, "model": MP_WORLD}))
+    shapes = {n: tuple(t.shape) for n, t in
+              model.init(device="meta").named_parameters()}
+    planned = train_collective_bytes(
+        cfg, InputShape("train", MP_SEQ, MP_BATCH, "train"), rules, axes,
+        shapes, MP_MICRO)
+    print(f"  model parallel, {TRAIN_ARCH} depth {MP_LAYERS} f32, mesh "
+          f"(data 1, model {MP_WORLD}) in {MP_WORLD} threads "
+          f"(threaded process group), B {MP_BATCH} x {MP_SEQ} in "
+          f"{MP_MICRO} microbatches, adamw({MP_LR}): losses "
+          f"{res['losses']} (one process {ref_losses}); first-step "
+          f"gradients within {res['worst'][0]:.3e} of each leaf's largest "
+          f"element (worst {res['worst'][1]}); step seconds "
+          f"{' '.join(f'{t:.6f}' for t in res['seconds'])} (two ranks share "
+          f"the card: not a speed); peak {peak:.2f} GiB; {wall:.1f} s in all")
+    for s, (counts, nbytes) in enumerate(res["comms"]):
+        print(f"  step {s} collectives (rank 0, CommDebugMode): {counts}; "
+              f"operand bytes {nbytes}")
+    print(f"  launch.dryrun.train_collective_bytes for this mesh (bf16 "
+          f"parameters, per device): {planned}")
+    for r, run in enumerate(runs):
+        if run["wrong"]:
+            raise AssertionError(f"model parallel rank {r}: local shards "
+                                 f"{run['wrong'][:4]} != their placements")
+        if not run["worst"][0] <= MP_GRAD_TOL:
+            raise AssertionError(f"model parallel rank {r}: gradient "
+                                 f"{run['worst']} over {MP_GRAD_TOL}")
+        far = [(a, b) for a, b in zip(run["losses"], ref_losses)
+               if not abs(a - b) <= MP_LOSS_RTOL * abs(b)]
+        if far or not all(math.isfinite(v) for v in run["losses"]):
+            raise AssertionError(f"model parallel rank {r}: losses "
+                                 f"{run['losses']} vs {ref_losses}")
+    out["model_parallel"] = dict(losses=res["losses"], ref=ref_losses,
+                                 grad_err=res["worst"][0],
+                                 seconds=res["seconds"], peak_gib=peak,
+                                 comms=res["comms"], planned=planned)
+
+
 @contextlib.contextmanager
 def sparse_gossips(torch, record: list, errs: list | None = None):
     """Every sparse gather that `MixingOp` launches inside the block:
@@ -5022,7 +5272,7 @@ def lm_dagm_rounds(torch, out: dict) -> None:
     launches are held one by one in (a); its y gossips compose the
     quantizer with the same row-3 launches, its x gossip is row 3f);
     (c) timed: seconds per round, its metrics and every leaf of y
-    bitwise (a)'s, x within LM_DAGM_X_RTOL, then one more round
+    bitwise (a)'s, x too, then one more round
     profiled for the idle share;
     peak, the losses, consensus_x.  All under deterministic algorithms;
     the runs' results are compared on the card, leaf by leaf, against a
@@ -5182,15 +5432,12 @@ def lm_dagm_rounds(torch, out: dict) -> None:
                     apart[f"y{i - 1}" if i else "x"] = (
                         (h != d).sum().item(),
                         (h.float() - d.float()).abs().max().item())
-            x_far = ((x - got[0].to("cuda")).abs()
-                     > LM_DAGM_X_RTOL * got[0].to("cuda").abs()).any()
             del got
-            if set(apart) - {"x"} or x_far or timed_m != metrics:
+            if apart or timed_m != metrics:
                 raise AssertionError(
                     f"lm dagm {comm}: the timed run is not the counted "
                     f"run: leaves apart (elements, largest |difference|) "
-                    f"{apart} (x held to {LM_DAGM_X_RTOL} relative); "
-                    f"metrics {timed_m} against {metrics}")
+                    f"{apart}; metrics {timed_m} against {metrics}")
             k = LM_DAGM_ROUNDS
             ch = round_channels(spec, x, y, 0, k)
             busy = profile_run(torch, lambda: step(x, y, batches[k], ch))
@@ -5207,9 +5454,8 @@ def lm_dagm_rounds(torch, out: dict) -> None:
                     math.isfinite(v) for m in timed_m for v in m.values()):
                 raise AssertionError(f"lm dagm {comm}: the timed run's "
                                      f"metrics differ or are not finite")
-            print(f"  {comm}: the timed run's y and metrics bitwise the "
-                  f"counted run's, x "
-                  f"{'bitwise' if 'x' not in apart else apart['x']}")
+            print(f"  {comm}: the timed run's x, y and metrics bitwise "
+                  f"the counted run's")
             print(f"  {comm}: {median(seconds):.6f} s per round (median of "
                   f"{LM_DAGM_ROUNDS}); peak {peak:.2f} GiB; idle share of "
                   f"round {k} "
@@ -5254,6 +5500,9 @@ def train_phase(torch, out: dict) -> None:
     t0 = time.perf_counter()
     train_card_vs_cpu(torch)
     train_launcher_run(torch)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    train_model_parallel(torch, out)
     print(f"  ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     lm_dagm_rounds(torch, out)

@@ -80,9 +80,15 @@ def build_dagm_bilevel(cfg, *, seq_len: int, batch_per_agent: int,
     def g_fn(x, y, batch):
         wd = 1e-5 * torch.exp(torch.clamp(x[D], -3.0, 3.0))
         # each leaf's norm in f32, as `repro` squares an f32 copy; the
-        # norm's autodiff keeps the leaf itself, not an f32 copy of it
-        l2 = sum(torch.linalg.vector_norm(p, dtype=torch.float32).square()
-                 for p in tree_leaves(y))
+        # norm's autodiff keeps the leaf itself, not an f32 copy of it.
+        # The leaves' squares are stacked and summed in one reduction: in
+        # the cross term's second derivative, x_D's terms from the leaves
+        # then meet in that stack in leaf order, where a sum of scalars
+        # would add them in whatever order autograd's engine runs the
+        # leaves' branches (which varies from run to run on the card)
+        l2 = torch.stack([
+            torch.linalg.vector_norm(p, dtype=torch.float32).square()
+            for p in tree_leaves(y)]).sum()
         return weighted_ce(x, y, batch["train"], True) + 0.5 * wd * l2
 
     def f_fn(x, y, batch):

@@ -17,6 +17,7 @@ GB/s each way).
 from __future__ import annotations
 
 import math
+import os
 import socket
 
 import torch
@@ -34,11 +35,18 @@ def _free_port() -> int:
 
 
 def _ensure_group(device_type: str) -> None:
-    """A default process group: the caller's, else this process alone."""
-    if not dist.is_initialized():
+    """A default process group: the caller's; else the one `torchrun`
+    describes in the environment (RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT); else this process alone."""
+    if dist.is_initialized():
+        return
+    backend = "nccl" if device_type == "cuda" else "gloo"
+    if all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                                     "MASTER_PORT")):
+        dist.init_process_group(backend, init_method="env://")
+    else:
         dist.init_process_group(
-            "nccl" if device_type == "cuda" else "gloo",
-            init_method=f"tcp://localhost:{_free_port()}", rank=0,
+            backend, init_method=f"tcp://localhost:{_free_port()}", rank=0,
             world_size=1)
 
 

@@ -11,16 +11,25 @@ the reduced config so the same launcher runs on the CPU.  The card is the
 default device; `--device cpu` runs on the CPU (gloo).
 
 Data parallelism is the mesh's "data" dim: each rank takes its rows of
-the global batch, and the step averages the loss, the metrics and the
-gradients over the dim (all-reduce SUM / n).  Model parallelism
-(`--model-parallel > 1`, the parameters laid out by
-`tree_param_sharding`'s placements as DTensors) is not ported and is
-refused (ROADMAP item 12d).
+the global batch.  With `--model-parallel 1` the step averages the loss,
+the metrics and the gradients over the dim (all-reduce SUM / n), and
+every rank holds the whole parameters (`repro` shards them over "fsdp"
+even then: memory only, the same results).  Model parallelism
+(`--model-parallel k > 1`, the mesh (n / k, k) over the group's n
+ranks): the parameters are laid out as DTensors on
+`tree_param_sharding`'s placements (`distributed.sharding
+.distribute_params`; "fsdp" shards over "data", "vocab", "heads",
+"ffn" over "model"), each rank feeds its rows as a `DTensor` sharded
+over "data" and replicated over "model", and the step runs under the
+rules (`make_train_step(rules=)`), DTensor's propagation inserting the
+collectives.
 
 Checkpoints hold the parameters in `repro`'s layout
 (`interop.stack_layers`), so `repro.checkpoint` restores them into
-`repro`'s model; as `repro`'s launcher, a resumed run starts its
-optimizer state afresh.
+`repro`'s model; under model parallelism every rank gathers each leaf
+whole and rank (0, 0) writes, and a resume lays out what every rank
+reads.  As `repro`'s launcher, a resumed run starts its optimizer state
+afresh.
 """
 from __future__ import annotations
 
@@ -29,12 +38,14 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .._device import resolve_device
 from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..configs import get_config
 from ..data import TokenDataConfig, make_token_batch
-from ..distributed.sharding import make_rules
+from ..distributed.sharding import (distribute_params, gather_params,
+                                   make_rules)
 from ..interop import stack_layers, unstack_layers
 from ..models import build_model
 from ..models.layers import param_tree
@@ -78,11 +89,6 @@ def main(argv=None):
     import torch.distributed as dist
     args = _args(argv)
     device = resolve_device(args.device)
-    if args.model_parallel > 1:
-        raise ValueError(
-            f"--model-parallel {args.model_parallel}: model parallelism "
-            f"(parameters as DTensors on tree_param_sharding's placements) "
-            f"is not ported; ROADMAP item 12d")
     own_group = not dist.is_initialized()
     try:
         return _run(args, device)
@@ -101,7 +107,7 @@ def _run(args, device) -> int:
                           device_type=device.type)
     rules = make_rules(cfg, mesh)
     axes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
-    n_data = axes["data"]
+    n_data, sharded = axes["data"], axes["model"] > 1
     rank = mesh.get_local_rank("data")
     if args.global_batch % n_data:
         raise ValueError(f"global batch {args.global_batch} does not split "
@@ -118,20 +124,32 @@ def _run(args, device) -> int:
                                global_batch=args.global_batch,
                                seed=args.seed)
     params = param_tree(model.init(seed=args.seed, device=device))
-    opt_state = opt.init(params)
-    step_fn = make_train_step(model, opt, microbatches=args.microbatches,
-                              data_mesh=mesh if n_data > 1 else None)
-
     start = 0
     if args.ckpt_dir and (s := latest_step(args.ckpt_dir)) is not None:
         params = unstack_layers(restore_checkpoint(
             args.ckpt_dir, s, stack_layers(params)))
         start = s
         print(f"[train] restored step {s}")
+    if sharded:
+        params = distribute_params(params, model.param_axes(), rules)
+    opt_state = opt.init(params)
+    step_fn = make_train_step(
+        model, opt, microbatches=args.microbatches,
+        data_mesh=mesh if n_data > 1 and not sharded else None,
+        rules=rules if sharded else None)
 
     def save(step):
+        full = gather_params(params)        # a collective under sharding
         if rank == 0 and mesh.get_local_rank("model") == 0:
-            save_checkpoint(args.ckpt_dir, step, stack_layers(params))
+            save_checkpoint(args.ckpt_dir, step, stack_layers(full))
+
+    def feed(v):
+        v = v[rows]
+        if not sharded:
+            return v
+        return DTensor.from_local(
+            v, mesh, rules.placements("batch", *[None] * (v.dim() - 1)),
+            run_check=False)
 
     losses = []
     t0 = time.time()
@@ -140,7 +158,7 @@ def _run(args, device) -> int:
         if cfg.encoder_decoder:
             batch["frames"] = frames_for(cfg, step, args.global_batch,
                                          device)
-        batch = {k: v[rows] for k, v in batch.items()}
+        batch = {k: feed(v) for k, v in batch.items()}
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         losses.append(float(metrics["loss"]))
         if step % args.log_every == 0 or step == args.steps - 1:

@@ -30,7 +30,9 @@ from typing import Any
 import torch
 from torch import nn
 
-from ..distributed.sharding import shard
+from ..distributed.sharding import (as_dtensor, current_rules, is_sharded,
+                                   on_local_shards, reduce_local, shard,
+                                   shard_start)
 from ..kernels import ops as kops
 from ..kernels.flash_attention import MAX_HEAD_DIM
 
@@ -148,8 +150,46 @@ def init_embedding(mk: Maker, vocab: int, d: int) -> dict:
 
 
 def embed(p: Params, tokens):
-    out = p["table"][tokens]
+    if is_sharded(p["table"]):
+        out = vocab_parallel_embed(p["table"], tokens)
+    else:
+        out = p["table"][tokens]
     return shard(out, "batch", None, None)
+
+
+def vocab_parallel_embed(table, tokens):
+    """`table[tokens]` with the table's rows (the vocabulary) sharded over
+    the mesh, in the manner of Megatron: each rank looks its tokens up in
+    its own rows (0 for tokens outside them) and the ranks' lookups are
+    summed (`reduce_local`).  Other dims of the table (fsdp) are gathered
+    first.  The table's gradient is its rank's rows, partial over the
+    mesh dims that shard the tokens; the output keeps the tokens' rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    tokens = as_dtensor(tokens, mesh)
+    rows = tokens.placements
+    vocab = tuple(Shard(0) if p == Shard(0) else Replicate()
+                  for p in table.placements)
+    vdims = [i for i, p in enumerate(vocab) if p == Shard(0)]
+    if len(vdims) > 1 or any(isinstance(rows[i], Shard) for i in vdims):
+        raise ValueError(f"the vocabulary shards over mesh dims {vdims}, "
+                         f"the tokens over {rows}: one dim, not the same")
+    local = table.redistribute(mesh, vocab).to_local(grad_placements=tuple(
+        Partial() if isinstance(r, Shard) else v
+        for r, v in zip(rows, vocab)))
+    tok = tokens.to_local()
+    if vdims:
+        ids = tok - shard_start(table.shape[0], mesh, vdims[0])
+        inside = (ids >= 0) & (ids < local.shape[0])
+        out = torch.nn.functional.embedding(torch.where(inside, ids, 0),
+                                            local)
+        out = torch.where(inside[..., None], out, torch.zeros_like(out))
+        out = reduce_local(out, mesh, rows, vdims)
+    else:
+        out = torch.nn.functional.embedding(tok, local)
+    return DTensor.from_local(out, mesh, tuple(
+        r if isinstance(r, Shard) else Replicate() for r in rows),
+        run_check=False)
 
 
 def logits_out(p: Params, x):
@@ -203,6 +243,8 @@ def sdpa_with_spec(q, k, v, dtype, *, causal: bool, window: int = 0):
     ATTN_Q_CHUNK (O(bq·T) live scores instead of O(S·T)).  `repro`'s
     `kv_valid` is not needed: the prefill attends over the slots it just
     wrote (`attention`)."""
+    if is_sharded(q):
+        return _sdpa_sharded(q, k, v, dtype, causal=causal, window=window)
     B, S, H, hd = q.shape
     T = k.shape[1]
 
@@ -223,6 +265,39 @@ def sdpa_with_spec(q, k, v, dtype, *, causal: bool, window: int = 0):
     bq = ATTN_Q_CHUNK
     return torch.cat([_sdpa(q[:, q0:q0 + bq], k, v, mask_for(q0, bq), dtype)
                       for q0 in range(0, S, bq)], dim=1)
+
+
+def _sdpa_sharded(q, k, v, dtype, *, causal: bool, window: int = 0):
+    """`sdpa_with_spec` on DTensors: attention is independent across rows
+    and heads, so each rank attends its rows ("batch") and query heads
+    ("heads") on its own (`on_local_shards`).  Where the kv heads shard
+    over the same mesh dims (`make_rules` shards both only where they
+    divide), its kv heads are the ones its query heads read; else k and v
+    come whole over the heads and each local query head takes the kv head
+    it reads (h // (H / Hkv))."""
+    from torch.distributed.tensor import Shard
+    rules = current_rules()
+    mesh = q.device_mesh
+    H, Hkv = q.shape[2], k.shape[2]
+    qa, kva = ("batch", None, "heads", None), ("batch", None, "kv_heads", None)
+    hdims = [i for i, a in enumerate(rules.placements(*qa)) if a == Shard(2)]
+    if hdims == [i for i, a in enumerate(rules.placements(*kva))
+                 if a == Shard(2)]:
+        def fn(q_l, k_l, v_l):
+            return sdpa_with_spec(q_l, k_l, v_l, dtype, causal=causal,
+                                  window=window)
+    else:
+        kva = ("batch", None, None, None)
+        if len(hdims) > 1:
+            raise ValueError(f"query heads shard over mesh dims {hdims}")
+        first = shard_start(H, mesh, hdims[0]) if hdims else 0
+
+        def fn(q_l, k_l, v_l):
+            reads = (first + torch.arange(q_l.shape[2], device=q_l.device)
+                     ) // (H // Hkv)
+            return sdpa_with_spec(q_l, k_l[:, :, reads], v_l[:, :, reads],
+                                  dtype, causal=causal, window=window)
+    return on_local_shards(fn, (q, k, v), (qa, kva, kva), qa)
 
 
 def kernel_route(S: int, hd: int) -> bool:

@@ -27,6 +27,8 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
+from ..distributed.sharding import (as_dtensor, is_sharded, reduce_local,
+                                   shard_start)
 from . import transformer as tf
 from . import whisper as wp
 from .layers import Maker
@@ -38,6 +40,8 @@ AUX_LOSS_WEIGHT = 0.01
 
 def cross_entropy(logits, labels, vocab_size: int):
     """Mean next-token CE; ignores labels < 0; masks vocab padding."""
+    if is_sharded(logits):
+        return vocab_parallel_cross_entropy(logits, labels, vocab_size)
     V = logits.shape[-1]
     if V > vocab_size:
         pad = torch.arange(V, device=logits.device) >= vocab_size
@@ -49,6 +53,57 @@ def cross_entropy(logits, labels, vocab_size: int):
                         torch.clamp(labels, min=0)[..., None].long())[..., 0]
     mask = (labels >= 0).float()
     return torch.sum((lse - true) * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def vocab_parallel_cross_entropy(logits, labels, vocab_size: int):
+    """`cross_entropy` on (B, S, V) logits whose vocabulary is sharded over
+    the mesh, in the manner of Megatron: each rank holds its columns, the
+    pad columns among them masked; the row max (all-reduce MAX, no
+    gradient), the sum of exponentials and the true logit (each rank's
+    own columns, all-reduce SUM) are reduced with `reduce_local`, then
+    the masked mean over the rows, which the labels' layout may shard.
+    Returns the loss replicated over the mesh."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = logits.device_mesh
+    labels = as_dtensor(labels, mesh)
+    rows = labels.placements
+    layout = tuple(r if isinstance(r, Shard) else
+                   (p if p == Shard(2) else Replicate())
+                   for r, p in zip(rows, logits.placements))
+    vdims = [i for i, p in enumerate(layout) if p == Shard(2)]
+    local = logits.redistribute(mesh, layout).to_local(
+        grad_placements=layout).float()
+    lab = labels.to_local()
+    n_cols = local.shape[-1]
+    start = shard_start(logits.shape[-1], mesh, vdims[0]) if vdims else 0
+    if logits.shape[-1] > vocab_size:
+        pad = start + torch.arange(n_cols, device=local.device) >= vocab_size
+        local = torch.where(pad[None, None], torch.full_like(local, -1e30),
+                            local)
+    with torch.no_grad():
+        top = local.amax(-1)
+        if vdims:
+            top = reduce_local(top, mesh, rows, vdims, "max")
+    sumexp = torch.exp(local - top[..., None]).sum(-1)
+    ids = torch.clamp(lab, min=0) - start
+    inside = (ids >= 0) & (ids < n_cols)
+    true = torch.gather(local, -1, torch.where(inside, ids, 0)[..., None]
+                        )[..., 0]
+    true = torch.where(inside, true, torch.zeros_like(true))
+    if vdims:
+        sumexp = reduce_local(sumexp, mesh, rows, vdims)
+        true = reduce_local(true, mesh, rows, vdims)
+    mask = (lab >= 0).float()
+    total = torch.sum((torch.log(sumexp) + top - true) * mask)
+    count = mask.sum()
+    bdims = [i for i, r in enumerate(rows) if isinstance(r, Shard)]
+    if bdims:
+        scalar = (Replicate(),) * mesh.ndim
+        total = reduce_local(total, mesh, scalar, bdims)
+        count = reduce_local(count, mesh, scalar, bdims)
+    loss = total / torch.clamp(count, min=1.0)
+    return DTensor.from_local(loss, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import shard
+from ..distributed.sharding import is_sharded, shard
 from .layers import Maker, Params
 
 
@@ -80,11 +80,26 @@ def _moe_grouped(p: Params, x, cfg):
 
 def _moe_dispatch(p: Params, xt, cfg):
     """Single routing domain: xt (T, D) -> (out (T, D), aux scalar)."""
+    if is_sharded(xt):
+        return _moe_dispatch_sharded(p, xt, cfg)
     T, D = xt.shape
-    E, k = cfg.num_experts, cfg.top_k
-    C = expert_capacity(T, E, k, cfg.capacity_factor)
-
+    E = cfg.num_experts
     logits = (xt @ p["router"]).float()                        # (T, E)
+    aux, st, sg, keep, dest, C = _route_plan(logits, cfg)
+    buf = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
+    buf[dest] = xt[st]
+    buf = shard(buf[:E * C].reshape(E, C, D), "experts", None, None)
+    out_flat = _expert_ffn(p, buf).reshape(E * C, D)
+    return _combine(out_flat, st, sg, keep, dest, T), aux
+
+
+def _route_plan(logits, cfg):
+    """The router's plan for (T, E) logits: (aux, and of the T·k choices
+    sorted by expert: token st, gate sg, kept under capacity C, buffer
+    slot dest (E·C where dropped), C)."""
+    T, E = logits.shape
+    k = cfg.top_k
+    C = expert_capacity(T, E, k, cfg.capacity_factor)
     probs, gate, eidx = _route(logits, k)                      # (T, k)
 
     # ---- load-balance auxiliary loss (Switch-style) ----
@@ -94,7 +109,7 @@ def _moe_dispatch(p: Params, xt, cfg):
 
     # ---- sort/gather dispatch ----
     flat_e = eidx.reshape(-1)                                  # (T*k,)
-    flat_t = torch.arange(T, device=xt.device).repeat_interleave(k)
+    flat_t = torch.arange(T, device=logits.device).repeat_interleave(k)
     flat_g = gate.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     se, st, sg = flat_e[order], flat_t[order], flat_g[order]
@@ -104,18 +119,48 @@ def _moe_dispatch(p: Params, xt, cfg):
     counts = torch.zeros(E, dtype=se.dtype, device=se.device).index_add_(
         0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
-    slot = torch.arange(T * k, device=xt.device) - starts[se]
+    slot = torch.arange(T * k, device=logits.device) - starts[se]
     keep = slot < C                                            # drop overflow
     dest = torch.where(keep, se * C + slot, E * C)             # E*C: dropped
+    return aux, st, sg, keep, dest, C
 
-    buf = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
-    buf[dest] = xt[st]
-    buf = shard(buf[:E * C].reshape(E, C, D), "experts", None, None)
-    out_flat = _expert_ffn(p, buf).reshape(E * C, D)
+
+def _combine(out_flat, st, sg, keep, dest, T: int):
+    """Each token's gate-weighted sum of its kept experts' outputs."""
+    EC, D = out_flat.shape
+    dtype, device = out_flat.dtype, out_flat.device
     contrib = torch.where(
         keep[:, None],
-        out_flat[torch.clamp(dest, max=E * C - 1)] * sg[:, None].to(xt.dtype),
-        torch.zeros((), dtype=xt.dtype, device=xt.device))
-    out = torch.zeros((T, D), dtype=xt.dtype,
-                      device=xt.device).index_add_(0, st, contrib)
-    return out, aux
+        out_flat[torch.clamp(dest, max=EC - 1)] * sg[:, None].to(dtype),
+        torch.zeros((), dtype=dtype, device=device))
+    return torch.zeros((T, D), dtype=dtype, device=device).index_add_(
+        0, st, contrib)
+
+
+def _moe_dispatch_sharded(p: Params, xt, cfg):
+    """`_moe_dispatch` on a `DTensor` xt: routing is over all T tokens, as
+    in one process, so every rank routes every token (xt and the router's
+    logits gathered whole) and fills the capacity buffer from its own
+    copy; the experts run on the buffer as DTensor ops (their FFN sharded
+    on "ffn"), and each rank combines the gathered outputs.  out keeps
+    xt's layout; aux is replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = xt.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+    xw = xt.redistribute(mesh, whole)
+    logits = (xw @ p["router"]).float().redistribute(mesh, whole).to_local()
+    x_local = xw.to_local()
+    T, D = x_local.shape
+    E = cfg.num_experts
+    aux, st, sg, keep, dest, C = _route_plan(logits, cfg)
+    buf = torch.zeros((E * C + 1, D), dtype=x_local.dtype,
+                      device=x_local.device)
+    buf[dest] = x_local[st]
+    buf = DTensor.from_local(buf[:E * C].reshape(E, C, D), mesh, whole,
+                             run_check=False)
+    buf = shard(buf, "experts", None, None)
+    out_flat = _expert_ffn(p, buf).redistribute(mesh, whole).to_local()
+    out = _combine(out_flat.reshape(E * C, D), st, sg, keep, dest, T)
+    out = DTensor.from_local(out, mesh, whole, run_check=False)
+    return out.redistribute(mesh, xt.placements), \
+        DTensor.from_local(aux, mesh, whole, run_check=False)

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import shard
+from ..distributed.sharding import is_sharded, on_local_shards, shard
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from .layers import Maker, Params, rmsnorm
@@ -108,12 +108,30 @@ def rwkv_wkv_scan(r, k, v, logw, u, S0=None, *, final_state: bool = True):
     S_T None where not `final_state` (a forward with no cache).
 
     From a zero state `ops.wkv` (the kernel where its route applies);
-    from S0 the step-by-step plain recurrence."""
+    from S0 the step-by-step plain recurrence.  On `DTensor`s each rank
+    runs it on its own rows and heads (`_wkv_scan_sharded`)."""
+    if is_sharded(r):
+        return _wkv_scan_sharded(r, k, v, logw, u, S0,
+                                 final_state=final_state)
     if S0 is not None:
         return kref.rwkv6_ref(r, k, v, logw, u, S0)
     if final_state:
         return kops.wkv(r, k, v, logw, u, chunk=WKV_CHUNK, return_state=True)
     return kops.wkv(r, k, v, logw, u, chunk=WKV_CHUNK), None
+
+
+def _wkv_scan_sharded(r, k, v, logw, u, S0, *, final_state: bool):
+    """`rwkv_wkv_scan` on DTensors: the recurrence is independent across
+    rows and heads, so each rank runs it (the kernel's route or the plain
+    one, as the switch says) on its rows ("batch") and heads
+    ("rwkv_heads"), `on_local_shards`, and its outputs keep that
+    layout."""
+    seq = ("batch", None, "rwkv_heads", None)
+    state = ("batch", "rwkv_heads", None, None)
+    return on_local_shards(
+        lambda *a: rwkv_wkv_scan(*a, final_state=final_state),
+        (r, k, v, logw, u, S0), (seq,) * 4 + (("rwkv_heads", None), state),
+        [seq, state])
 
 
 def rwkv_time_mix(p: Params, x, cfg, state=None, *, fresh: bool = False):
@@ -215,6 +233,20 @@ def mamba_ssd_scan(xh, Bm, Cm, dt, a_log, S0):
     return torch.stack(ys, dim=1), S
 
 
+def _ssd_scan_sharded(xh, Bm, Cm, dt, a_log, S0):
+    """`mamba_ssd_scan` on DTensors: each rank scans its rows ("batch")
+    and heads ("ffn"), `on_local_shards`; B and C, which every head
+    reads, come back with gradients partial over the dims that shard the
+    heads, and A_log's over the dims that shard the rows."""
+    heads = ("batch", None, "ffn", None)
+    state = ("batch", "ffn", None, None)
+    rows = ("batch", None, None)
+    return on_local_shards(
+        mamba_ssd_scan, (xh, Bm, Cm, dt, a_log, S0),
+        (heads, rows, rows, ("batch", None, "ffn"), ("ffn",), state),
+        [heads, state])
+
+
 def mamba2(p: Params, x, cfg, state=None):
     """x: (B,T,D). state: None or {"conv": (B,K-1,d_inner),
     "S": (B,H,hd,N)}.  Returns (out, new_state)."""
@@ -233,8 +265,9 @@ def mamba2(p: Params, x, cfg, state=None):
     xh = xin.reshape(B, T, H, hd)
     S0 = torch.zeros((B, H, hd, N), dtype=torch.float32, device=x.device) \
         if state is None else state["S"]
-    y, S = mamba_ssd_scan(xh.float(), Bm.float(), Cm.float(), dt.float(),
-                          p["A_log"].float(), S0)
+    scan = _ssd_scan_sharded if is_sharded(xh) else mamba_ssd_scan
+    y, S = scan(xh.float(), Bm.float(), Cm.float(), dt.float(),
+                p["A_log"].float(), S0)
     y = y + p["D"][None, None, :, None] * xh.float()
     y = (y.reshape(B, T, d_inner).to(x.dtype)) * z
     out = y @ p["out"]

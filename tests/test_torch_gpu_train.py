@@ -14,7 +14,9 @@ Every test needs a CUDA device and skips without one; on the H100 run
   LocalRing(4) — every leaf gossip on the padded gather (rows 3 / 3f) —
   and LocalRing(8) — on the circulant kernels (rows 1 / 1f) — with exact
   launch counts on the identity wire and int8+ef, and no flash-attention
-  launch.
+  launch;
+* the bilevel LM round three times from one draw after training steps,
+  the allocator churned between runs: x, y and the metrics bitwise.
 """
 from __future__ import annotations
 
@@ -118,3 +120,44 @@ def test_lm_round_launches(cuda, n, comm):
         got[k.replace("_unstaged", "")] += v
     assert got == want
     assert torch.isfinite(m["outer_loss"]) and torch.isfinite(x1).all()
+
+
+def test_lm_round_bitwise_across_runs(cuda):
+    """The round on LocalRing(4, agent_chunk=1) three times from the same
+    draw, after training steps and with the allocator churned between
+    runs: x, y and the metrics bitwise.  x_D's hyper-gradient sums a term
+    of every leaf; g stacks the leaves' squared norms, so the terms meet
+    in one reduction in leaf order, not in autograd's engine in the
+    order it runs the leaves' branches (which moved x_D by an ulp between
+    runs on the card)."""
+    cfg = reduced_depth(get_config("qwen3-4b").reduced(), 1)
+    model = build_model(cfg)
+    params = param_tree(model.init(seed=0, device=cuda))
+    opt = adamw(1e-3)
+    state = opt.init(params)
+    step_fn = make_train_step(model, opt)
+    for s in range(2):
+        params, state, _ = step_fn(params, state, _batch(cfg, s, cuda))
+    spec = sharded_spec(comm="identity", **SPEC)
+    g_fn, f_fn = dd.build_dagm_bilevel(cfg, seq_len=128, batch_per_agent=2,
+                                       dcfg=spec)
+    ring = LocalRing(4, cuda, agent_chunk=1)
+    step, _ = make_sharded_dagm(g_fn, f_fn, spec, ring)
+    batch = dd.agent_batches(cfg, 4, 128, 2, 0, device=cuda)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    runs = []
+    try:
+        for churn in (0, 1 << 28, 1 << 20):
+            del_me = torch.empty(churn, dtype=torch.uint8, device=cuda)
+            del del_me
+            y = dd.init_agents(model, 4, seed=0, device=cuda)
+            x = torch.zeros((4, dd.N_DOMAINS + 1), device=cuda)
+            for k in range(2):
+                x, y, m, _ = step(x, y, batch,
+                                  round_channels(spec, x, y, 0, k))
+            runs.append([x] + tree_flatten(y)[0] + list(m.values()))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))

@@ -1,7 +1,7 @@
 """The decentralized bilevel LM round (`repro_torch.launch.dagm_dryrun`)
 against `repro`'s on the CPU.
 
-`repro`'s side runs in one module-scoped subprocess: its sharded tier
+`repro`'s side runs in module-scoped subprocesses: its sharded tier
 needs 8 host devices, which jax grants only through XLA_FLAGS at process
 start, and importing `repro.launch.dagm_dryrun` rewrites XLA_FLAGS (to
 512 devices), so the subprocess starts jax on 8 devices first and
@@ -43,6 +43,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map
 
 from test_torch_sharded import Tokens, _agent_uniforms
+from test_torch_train import one_cpu_thread  # noqa: F401  (autouse)
 
 from repro_torch.configs import get_config
 from repro_torch.distributed import (LocalRing, make_sharded_dagm,
@@ -101,18 +102,20 @@ one = jax.tree.map(lambda t: t[0], batch(n_max))
 y_one = jax.tree.map(lambda t: t[0], y0)
 both = jax.jit(lambda *a: [jax.value_and_grad(fn, argnums=(0, 1))(*a)
                            for fn in (g_fn, f_fn)])
-for name, (val, (gx, gy)) in zip(("g", "f"), both(x0[0], y_one, one)):
+for name, (val, (gx, gy)) in zip(("g", "f"), both(x0[0], y_one, one)
+                                 if {objectives!r} else ()):
     out[f"{{name}}_val"] = np.asarray(val)
     out[f"{{name}}_gx"] = np.asarray(gx)
     for i, leaf in enumerate(jax.tree.leaves(gy)):
         out[f"{{name}}_gy_{{i}}"] = np.asarray(leaf)
-y_bf = jax.tree.map(lambda t: t.astype(jnp.bfloat16), y_one)
-val, (gx, gy) = jax.jit(jax.value_and_grad(g_fn, argnums=(0, 1)))(
-    x0[0], y_bf, one)
-out["gbf16_val"], out["gbf16_gx"] = np.asarray(val), np.asarray(gx)
-for i, leaf in enumerate(jax.tree.leaves(gy)):
-    out[f"gbf16_gy_{{i}}"] = np.asarray(leaf.astype(jnp.float32))
-for n, comm in [(n, "identity") for n in {ns!r}] + [(4, "int8+ef")]:
+if {objectives!r}:
+    y_bf = jax.tree.map(lambda t: t.astype(jnp.bfloat16), y_one)
+    val, (gx, gy) = jax.jit(jax.value_and_grad(g_fn, argnums=(0, 1)))(
+        x0[0], y_bf, one)
+    out["gbf16_val"], out["gbf16_gx"] = np.asarray(val), np.asarray(gx)
+    for i, leaf in enumerate(jax.tree.leaves(gy)):
+        out[f"gbf16_gy_{{i}}"] = np.asarray(leaf.astype(jnp.float32))
+for n, comm in {rounds!r}:
     spec = sharded_spec(comm=comm, **{spec!r})
     mesh = Mesh(np.array(jax.devices()[:n]).reshape(n), ("data",))
     step, _ = make_sharded_dagm(g_fn, f_fn, spec, mesh)
@@ -144,21 +147,41 @@ def inputs():
     return b, x0
 
 
+# `repro`'s side in three subprocesses started together, each compiling
+# its own rounds: the objectives and the identity round at n = 4, the
+# identity round at n = 8, the int8+ef round
+PARTS = ((True, [(RING_NS[0], "identity")]),
+         (False, [(RING_NS[1], "identity")]), (False, [(4, "int8+ef")]))
+
+
 @pytest.fixture(scope="module")
 def jr(inputs, tmp_path_factory):
     b, x0 = inputs
     d = tmp_path_factory.mktemp("dagm_lm")
-    inp, path = str(d / "inputs.npz"), str(d / "repro.npz")
+    inp = str(d / "inputs.npz")
     np.savez(inp, x0=x0, **{f"{s}_{k}": v.numpy() for s in b
                             for k, v in b[s].items()})
-    script = SCRIPT.format(src=str(SRC), inp=inp, arch=ARCH, ns=RING_NS,
-                           spec=SPEC, seq=SEQ, bpa=BPA, key=ROUND_KEY,
-                           path=path)
-    out = subprocess.run([sys.executable, "-c", script],
-                         capture_output=True, text=True, timeout=600,
-                         env=dict(os.environ, JAX_PLATFORMS="cpu"))
-    assert out.returncode == 0, out.stderr[-3000:]
-    return dict(np.load(path))
+    paths = [str(d / f"repro{i}.npz") for i in range(len(PARTS))]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SCRIPT.format(
+            src=str(SRC), inp=inp, arch=ARCH, ns=RING_NS, spec=SPEC,
+            seq=SEQ, bpa=BPA, key=ROUND_KEY, path=path,
+            objectives=objectives, rounds=rounds)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        for (objectives, rounds), path in zip(PARTS, paths)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=600)
+            assert p.returncode == 0, err[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    out = {}
+    for path in paths:
+        out.update(np.load(path))
+    return out
 
 
 def build_model_j(cfg):
@@ -352,3 +375,73 @@ def test_identity_round_matches_repro(jr, inputs, n, agent_chunk):
 def test_int8_ef_round_on_repros_uniforms(jr, inputs, monkeypatch):
     spec, _, res = _round(jr, inputs, 4, "int8+ef", monkeypatch)
     _close(res, jr, "r4_int8+ef", rel=True)
+
+
+def _cross_term_inputs():
+    cfg = _cfg()
+    g_fn, _ = dd.build_dagm_bilevel(cfg, seq_len=SEQ, batch_per_agent=BPA)
+    leaves, spec = tree_flatten(param_tree(build_model(cfg).init(
+        seed=0, device="cpu")))
+    gen = torch.Generator().manual_seed(1)
+    h = [torch.randn(t.shape, generator=gen) for t in leaves]
+    b = dd.agent_batches(cfg, 1, SEQ, BPA, 0, device="cpu")
+    one = {s: {k: v[0] for k, v in d.items()} for s, d in b.items()}
+    x = 0.3 * torch.randn(dd.N_DOMAINS + 1, generator=gen)
+    return g_fn, leaves, spec, h, one, x
+
+
+def test_x_d_terms_meet_in_one_stack():
+    """The cross term's x-gradient (the second derivative of g, as
+    `dagm_local_round`'s `cross_one` takes it) sums no pair of scalars in
+    autograd's engine: x_D's terms from the leaves meet in g's stack of
+    the leaves' squared norms, in leaf order.  A sum of the leaves'
+    scalars would leave their order to the engine, which runs the
+    leaves' branches in an order that varied from run to run on the card
+    (one ulp of x_D in one agent)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_unflatten
+
+    class ScalarAdds(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.__name__ == "add.Tensor" and all(
+                    isinstance(a, torch.Tensor) and a.numel() == 1
+                    for a in args[:2]):
+                self.count += 1
+            return func(*args, **(kwargs or {}))
+
+    g_fn, leaves, spec, h, one, x = _cross_term_inputs()
+    xx = x.clone().requires_grad_()
+    live = [t.detach().requires_grad_() for t in leaves]
+    gy = torch.autograd.grad(g_fn(xx, tree_unflatten(live, spec), one),
+                             live, create_graph=True)
+    inner = sum(torch.sum(a * b) for a, b in zip(gy, h))
+    adds = ScalarAdds()
+    with adds:
+        (gx,) = torch.autograd.grad(inner, xx)
+    assert adds.count == 0
+    assert torch.isfinite(gx).all() and gx[dd.N_DOMAINS] != 0
+
+
+def test_round_bitwise_across_runs_with_allocator_churn():
+    """Two runs of the round from the same draw, a large allocation freed
+    between them: x, y and the metrics bitwise."""
+    cfg = _cfg()
+    spec = sharded_spec(comm="identity", **SPEC)
+    g_fn, f_fn = dd.build_dagm_bilevel(cfg, seq_len=SEQ,
+                                       batch_per_agent=BPA, dcfg=spec)
+    ring = LocalRing(4, device="cpu", agent_chunk=1)
+    step, _ = make_sharded_dagm(g_fn, f_fn, spec, ring)
+    batch = dd.agent_batches(cfg, 4, SEQ, BPA, 0, device="cpu")
+    runs = []
+    for churn in (0, 1 << 26):
+        del_me = torch.empty(churn, dtype=torch.uint8)
+        del del_me
+        y = dd.init_agents(build_model(cfg), 4, seed=0, device="cpu")
+        x = torch.zeros((4, dd.N_DOMAINS + 1))
+        x, y, m, _ = step(x, y, batch, round_channels(spec, x, y, 0, 0))
+        runs.append([x] + tree_flatten(y)[0] + list(m.values()))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

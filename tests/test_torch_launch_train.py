@@ -1,9 +1,9 @@
 """The port's training launcher (`repro_torch.launch.train.main`) on the
 CPU: a `--smoke --device cpu` run, its checkpoints, a resume from
 `latest_step`, `repro.checkpoint` restoring the port's files into
-`repro`'s own parameter template, data parallelism over two gloo
-processes against one process on the global batch, and the refusal of
-model parallelism (ROADMAP item 12d).
+`repro`'s own parameter template, and data parallelism over two gloo
+processes against one process on the global batch (model parallelism:
+tests/test_torch_model_parallel.py).
 
 `repro`'s launcher itself is not run: outside a mesh its step is what
 tests/test_torch_train.py compares, and inside one
@@ -35,6 +35,8 @@ from repro.models import build_model as j_build_model
 from repro_torch.checkpoint import (checkpoint_steps, latest_step,
                                     load_arrays)
 from repro_torch.launch import train
+
+from test_torch_train import one_cpu_thread  # noqa: F401  (autouse)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 SMOKE = ["--arch", "qwen3-4b", "--smoke", "--device", "cpu",
@@ -100,11 +102,6 @@ def test_repro_checkpoint_reads_the_port_files(tmp_path):
         key = "/".join(str(p) for p in path)
         assert leaf.shape == want.shape and leaf.dtype == want.dtype
         np.testing.assert_array_equal(np.asarray(leaf), arrays[key])
-
-
-def test_model_parallel_is_refused():
-    with pytest.raises(ValueError, match="item 12d"):
-        train.main(SMOKE + ["--steps", "1", "--model-parallel", "2"])
 
 
 def test_whisper_frames_from_a_seeded_generator(capsys):

@@ -44,6 +44,18 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 LR, WARMUP, TOTAL = 3e-4, 1, 4
 B, S, STEPS = 4, 16, 2
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """Torch's CPU ops on one thread for the module.  The suite runs its
+    files in parallel workers, and torch's default of one thread per core
+    in each worker oversubscribes the cores several times over: a step
+    that takes 0.3 s alone took a minute under the whole suite.  Left at
+    one after the module: setting it back above one makes MKL's LU hang
+    in a later `torch.linalg.solve`."""
+    torch.set_num_threads(1)
+
+
 # (arch, microbatches, clip_norm): each architecture once, microbatches
 # 1 and 2 both taken, one case with clipping active; granite-moe-3b-a800m
 # (the aux loss) and whisper-large-v3 (frames) are in

@@ -9,6 +9,7 @@ from __future__ import annotations
 import pytest
 
 from test_torch_train import check_against_repro
+from test_torch_train import one_cpu_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("arch,microbatches", [
